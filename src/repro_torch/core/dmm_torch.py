@@ -1,0 +1,296 @@
+"""Tensorised, device-resident form of the compacted mapping (Algorithm 6).
+
+The PyTorch counterpart of ``repro.core.dmm_jax``, limited to what the
+fused consume path runs: the per-block lowering (:func:`compile_block`,
+:func:`compile_dpm`) and the fused block table (:func:`compile_fused`).
+
+The paper's final mapping function is a *set lookup*: for each dense set
+element ``(q, p)`` with value 1, move payload slot ``p`` to output slot
+``q``.  A compacted block becomes an index vector
+
+    src    : (n_out_pad,)   int32; src[q] = p  or  -1 ("null" / filtered)
+
+and the fused plan (:class:`FusedDMM`) stacks every block of a state into
+
+    src2d      (n_blocks_pad, W) int32   all block index vectors, stacked in
+               column order and right-padded with -1 to W = max(n_out_pad)
+    routes     block t emits to business entity routes[t] = (r, w)
+    n_out      true (unpadded) output width per block
+    columns    (o, v) -> FusedColumn: the column super-set as global block
+               ids plus the uid -> payload-slot lookup
+
+``src2d`` and the uid tables' device copies live on the plan's ``device``;
+everything else is host-side numpy.  The ``LANE`` / ``SUBLANE`` padding of
+the reference is kept as it is, so every table here equals the reference's
+byte for byte; the CUDA kernels do not need it (they mask their own edges).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .dmm import DPM, BlockKey
+from .registry import Registry
+
+__all__ = [
+    "LANE",
+    "SUBLANE",
+    "resolve_device",
+    "pad_to_lane",
+    "bucket_rows",
+    "uid_lookup_table",
+    "CompactedBlockMap",
+    "compile_block",
+    "compile_dpm",
+    "CompiledDMM",
+    "FusedColumn",
+    "FusedDMM",
+    "compile_fused",
+    "global_uid_tables",
+]
+
+LANE = 128  # table row padding, kept from the reference for byte-equal tables
+SUBLANE = 8  # block-count padding, likewise
+
+DeviceLike = Union[str, torch.device]
+
+
+def resolve_device(device: DeviceLike) -> torch.device:
+    """``device`` as a :class:`torch.device`; raises when a CUDA device is
+    asked for and none exists (the port never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
+
+
+def uid_lookup_table(uids) -> np.ndarray:
+    """Dense uid -> position table: ``lut[uid] = k`` for the k-th uid in
+    ``uids``, -1 elsewhere."""
+    uids = np.asarray(list(uids), dtype=np.int64)
+    if uids.size == 0:
+        return np.empty(0, dtype=np.int32)
+    lut = np.full(int(uids.max()) + 1, -1, dtype=np.int32)
+    lut[uids] = np.arange(uids.size, dtype=np.int32)
+    return lut
+
+
+def pad_to_lane(n: int, lane: int = LANE) -> int:
+    return max(lane, -(-n // lane) * lane)
+
+
+def bucket_rows(n: int, floor: int = SUBLANE) -> int:
+    """Round a batch/row count up to the next power of two (>= ``floor``).
+
+    Per-chunk operands are padded to bucketed shapes, exactly as in the
+    reference, so the port's packed buffers and outputs keep its shapes."""
+    if n <= floor:
+        return floor
+    return 1 << (n - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactedBlockMap:
+    """One compacted mapping block (host-side index vector)."""
+
+    key: BlockKey
+    n_in: int  # true width of the incoming message (attrs of iD_v^o)
+    n_out: int  # true width of the outgoing message (attrs of iR_w^r)
+    src: np.ndarray  # int32 (n_out_pad,): input slot per output slot, -1 = null
+
+    @property
+    def n_out_pad(self) -> int:
+        return int(self.src.shape[0])
+
+
+def compile_block(
+    key: BlockKey, elements: Sequence, registry: Registry, lane: int = LANE
+) -> CompactedBlockMap:
+    """Lower one dense set ``{(q_uid, p_uid)}`` to an index vector."""
+    o, v, r, w = key
+    in_uids = registry.domain.get(o, v).uids
+    out_uids = registry.range.get(r, w).uids
+    in_pos = {u: k for k, u in enumerate(in_uids)}
+    out_pos = {u: k for k, u in enumerate(out_uids)}
+    src = np.full((pad_to_lane(len(out_uids), lane),), -1, dtype=np.int32)
+    for q_uid, p_uid in elements:
+        src[out_pos[q_uid]] = in_pos[p_uid]
+    return CompactedBlockMap(key=key, n_in=len(in_uids), n_out=len(out_uids), src=src)
+
+
+@dataclasses.dataclass
+class CompiledDMM:
+    """All compacted blocks of a state-i DPM, grouped by incoming (o, v)."""
+
+    state: int
+    by_column: Dict[Tuple[int, int], List[CompactedBlockMap]]
+
+    def column(self, o: int, v: int) -> List[CompactedBlockMap]:
+        return self.by_column.get((o, v), [])
+
+    @property
+    def n_blocks(self) -> int:
+        return sum(len(b) for b in self.by_column.values())
+
+
+def compile_dpm(dpm: DPM, registry: Registry, lane: int = LANE) -> CompiledDMM:
+    """Lower a whole iDPM super-set to index vectors, in sorted key order."""
+    by_column: Dict[Tuple[int, int], List[CompactedBlockMap]] = {}
+    for key, elements in sorted(dpm.items()):
+        o, v, r, w = key
+        by_column.setdefault((o, v), []).append(
+            compile_block(key, elements, registry, lane)
+        )
+    return CompiledDMM(state=registry.state, by_column=by_column)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedColumn:
+    """Host-side routing for one incoming (schema o, version v) column:
+    its payload-slot lookup, its global block ids (rows of ``src2d``) and
+    its ``col_id`` in the plan-global uid tables."""
+
+    o: int
+    v: int
+    n_in: int
+    uid_pos: Dict[int, int]
+    block_ids: np.ndarray  # int32 (k,): rows of FusedDMM.src2d
+    col_id: int = -1  # position of this column in the plan's column order
+
+
+@dataclasses.dataclass
+class FusedDMM:
+    """Every compacted block of a state-``i`` DPM, flattened for one-launch
+    execution (see the module docstring for the table layout)."""
+
+    state: int
+    n_in_pad: int  # uniform dense-payload width (lane multiple)
+    width: int  # W: uniform output width = max n_out_pad (lane multiple)
+    n_blocks: int  # true block count (src2d rows beyond this are -1 pad)
+    src2d: torch.Tensor  # int32 (n_blocks_pad, W), on the plan's device
+    routes: List[Tuple[int, int]]  # block t -> business entity (r, w)
+    n_out: np.ndarray  # int32 (n_blocks,): true output width per block
+    columns: Dict[Tuple[int, int], FusedColumn]
+    uid_slot: np.ndarray  # int32 (max_uid+1,): uid -> payload slot, -1 = none
+    uid_col: np.ndarray  # int32 (max_uid+1,): uid -> owning col_id, -1 = none
+    # column col_id owns the contiguous global block range
+    # [col_block_start[c], col_block_start[c] + col_block_count[c])
+    col_block_start: np.ndarray = None  # int32 (n_cols,)
+    col_block_count: np.ndarray = None  # int32 (n_cols,)
+    # device copies of the uid tables, for the device-densify path
+    uid_slot_dev: Optional[torch.Tensor] = None
+    uid_col_dev: Optional[torch.Tensor] = None
+
+    def column(self, o: int, v: int) -> Optional[FusedColumn]:
+        return self.columns.get((o, v))
+
+
+def _uid_tables_from(cols) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense global (uid -> payload slot, uid -> owning col_id) tables from
+    ``(uid_pos dict, col_id)`` pairs; -1 marks uids no column knows."""
+    cols = list(cols)
+    max_uid = max((int(u) for pos, _ in cols for u in pos), default=-1)
+    uid_slot = np.full(max_uid + 1, -1, dtype=np.int32)
+    uid_col = np.full(max_uid + 1, -1, dtype=np.int32)
+    for pos, cid in cols:
+        for u, k in pos.items():
+            uid_slot[u] = k
+            uid_col[u] = cid
+    return uid_slot, uid_col
+
+
+def global_uid_tables(
+    compiled: CompiledDMM, registry: Registry
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The fused plan's global uid tables, derived from a per-block plan
+    (column ids follow ``compiled.by_column`` insertion order, as
+    :func:`compile_fused` assigns them)."""
+    return _uid_tables_from(
+        ({u: k for k, u in enumerate(registry.domain.get(o, v).uids)}, cid)
+        for cid, (o, v) in enumerate(compiled.by_column)
+    )
+
+
+def compile_fused(
+    compiled: CompiledDMM,
+    registry: Registry,
+    lane: int = LANE,
+    *,
+    device: DeviceLike = "cuda",
+) -> FusedDMM:
+    """Flatten a :class:`CompiledDMM` into the fused block table and place
+    its device-side tables (``src2d``, ``uid_slot_dev``, ``uid_col_dev``) on
+    ``device``.  Built once per state by the plan manager."""
+    dev = resolve_device(device)
+    routes: List[Tuple[int, int]] = []
+    n_out: List[int] = []
+    src_rows: List[np.ndarray] = []
+    columns: Dict[Tuple[int, int], FusedColumn] = {}
+    width = lane
+    n_in_max = 1
+    for blocks in compiled.by_column.values():
+        for blk in blocks:
+            width = max(width, blk.n_out_pad)
+    for (o, v), blocks in compiled.by_column.items():
+        sv = registry.domain.get(o, v)
+        uid_pos = {u: k for k, u in enumerate(sv.uids)}
+        n_in_max = max(n_in_max, len(sv.uids))
+        ids = []
+        for blk in blocks:
+            ids.append(len(routes))
+            routes.append((blk.key[2], blk.key[3]))
+            n_out.append(blk.n_out)
+            row = np.full((width,), -1, dtype=np.int32)
+            row[: blk.n_out_pad] = blk.src
+            src_rows.append(row)
+        columns[(o, v)] = FusedColumn(
+            o=o,
+            v=v,
+            n_in=len(sv.uids),
+            uid_pos=uid_pos,
+            block_ids=np.asarray(ids, dtype=np.int32),
+            col_id=len(columns),
+        )
+    # plan-global uid tables: uids are globally unique (one registry
+    # counter), so one dense table resolves any payload uid to its slot and
+    # its owning column; the owner check keeps the per-column semantics
+    uid_slot, uid_col = _uid_tables_from(
+        (col.uid_pos, col.col_id) for col in columns.values()
+    )
+    n_blocks = len(routes)
+    n_blocks_pad = max(SUBLANE, -(-max(n_blocks, 1) // SUBLANE) * SUBLANE)
+    table = np.full((n_blocks_pad, width), -1, dtype=np.int32)
+    if src_rows:
+        table[:n_blocks] = np.stack(src_rows)
+    # block ids are assigned sequentially per column, so each column's
+    # blocks are the contiguous range [start, start + count)
+    col_block_start = np.asarray(
+        [int(c.block_ids[0]) if c.block_ids.size else 0 for c in columns.values()],
+        dtype=np.int32,
+    )
+    col_block_count = np.asarray(
+        [c.block_ids.size for c in columns.values()], dtype=np.int32
+    )
+    return FusedDMM(  # metl: allow[plan-publish-single-site] the port's lowering primitive, the counterpart of repro.core.dmm_jax; only repro_torch.etl.plan.PlanManager calls compile_fused
+        state=compiled.state,
+        n_in_pad=pad_to_lane(n_in_max, lane),
+        width=width,
+        n_blocks=n_blocks,
+        src2d=torch.from_numpy(table).to(dev),
+        routes=routes,
+        n_out=np.asarray(n_out, dtype=np.int32),
+        columns=columns,
+        uid_slot=uid_slot,
+        uid_col=uid_col,
+        col_block_start=col_block_start,
+        col_block_count=col_block_count,
+        uid_slot_dev=torch.from_numpy(uid_slot).to(dev),
+        uid_col_dev=torch.from_numpy(uid_col).to(dev),
+    )

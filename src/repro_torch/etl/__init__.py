@@ -1,0 +1,22 @@
+from .events import CDCEvent, ColumnarChunk, EventSource, columnarize  # noqa: F401
+from .control import (  # noqa: F401
+    ControlEvent,
+    ControlReplayError,
+    Freeze,
+    MatrixEdit,
+    PlanPublished,
+    SchemaAdded,
+    SchemaEvolved,
+    Thaw,
+    VersionDeleted,
+    replay_control_log,
+)
+from .plan import PlanEpoch, PlanManager  # noqa: F401
+from .engines import (  # noqa: F401
+    CanonicalRow,
+    FusedEngine,
+    MappingEngine,
+    TriagedChunk,
+    make_engine,
+)
+from .metl import METLApp  # noqa: F401

@@ -1,0 +1,596 @@
+"""The mapping engine: the device side of the METL app.
+
+Counterpart of ``repro.etl.engines`` for the fused path.  A
+:class:`MappingEngine` maps *triaged* event chunks to canonical rows through
+four explicit stages:
+
+    compile(snapshot, registry)   acquire the device plan for one state from
+                                  the engine's PlanManager (the single plan
+                                  construction site, repro_torch.etl.plan)
+    densify(groups)               host side: payload arrays + routing
+    dispatch(dense)               device side: copy in, launch, return an
+                                  UNSYNCHRONISED handle
+    emit(handle)                  the only sync point: copy back, slice each
+                                  surviving row to its block's true width
+
+Densification is pure numpy over columnar chunks, as in the reference.  The
+:class:`FusedEngine` maps a whole chunk -- every column, every block -- in
+ONE dispatch: with host densify (the default) through the
+``segmented_gather`` kernel over a dense payload; with
+``device_densify=True`` through the ``densify_map`` kernel, which takes the
+chunk's raw (uid, value) items packed into one int32 buffer and resolves,
+densifies and maps them in the one launch.
+
+Each :class:`DenseChunk` / :class:`ColumnarDense` pins the plan it was
+densified against, so a state change between stages never mixes plans.
+Host->device copies go through :func:`_to_device` only, next to the
+``stats["transfers"]`` accounting; its pinned staging buffers ride on the
+:class:`DispatchHandle` until ``emit``, so none is reused while its
+asynchronous copy may still be reading it.
+
+``info()`` is the public observability surface.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.dmm_torch import DeviceLike, bucket_rows, resolve_device
+from ..core.registry import Registry
+from ..core.state import SystemState
+from ..kernels.ops import dmm_apply_columnar, dmm_apply_fused
+from .events import CDCEvent, ColumnarChunk, columnarize
+from .plan import PlanEpoch, PlanManager
+
+__all__ = [
+    "CanonicalRow",
+    "Groups",
+    "TriagedChunk",
+    "as_triaged",
+    "DenseChunk",
+    "ColumnarDense",
+    "DispatchHandle",
+    "MappingEngine",
+    "FusedEngine",
+    "make_engine",
+]
+
+
+CanonicalRow = Tuple[Tuple[int, int], np.ndarray, np.ndarray, int]
+# ((business entity r, version w), values (n_out,), mask (n_out,), event key)
+
+Groups = Dict[Tuple[int, int], List[CDCEvent]]
+# legacy triaged-chunk form: (schema o, version v) -> mappable events
+
+
+@dataclasses.dataclass
+class TriagedChunk:
+    """One triaged chunk in columnar form: a
+    :class:`~repro_torch.etl.events.ColumnarChunk` plus, per (o, v), the
+    indices of its mappable events in arrival order."""
+
+    chunk: ColumnarChunk
+    by_column: Dict[Tuple[int, int], np.ndarray]  # (o, v) -> event indices
+
+    def __bool__(self) -> bool:
+        return bool(self.by_column)
+
+
+def as_triaged(groups) -> Optional[TriagedChunk]:
+    """Coerce any accepted densify input to a non-empty :class:`TriagedChunk`
+    (a legacy ``Groups`` dict is columnarised once); None when there is
+    nothing to map."""
+    if groups is None:
+        return None
+    if isinstance(groups, TriagedChunk):
+        return groups if groups.by_column else None
+    if not groups:
+        return None
+    events = [ev for evs in groups.values() for ev in evs]
+    chunk = columnarize(events)
+    by_column: Dict[Tuple[int, int], np.ndarray] = {}
+    base = 0
+    for ov, evs in groups.items():
+        idx = [base + k for k in range(len(evs)) if not chunk.bad[base + k]]
+        if idx:
+            by_column[ov] = np.asarray(idx, dtype=np.int64)
+        base += len(evs)
+    if not by_column:
+        return None
+    return TriagedChunk(chunk=chunk, by_column=by_column)
+
+
+def _excl_cumsum(counts: np.ndarray) -> np.ndarray:
+    """Exclusive prefix sum: element i is sum(counts[:i])."""
+    out = np.zeros(counts.size, dtype=np.int64)
+    np.cumsum(counts[:-1], out=out[1:])
+    return out
+
+
+def _segmented_arange(starts: np.ndarray, counts: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorised ``concatenate([arange(s, s + c) for s, c in ...])``;
+    returns the values and, per value, the index of its segment."""
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    shift = starts - _excl_cumsum(counts)
+    values = np.arange(total, dtype=np.int64) + np.repeat(shift, counts)
+    seg_of = np.repeat(np.arange(counts.size, dtype=np.int64), counts)
+    return values, seg_of
+
+
+def _event_items(chunk: ColumnarChunk, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The payload items of the selected events: ``(ev_rows, item_idx)``,
+    the event-local row of each item and its flat position in the chunk."""
+    offs = chunk.event_offsets
+    starts = offs[idx]
+    counts = offs[idx + 1] - starts
+    item_idx, ev_rows = _segmented_arange(starts, counts)
+    return ev_rows, item_idx
+
+
+def _uid_slots(lut: np.ndarray, uids: np.ndarray) -> np.ndarray:
+    """Bounds-checked dense-table lookup: uid -> slot, -1 for a uid outside
+    the table (never an index error)."""
+    if lut.size == 0:
+        return np.full(uids.shape, -1, dtype=np.int32)
+    valid = (uids >= 0) & (uids < lut.size)
+    slots = lut[np.where(valid, uids, 0)]
+    return np.where(valid, slots, np.int32(-1))
+
+
+def _count_unknown_uids(
+    uid_col: np.ndarray,
+    chunk: ColumnarChunk,
+    by_column: Dict[Tuple[int, int], np.ndarray],
+    stats: collections.Counter,
+) -> None:
+    """Count payload items whose uid NO column of the plan knows, over all
+    triaged events, under ``stats["unknown_uid"]``."""
+    if not by_column:
+        return
+    idx = np.concatenate(list(by_column.values()))
+    _, item_idx = _event_items(chunk, idx)
+    if item_idx.size:
+        n = int((_uid_slots(uid_col, chunk.uids[item_idx]) < 0).sum())
+        if n:
+            stats["unknown_uid"] += n
+
+
+@dataclasses.dataclass
+class DenseChunk:
+    """One host-densified chunk: payload arrays plus (row, block) routing,
+    pinned to the plan it was densified against."""
+
+    plan: Any
+    vals: np.ndarray  # (bucket(n_events), n_in_pad) f32
+    mask: np.ndarray  # (bucket(n_events), n_in_pad) i8
+    row_ids: np.ndarray  # (S,) i32: event row per output row
+    blk_ids: np.ndarray  # (S,) i32: global block per output row
+    out_keys: np.ndarray  # (S,) i64: event key per output row (emission order)
+
+
+@dataclasses.dataclass
+class ColumnarDense:
+    """A chunk to be densified ON DEVICE: its raw columnar operands packed
+    into one flat int32 buffer
+
+        [ uids(NI) | val_bits(NI) | starts(B) | counts(B) | ev_col(B)
+          | rows(S) | blks(S) ]
+
+    (section sizes are the bucketed statics below), so the chunk crosses to
+    the device in one transfer.  ``row_ids`` / ``blk_ids`` / ``out_keys``
+    keep the host copy of the routing for emit.  Same plan pin as
+    :class:`DenseChunk`."""
+
+    plan: Any
+    packed: np.ndarray  # flat int32 operand buffer (one transfer per chunk)
+    n_items: int  # NI: bucketed item-column length
+    n_events: int  # B: bucketed selected-event count
+    n_rows: int  # S: bucketed routing length
+    k: int  # bucketed max items per selected event
+    row_ids: np.ndarray
+    blk_ids: np.ndarray
+    out_keys: np.ndarray
+
+
+@dataclasses.dataclass
+class DispatchHandle:
+    """An in-flight dispatch: unsynchronised output tensors, the dense chunk
+    they came from, and the pinned host staging buffers their input copies
+    read from (held until ``emit``)."""
+
+    outputs: Any
+    dense: Any
+    staging: Tuple[torch.Tensor, ...] = ()
+
+
+@dataclasses.dataclass
+class _ChunkLayout:
+    """Selection + routing of one triaged chunk against one plan, shared by
+    the host-densify and device-densify paths.  ``sel`` is the dense-row
+    order (every mappable column's events, column by column)."""
+
+    chunk: ColumnarChunk
+    sel: np.ndarray  # (B,) i64: chunk event index per dense row
+    ev_counts: np.ndarray  # (n_cols,) i64: dense rows per column
+    col_ids: np.ndarray  # (n_cols,) i32: plan col_id per column
+    row_ids: np.ndarray  # (S,) i32
+    blk_ids: np.ndarray  # (S,) i32
+    out_keys: np.ndarray  # (S,) i64
+
+
+def _chunk_layout(
+    plan: Any, tri: TriagedChunk, stats: Optional[collections.Counter] = None
+) -> Optional[_ChunkLayout]:
+    """Dense-row selection and (row, block) routing for a chunk, in the
+    reference's emission order (per column, per block, per event); also
+    accounts ``stats["unknown_uid"]``.  None for an unmappable chunk."""
+    chunk = tri.chunk
+    if stats is not None:
+        _count_unknown_uids(plan.uid_col, chunk, tri.by_column, stats)
+    cols = [
+        (col, idx)
+        for (o, v), idx in tri.by_column.items()
+        if (col := plan.column(o, v)) is not None and col.block_ids.size
+    ]
+    if not cols:
+        return None
+
+    sel = np.concatenate([idx for _, idx in cols])
+    ev_counts = np.asarray([idx.size for _, idx in cols], dtype=np.int64)
+    col_ids = np.asarray([col.col_id for col, _ in cols], dtype=np.int32)
+
+    # block t of a column owning n events yields the segment
+    # arange(base, base + n); each column's blocks are the contiguous plan
+    # range [start, start + count)
+    bstart = plan.col_block_start[col_ids].astype(np.int64)
+    bcount = plan.col_block_count[col_ids].astype(np.int64)
+    seg_starts = np.repeat(_excl_cumsum(ev_counts), bcount)
+    seg_counts = np.repeat(ev_counts, bcount)
+    row_ids, seg_of = _segmented_arange(seg_starts, seg_counts)
+    blk_seq, _ = _segmented_arange(bstart, bcount)
+
+    return _ChunkLayout(
+        chunk=chunk,
+        sel=sel,
+        ev_counts=ev_counts,
+        col_ids=col_ids,
+        row_ids=row_ids.astype(np.int32),
+        blk_ids=blk_seq[seg_of].astype(np.int32),
+        out_keys=chunk.keys[sel][row_ids],
+    )
+
+
+def _densify_host(plan: Any, layout: _ChunkLayout) -> DenseChunk:
+    """Host densification: one CSR gather, one resolve through the plan's
+    global uid tables (an item scatters only into its own column), one
+    numpy scatter."""
+    chunk, sel = layout.chunk, layout.sel
+    vals = np.zeros((bucket_rows(sel.size), plan.n_in_pad), np.float32)
+    mask = np.zeros_like(vals, dtype=np.int8)
+    ev_rows, item_idx = _event_items(chunk, sel)
+    if item_idx.size:
+        uids = chunk.uids[item_idx]
+        slots = _uid_slots(plan.uid_slot, uids)
+        owner = _uid_slots(plan.uid_col, uids)
+        keep = owner == np.repeat(layout.col_ids, layout.ev_counts)[ev_rows]
+        if keep.any():
+            r, c = ev_rows[keep], slots[keep]
+            vals[r, c] = chunk.vals[item_idx[keep]]
+            mask[r, c] = 1
+    return DenseChunk(
+        plan=plan,
+        vals=vals,
+        mask=mask,
+        row_ids=layout.row_ids,
+        blk_ids=layout.blk_ids,
+        out_keys=layout.out_keys,
+    )
+
+
+def _to_device(
+    device: torch.device, *arrays: np.ndarray
+) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """The engine's single host->device copy site.
+
+    Returns ``(tensors, staging)``.  On a CUDA device each array is copied
+    into pinned host memory and sent with ``non_blocking=True``; ``staging``
+    holds those pinned buffers, which the caller keeps alive until the chunk
+    is emitted.  On the CPU the arrays are wrapped without a copy."""
+    hosts = tuple(torch.from_numpy(a) for a in arrays)
+    if device.type == "cpu":
+        return hosts, ()
+    staging = tuple(h.pin_memory() for h in hosts)
+    return tuple(h.to(device, non_blocking=True) for h in staging), staging
+
+
+def _pack_columnar(
+    layout: _ChunkLayout, rows_flat: np.ndarray, blks_flat: np.ndarray
+) -> Tuple[np.ndarray, int, int, int]:
+    """Pack one chunk's device-densify operands into ONE flat int32 buffer
+    (the :class:`ColumnarDense` layout), byte-identical to the reference's.
+    Returns ``(packed, n_items, n_events, k)`` with the bucketed sizes."""
+    chunk, sel = layout.chunk, layout.sel
+    offs = chunk.event_offsets
+    starts = offs[sel].astype(np.int32)
+    counts = (offs[sel + 1] - offs[sel]).astype(np.int32)
+    k = bucket_rows(int(counts.max(initial=1)))
+    b = sel.size
+    b_pad = bucket_rows(b)
+    ni = chunk.n_items
+    ni_pad = bucket_rows(ni)
+    ev_col = np.repeat(layout.col_ids, layout.ev_counts)
+    p = np.empty(2 * ni_pad + 3 * b_pad + rows_flat.size + blks_flat.size, np.int32)
+    # a uid beyond int32 would wrap on the cast and could alias a real uid;
+    # it is unknown by definition, so it becomes the -1 sentinel
+    uids = chunk.uids
+    p[:ni] = np.where((uids >= 0) & (uids < np.int64(2**31)), uids, -1)
+    p[ni:ni_pad] = -1  # padded items: unknown uid, never scatters
+    p[ni_pad : ni_pad + ni] = chunk.vals.view(np.int32)
+    p[ni_pad + ni : 2 * ni_pad] = 0
+    o = 2 * ni_pad
+    for arr, fill in ((starts, 0), (counts, 0), (ev_col, -1)):
+        p[o : o + b] = arr
+        p[o + b : o + b_pad] = fill  # padded events: 0 items, no column
+        o += b_pad
+    p[o : o + rows_flat.size] = rows_flat
+    o += rows_flat.size
+    p[o : o + blks_flat.size] = blks_flat
+    return p, ni_pad, b_pad, k
+
+
+def _emit_rows(plan, ov, om, blk_ids, out_keys, stats) -> List[CanonicalRow]:
+    """Row emission: one ``any``/``nonzero`` over the output mask, then
+    slice each surviving row to its block's true width."""
+    rows: List[CanonicalRow] = []
+    emit = np.nonzero(om.any(axis=1))[0]  # only non-empty outgoing messages
+    stats["mapped"] += int(emit.size)
+    stats["empty"] += int(blk_ids.size - emit.size)
+    routes, n_out = plan.routes, plan.n_out
+    widths = n_out[blk_ids[emit]].tolist()
+    for i, t, no, key in zip(
+        emit.tolist(), blk_ids[emit].tolist(), widths, out_keys[emit].tolist()
+    ):
+        rows.append((routes[t], ov[i, :no], om[i, :no], key))
+    return rows
+
+
+class MappingEngine:
+    """Protocol base for mapping engines.
+
+    Subclasses implement the three chunk stages (``densify`` / ``dispatch``
+    / ``emit``) plus ``info``; ``compile`` ACQUIRES the plan from the
+    engine's own :class:`~repro_torch.etl.plan.PlanManager`, on the
+    engine's device.  ``stats`` is the counter the owning METL app injects.
+    """
+
+    name: str = "base"
+
+    def __init__(
+        self,
+        *,
+        device: DeviceLike = "cuda",
+        stats: Optional[collections.Counter] = None,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.stats = stats if stats is not None else collections.Counter()
+        self.manager = PlanManager(device=self.device)
+        self.plan: Any = None
+        self.lease: Optional[PlanEpoch] = None
+        # observability binding (set by METLApp): the coordinator whose
+        # replication surface info() reports
+        self.coordinator: Optional[Any] = None
+
+    @property
+    def ready(self) -> bool:
+        return self.plan is not None
+
+    def compile(self, snapshot: SystemState, registry: Registry) -> Any:
+        """Acquire (and retain) the device plan for one state snapshot."""
+        self.lease = self.manager.acquire(snapshot, registry)
+        self.plan = self.lease.plan
+        return self.plan
+
+    def evict(self) -> None:
+        """Drop every state-derived cache; the manager keeps its state-keyed
+        lease, so a re-acquire at an unchanged state is a cache hit."""
+        self.plan = None
+        self.lease = None
+
+    def _manager_info(self) -> Dict[str, Any]:
+        """The manager- and coordinator-derived keys of ``info()``."""
+        mi = self.manager.info()
+        m: Dict[str, Any] = {"plan_epoch": mi["plan_epoch"], "rebuilds": mi["rebuilds"]}
+        if self.coordinator is not None:
+            m.update(self.coordinator.replication_info())
+        else:
+            m.update(role="unbound", term=0, log_offset=0, lag_records=0)
+        return m
+
+    def densify(self, groups: Groups) -> Any:
+        """Host-side densification; returns a dense chunk or None when the
+        chunk touches no mapping path."""
+        raise NotImplementedError
+
+    def dispatch(self, dense: Any) -> DispatchHandle:
+        """Launch the device work for one dense chunk WITHOUT synchronising;
+        increments ``stats['dispatches']`` once per launch."""
+        raise NotImplementedError
+
+    def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
+        """Synchronise on a dispatch handle and emit canonical rows."""
+        raise NotImplementedError
+
+    def consume_groups(self, groups: Groups) -> List[CanonicalRow]:
+        """Synchronous densify -> dispatch -> emit of one triaged chunk."""
+        dense = self.densify(groups)
+        if dense is None:
+            return []
+        return self.emit(self.dispatch(dense))
+
+    def info(self) -> Dict[str, Any]:
+        """Public observability surface.  Keys (every engine): ``engine``,
+        ``device``, ``n_shards``, ``device_densify``, ``dispatches``,
+        ``transfers``, ``plan_epoch``, ``rebuilds``, ``role``, ``term``,
+        ``log_offset``, ``lag_records``; once a plan is compiled also
+        ``state``, ``n_blocks``, ``blocks_per_shard``, ``width``,
+        ``table_bytes``, ``table_bytes_per_shard`` and ``bytes_resident``."""
+        raise NotImplementedError
+
+
+def make_engine(
+    engine: Any = "fused",
+    *,
+    device: Optional[DeviceLike] = None,
+    device_densify: bool = False,
+    stats: Optional[collections.Counter] = None,
+) -> MappingEngine:
+    """Resolve an engine name (only ``"fused"`` is ported) or adopt an
+    instance.  ``device`` defaults to ``"cuda"`` for a name and to the
+    instance's own device for an instance; a conflicting ``device`` or
+    ``device_densify`` raises instead of running a different path than
+    asked."""
+    if isinstance(engine, MappingEngine):
+        if device is not None and resolve_device(device) != engine.device:
+            raise ValueError(
+                f"device={device!r} conflicts with the engine instance's "
+                f"device {engine.device}"
+            )
+        if device_densify and not getattr(engine, "device_densify", False):
+            raise ValueError(
+                "device_densify=True conflicts with the engine instance; "
+                "construct the engine with device_densify=True instead"
+            )
+        if stats is not None:
+            engine.stats = stats
+        return engine
+    if engine != "fused":
+        raise ValueError(f"unknown engine {engine!r} (ported: 'fused')")
+    return FusedEngine(
+        device="cuda" if device is None else device,
+        device_densify=device_densify,
+        stats=stats,
+    )
+
+
+class FusedEngine(MappingEngine):
+    """One fused dispatch for the whole chunk (all columns, all blocks).
+
+    With ``device_densify=True`` densify packs the chunk's raw items and
+    routing into ONE int32 buffer and dispatch resolves, densifies and maps
+    them in the one launch -- one transfer and one dispatch per chunk.
+    Chunks below ``min_device_events`` selected events take the host
+    scatter (four transfers, one dispatch), as in the reference.
+    """
+
+    name = "fused"
+
+    def __init__(
+        self,
+        *,
+        device: DeviceLike = "cuda",
+        device_densify: bool = False,
+        min_device_events: int = 32,
+        stats: Optional[collections.Counter] = None,
+    ) -> None:
+        super().__init__(device=device, stats=stats)
+        self.device_densify = device_densify
+        self.min_device_events = min_device_events
+
+    def densify(self, groups: Groups) -> Any:
+        tri = as_triaged(groups)
+        if tri is None:
+            return None
+        layout = _chunk_layout(self.plan, tri, self.stats)
+        if layout is None:
+            return None
+        if not self.device_densify or layout.sel.size < self.min_device_events:
+            return _densify_host(self.plan, layout)
+        s = layout.row_ids.size
+        s_pad = bucket_rows(s)
+        rows = np.zeros(s_pad, np.int32)
+        blks = np.zeros(s_pad, np.int32)
+        rows[:s] = layout.row_ids
+        blks[:s] = layout.blk_ids
+        packed, ni, b, k = _pack_columnar(layout, rows, blks)
+        return ColumnarDense(
+            plan=self.plan,
+            packed=packed,
+            n_items=ni,
+            n_events=b,
+            n_rows=s_pad,
+            k=k,
+            row_ids=layout.row_ids,
+            blk_ids=layout.blk_ids,
+            out_keys=layout.out_keys,
+        )
+
+    def dispatch(self, dense) -> DispatchHandle:
+        fused = dense.plan
+        if isinstance(dense, ColumnarDense):
+            (packed,), staging = _to_device(self.device, dense.packed)
+            outputs = dmm_apply_columnar(
+                packed,
+                fused.uid_slot_dev,
+                fused.uid_col_dev,
+                fused.src2d,
+                n_items=dense.n_items,
+                n_events=dense.n_events,
+                n_rows=dense.n_rows,
+                k=dense.k,
+            )
+            self.stats["transfers"] += 1  # the packed buffer is the chunk
+        else:
+            s = dense.row_ids.size
+            s_pad = bucket_rows(s)
+            (jv, jm, jr, jb), staging = _to_device(
+                self.device,
+                dense.vals,
+                dense.mask,
+                np.pad(dense.row_ids, (0, s_pad - s)),
+                np.pad(dense.blk_ids, (0, s_pad - s)),
+            )
+            outputs = dmm_apply_fused(jv, jm, jr, jb, fused.src2d)
+            self.stats["transfers"] += 4  # vals, mask, rows, blks
+        self.stats["dispatches"] += 1
+        return DispatchHandle(outputs=outputs, dense=dense, staging=staging)
+
+    def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
+        dense = handle.dense
+        s = dense.row_ids.size
+        ov = handle.outputs[0][:s].cpu().numpy()
+        om = handle.outputs[1][:s].cpu().numpy()
+        handle.staging = ()  # the copies that read the staging buffers are done
+        return _emit_rows(
+            dense.plan, ov, om, dense.blk_ids, dense.out_keys, self.stats
+        )
+
+    def info(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "engine": self.name,
+            "device": str(self.device),
+            "n_shards": 1,
+            "device_densify": self.device_densify,
+            "dispatches": int(self.stats["dispatches"]),
+            "transfers": int(self.stats["transfers"]),
+            **self._manager_info(),
+        }
+        if self.lease is not None:
+            p = self.lease.plan
+            table_bytes = int(p.src2d.nbytes)
+            d.update(
+                state=p.state,
+                n_blocks=p.n_blocks,
+                blocks_per_shard=p.n_blocks,
+                width=p.width,
+                table_bytes=table_bytes,
+                table_bytes_per_shard=table_bytes,
+                bytes_resident=self.lease.bytes_resident,
+            )
+        return d

@@ -1,0 +1,102 @@
+"""Epoched plan lifecycle: ONE owner for every device-plan build.
+
+Counterpart of ``repro.etl.plan``, first cut: the :class:`PlanManager` is the
+single site that lowers a state's DPM (:func:`~repro_torch.core.dmm_torch.
+compile_dpm`) and builds its fused device plan (:func:`~repro_torch.core.
+dmm_torch.compile_fused`) on the manager's device.  Engines ask for a plan
+with :meth:`PlanManager.acquire` and serve the returned :class:`PlanEpoch`
+lease; in-flight chunks pin the plan they were densified against, so an
+epoch keeps serving its drains after the manager moves on.
+
+Every build is a full rebuild.  The reference's incremental splice,
+residency tiering, background recompactor and ``PlanPublished`` events are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any, Dict, Optional
+
+from ..core.dmm_torch import (
+    CompiledDMM,
+    DeviceLike,
+    FusedDMM,
+    compile_dpm,
+    compile_fused,
+    resolve_device,
+)
+from ..core.registry import Registry
+from ..core.state import SystemState
+
+__all__ = ["PlanEpoch", "PlanManager"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanEpoch:
+    """One published plan epoch: the immutable lease an engine serves.
+
+    ``plan`` is the fused device plan, ``compiled`` the per-block lowering
+    it was flattened from; ``bytes_resident`` prices the device-resident
+    block table."""
+
+    epoch: int
+    state: int
+    compiled: CompiledDMM
+    plan: FusedDMM
+    bytes_resident: int
+    rebuild_s: float
+
+
+class PlanManager:
+    """Epoch-versioned owner of plan builds for one device."""
+
+    def __init__(self, *, device: DeviceLike = "cuda") -> None:
+        self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self._lease: Optional[PlanEpoch] = None
+        self._epoch = 0
+        self.rebuilds = 0
+        self.last_rebuild_s = 0.0
+        self.total_rebuild_s = 0.0
+
+    def acquire(self, snapshot: SystemState, registry: Registry) -> PlanEpoch:
+        """The lease for ``snapshot``'s state: cached when current, rebuilt
+        otherwise."""
+        with self._lock:
+            if self._lease is not None and self._lease.state == snapshot.i:
+                return self._lease
+            t0 = time.perf_counter()
+            compiled = compile_dpm(snapshot.dpm, registry)
+            plan = compile_fused(compiled, registry, device=self.device)  # metl: allow[plan-publish-single-site] this IS the port's plan manager, the counterpart of repro.etl.plan; the rule's owner list names only the reference modules
+            rebuild_s = time.perf_counter() - t0
+            self._epoch += 1
+            self._lease = PlanEpoch(
+                epoch=self._epoch,
+                state=snapshot.i,
+                compiled=compiled,
+                plan=plan,
+                bytes_resident=int(plan.src2d.nbytes),
+                rebuild_s=rebuild_s,
+            )
+            self.rebuilds += 1
+            self.last_rebuild_s = rebuild_s
+            self.total_rebuild_s += rebuild_s
+            return self._lease
+
+    def info(self) -> Dict[str, Any]:
+        """``plan_epoch``, ``rebuilds``, rebuild timings and, once a plan
+        exists, ``bytes_resident``."""
+        with self._lock:
+            lease = self._lease
+            d: Dict[str, Any] = {
+                "plan_epoch": lease.epoch if lease is not None else 0,
+                "rebuilds": self.rebuilds,
+                "last_rebuild_s": self.last_rebuild_s,
+                "total_rebuild_s": self.total_rebuild_s,
+            }
+            if lease is not None:
+                d["bytes_resident"] = lease.bytes_resident
+            return d

@@ -1,0 +1,87 @@
+"""Public entry points of the mapping kernels, as the engines call them.
+
+Counterpart of ``repro.kernels.ops`` for the fused consume path.  There is
+no ``impl`` switch: each op picks by the device of its tensors (a CUDA
+tensor launches the Hopper kernel or raises, a CPU tensor takes the plain
+PyTorch version).
+
+Dispatch handles, not results: every op returns its output tensors without
+synchronising -- no ``.item()``, ``.cpu()``, ``.tolist()`` or
+``torch.cuda.synchronize()`` here.  The engines' ``emit`` stage is the only
+sync point.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .densify_map import densify_map
+from .segmented_gather import segmented_gather
+
+__all__ = ["dmm_apply_fused", "dmm_apply_columnar", "dispatch_count"]
+
+# Device-dispatch accounting: one per dmm_apply_* call.  The fused-engine
+# contract (one dispatch per consume chunk, not one per block) is asserted
+# against this counter.
+dispatch_count = 0
+
+
+def dmm_apply_fused(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    rows: torch.Tensor,
+    blks: torch.Tensor,
+    src2d: torch.Tensor,
+    *,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply ALL compacted blocks a host-densified chunk touches in one
+    dispatch (:func:`~repro_torch.kernels.segmented_gather.segmented_gather`).
+
+    ``src2d`` is the state's stacked block table (built once per state by
+    :func:`repro_torch.core.dmm_torch.compile_fused`); ``rows``/``blks``
+    route output row ``s`` to (event row ``rows[s]``, block ``blks[s]``).
+    """
+    global dispatch_count
+    dispatch_count += 1
+    return segmented_gather(values, mask, rows, blks, src2d, fill=fill)
+
+
+# The packed layout of one device-densify chunk (built by
+# repro_torch.etl.engines._pack_columnar):
+#
+#     [ uids(NI) | val_bits(NI) | starts(B) | counts(B) | ev_col(B)
+#       | rows(S) | blks(S) ]
+#
+# Values travel as int32 bit patterns, so the chunk is one int32 buffer and
+# one host->device transfer.
+
+
+def dmm_apply_columnar(
+    packed: torch.Tensor,
+    uid_slot: torch.Tensor,
+    uid_col: torch.Tensor,
+    src2d: torch.Tensor,
+    *,
+    n_items: int,
+    n_events: int,
+    n_rows: int,
+    k: int,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resolve, densify and map a whole packed chunk in ONE dispatch
+    (:func:`~repro_torch.kernels.densify_map.densify_map`).
+
+    ``uid_slot``/``uid_col``/``src2d`` are the plan's device tables,
+    uploaded once per state.  Returns ((n_rows, W) values, (n_rows, W) int8
+    mask); rows past the true routing length are padding the caller slices
+    off.
+    """
+    global dispatch_count
+    dispatch_count += 1
+    return densify_map(
+        packed, uid_slot, uid_col, src2d, n_items=n_items, n_events=n_events,
+        n_rows=n_rows, k=k, fill=fill,
+    )

@@ -1,0 +1,164 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+They are written as the reference's pure-jnp oracles
+(``repro.kernels.ref`` and ``repro.kernels.ops._resolve_items``) write
+them: the same gathers, the same unrolled select for :func:`densify_map_ref`
+and ``torch.clamp`` where the reference clips.  The kernel wrappers run them
+for tensors on the CPU; ``chip_smoke.py`` holds the kernels against them on
+the card.  Nothing on the main path calls them when a card is present.
+
+Every function here only selects (no arithmetic on values), so a kernel and
+its plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+__all__ = [
+    "segmented_gather_ref",
+    "densify_map_ref",
+    "resolve_items_ref",
+    "route_offset",
+    "densify_map_packed_ref",
+]
+
+
+def segmented_gather_ref(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    rows: torch.Tensor,
+    blks: torch.Tensor,
+    src2d: torch.Tensor,
+    *,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused DMM mapping (whole chunk, all blocks, one pass).
+
+    values: (B, N_in) payload, mask: (B, N_in) validity, rows/blks: (S,)
+    int32 routing (output row s = event rows[s] through block blks[s]),
+    src2d: (n_blocks_pad, W) int32 block index vectors (-1 = null).
+    Returns (out_values (S, W), out_mask (S, W) int8).
+    """
+    mask = mask != 0
+    src = src2d.index_select(0, blks.long())  # (S, W)
+    valid = src >= 0
+    safe = torch.where(valid, src, 0).long()
+    v_rows = values.index_select(0, rows.long())  # (S, N_in)
+    m_rows = mask.index_select(0, rows.long())
+    out_v = torch.gather(v_rows, 1, safe)
+    out_m = torch.gather(m_rows, 1, safe) & valid
+    out_v = torch.where(out_m, out_v, fill)
+    return out_v, out_m.to(torch.int8)
+
+
+def densify_map_ref(
+    slot2d: torch.Tensor,
+    x2d: torch.Tensor,
+    rows: torch.Tensor,
+    blks: torch.Tensor,
+    src2d: torch.Tensor,
+    *,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device-densify + fused mapping, scatter-free.
+
+    slot2d: (B, K) int32 payload slot per item of event row b (-1 =
+    dropped), x2d: (B, K) values, rows/blks: (S,) int32 routing, src2d:
+    (n_blocks_pad, W) int32.  Output (s, q) takes the value of the LAST item
+    j (ascending) of event ``rows[s]`` whose slot equals ``src2d[blks[s],
+    q]`` -- the host scatter's last-writer-wins -- through an unrolled
+    select, never a scatter (``index_put_`` with duplicate indices has no
+    defined winner on CUDA).  Returns (out_values (S, W), out_mask (S, W)
+    int8).
+    """
+    k = slot2d.shape[1]
+    src = src2d.index_select(0, blks.long())  # (S, W)
+    valid = src >= 0
+    es = slot2d.index_select(0, rows.long())  # (S, K)
+    ex = x2d.index_select(0, rows.long())  # (S, K)
+    acc = torch.full(src.shape, fill, dtype=x2d.dtype, device=x2d.device)
+    hit = torch.zeros(src.shape, dtype=torch.bool, device=x2d.device)
+    for j in range(k):  # K = items/event, small: unrolled selects
+        m = valid & (src == es[:, j : j + 1])
+        acc = torch.where(m, ex[:, j : j + 1], acc)
+        hit = hit | m
+    return acc, hit.to(torch.int8)
+
+
+def resolve_items_ref(
+    packed: torch.Tensor,
+    uid_slot: torch.Tensor,
+    uid_col: torch.Tensor,
+    *,
+    n_items: int,
+    n_events: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unpack the item columns of a packed chunk and resolve them against
+    the plan's uid tables.
+
+    ``packed`` is ``[uids(NI) | val_bits(NI) | starts(B) | counts(B) |
+    ev_col(B) | rows | blks]`` (int32; values travel as bit patterns).
+    Returns ``(slot2d, x2d)``, each (B, K): per event, its first K items as
+    (payload slot | -1 dropped, value).  An item is dropped when it is CSR
+    padding (``kk >= counts``), its uid is outside ``[0, len(uid_slot))``,
+    its slot is -1, or its owning column is not the event's.
+    """
+    ni, b = n_items, n_events
+    uids = packed[:ni]
+    vals = packed[ni : 2 * ni].view(torch.float32)
+    o = 2 * ni
+    starts = packed[o : o + b]
+    counts = packed[o + b : o + 2 * b]
+    ev_col = packed[o + 2 * b : o + 3 * b]
+    kk = torch.arange(k, dtype=torch.int32, device=packed.device)
+    item_valid = kk[None, :] < counts[:, None]  # (b, k)
+    ix = torch.where(item_valid, starts[:, None] + kk[None, :], 0)
+    ix = torch.clamp(ix, 0, ni - 1).long()  # the reference's mode="clip"
+    iu = uids[ix]
+    iv = vals[ix]
+    nu = uid_slot.shape[0]
+    if nu == 0:
+        keep = torch.zeros_like(item_valid)
+        slot = torch.full((b, k), -1, dtype=torch.int32, device=packed.device)
+    else:
+        uid_ok = (iu >= 0) & (iu < nu)
+        su = torch.clamp(torch.where(uid_ok, iu, 0), 0, nu - 1).long()
+        slot = uid_slot[su]
+        owner = uid_col[su]
+        keep = item_valid & uid_ok & (slot >= 0) & (owner == ev_col[:, None])
+    slot2d = torch.where(keep, slot, -1).to(torch.int32)
+    x2d = torch.where(keep, iv, 0.0)
+    return slot2d, x2d
+
+
+def route_offset(n_items: int, n_events: int) -> int:
+    """Offset of the ``rows`` section in a packed chunk."""
+    return 2 * n_items + 3 * n_events
+
+
+def densify_map_packed_ref(
+    packed: torch.Tensor,
+    uid_slot: torch.Tensor,
+    uid_col: torch.Tensor,
+    src2d: torch.Tensor,
+    *,
+    n_items: int,
+    n_events: int,
+    n_rows: int,
+    k: int,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the fused ``densify_map`` kernel: resolve
+    (:func:`resolve_items_ref`), then densify and map
+    (:func:`densify_map_ref`) with the routing read from ``packed``."""
+    slot2d, x2d = resolve_items_ref(
+        packed, uid_slot, uid_col, n_items=n_items, n_events=n_events, k=k
+    )
+    o = route_offset(n_items, n_events)
+    rows = packed[o : o + n_rows]
+    blks = packed[o + n_rows : o + 2 * n_rows]
+    return densify_map_ref(slot2d, x2d, rows, blks, src2d, fill=fill)

@@ -1,0 +1,274 @@
+"""The port's kernels and their plain PyTorch versions against the JAX
+reference.
+
+On the CPU the plain versions (``repro_torch.kernels.ref``) are held
+against the reference's Pallas kernels (run in interpret mode, as
+``tests/test_kernels.py`` runs them) and its pure-jnp oracles, on the same
+numpy inputs.  The tolerance is exact everywhere: these functions only
+select values, they never compute them.  The CUDA kernels against their
+plain versions need a Hopper card (marker ``gpu``) and skip here.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from repro.core.state import StateCoordinator
+from repro.core.synthetic import ScenarioConfig, build_scenario
+from repro.etl import CDCEvent as RCDCEvent, EventSource as REventSource
+from repro.etl import METLApp as RMETLApp
+from repro.etl.engines import _chunk_layout as r_chunk_layout
+from repro.etl.engines import _pack_columnar as r_pack_columnar
+from repro.etl.events import columnarize as r_columnarize
+from repro.kernels import ref as jref
+from repro.kernels.densify_map import densify_map as pallas_densify_map
+from repro.kernels.ops import _resolve_items as r_resolve_items
+from repro.kernels.segmented_gather import segmented_gather as pallas_segmented_gather
+
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.densify_map import densify_map as t_densify_map
+from repro_torch.kernels.segmented_gather import segmented_gather as t_segmented_gather
+
+SG_SWEEP = [  # the sweep of tests/test_kernels.py::test_segmented_gather_matches_oracle
+    (b, n_in, w, nb, s)
+    for (b, n_in, w) in [(8, 64, 128), (37, 300, 256), (64, 128, 128)]
+    for (nb, s) in [(8, 16), (16, 130)]
+]
+
+
+def _bits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _assert_exact(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _sg_case(b, n_in, w, n_blocks, s):
+    rng = np.random.default_rng(hash((b, n_in, w, n_blocks, s)) % 2**31)
+    vals = rng.normal(size=(b, n_in)).astype(np.float32)
+    mask = (rng.random((b, n_in)) < 0.7).astype(np.int8)
+    src2d = np.full((n_blocks, w), -1, np.int32)
+    for blk in range(n_blocks):
+        k = int(0.5 * min(n_in, w))
+        src2d[blk, rng.choice(w, size=k, replace=False)] = rng.choice(
+            n_in, size=k, replace=False
+        )
+    rows = rng.integers(b, size=s).astype(np.int32)
+    blks = rng.integers(n_blocks, size=s).astype(np.int32)
+    return vals, mask, rows, blks, src2d
+
+
+@pytest.fixture
+def hopper():
+    """The card, or a skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper card (compute capability 9.0)")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# segmented_gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.25])
+@pytest.mark.parametrize("b,n_in,w,n_blocks,s", SG_SWEEP)
+def test_segmented_gather_ref_matches_reference(b, n_in, w, n_blocks, s, fill):
+    case = _sg_case(b, n_in, w, n_blocks, s)
+    jv, jm = jref.segmented_gather_ref(*map(jnp.asarray, case), fill=fill)
+    pv, pm = pallas_segmented_gather(*map(jnp.asarray, case), fill=fill, interpret=True)
+    tv, tm = tref.segmented_gather_ref(*map(_t, case), fill=fill)
+    _assert_exact(tv.numpy(), jv)
+    _assert_exact(tm.numpy(), jm)
+    _assert_exact(tv.numpy(), pv)
+    _assert_exact(tm.numpy(), pm)
+
+
+def test_segmented_gather_wrapper_takes_plain_version_on_cpu():
+    import repro_torch.kernels.segmented_gather as sg
+
+    case = [_t(a) for a in _sg_case(37, 300, 256, 16, 130)]
+    before = sg.launches
+    v, m = t_segmented_gather(*case, fill=0.25)
+    rv, rm = tref.segmented_gather_ref(*case, fill=0.25)
+    _assert_exact(v.numpy(), rv.numpy())
+    _assert_exact(m.numpy(), rm.numpy())
+    assert sg.launches == before  # the plain version is no kernel launch
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    case = [_t(a).to("meta") for a in _sg_case(8, 64, 128, 8, 16)]
+    with pytest.raises(ValueError, match="no segmented_gather kernel"):
+        t_segmented_gather(*case)
+    packed = torch.zeros(64, dtype=torch.int32, device="meta")
+    tab = torch.zeros(4, dtype=torch.int32, device="meta")
+    src2d = torch.zeros((8, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no densify_map kernel"):
+        t_densify_map(packed, tab, tab, src2d, n_items=8, n_events=8, n_rows=8, k=1)
+
+
+# ---------------------------------------------------------------------------
+# densify_map and the resolve prologue
+# ---------------------------------------------------------------------------
+
+
+def _dm_case(seed, b=24, k=7, n_rows=50, n_blocks=8, w=128):
+    rng = np.random.default_rng(seed)
+    slot2d = rng.integers(-1, 30, size=(b, k)).astype(np.int32)
+    x2d = rng.normal(size=(b, k)).astype(np.float32)
+    rows = rng.integers(0, b, size=n_rows).astype(np.int32)
+    blks = rng.integers(0, n_blocks, size=n_rows).astype(np.int32)
+    src2d = rng.integers(-1, 30, size=(n_blocks, w)).astype(np.int32)
+    return slot2d, x2d, rows, blks, src2d
+
+
+@pytest.mark.parametrize("seed,fill", [(0, 0.5), (1, 0.0), (2, 0.25)])
+def test_densify_map_ref_matches_reference(seed, fill):
+    case = _dm_case(seed)
+    jv, jm = jref.densify_map_ref(*map(jnp.asarray, case), fill=fill)
+    pv, pm = pallas_densify_map(*map(jnp.asarray, case), fill=fill, interpret=True)
+    tv, tm = tref.densify_map_ref(*map(_t, case), fill=fill)
+    _assert_exact(tv.numpy(), jv)
+    _assert_exact(tm.numpy(), jm)
+    _assert_exact(tv.numpy(), pv)
+    _assert_exact(tm.numpy(), pm)
+
+
+def test_densify_map_ref_last_writer_wins_like_reference():
+    slot2d, x2d, _, _, src2d = _dm_case(0)
+    k = slot2d.shape[1]
+    slot2d[0, :] = 3  # every item of event 0 lands on slot 3
+    x2d[0, :] = np.arange(k, dtype=np.float32)
+    src2d[0, 0] = 3
+    rows = np.zeros(8, np.int32)
+    blks = np.zeros(8, np.int32)
+    case = (slot2d, x2d, rows, blks, src2d)
+    pv, pm = pallas_densify_map(*map(jnp.asarray, case), interpret=True)
+    tv, tm = tref.densify_map_ref(*map(_t, case))
+    assert float(tv[0, 0]) == float(k - 1)
+    _assert_exact(tv.numpy(), pv)
+    _assert_exact(tm.numpy(), pm)
+
+
+def _mk_event(key, o, v, payload, state):
+    return RCDCEvent(key=key, op="c", state=state, schema_id=o, version=v,
+                     before=None, after=payload, ts=key)
+
+
+def _packed_chunks():
+    """Packed device-densify buffers built by the reference's own
+    ``_pack_columnar``: a synthetic stream chunk, and an adversarial chunk
+    with foreign, unknown and out-of-range uids."""
+    sc = build_scenario(ScenarioConfig(n_schemas=4, versions_per_schema=3,
+                                       attrs_per_version=6, n_entities=2,
+                                       cdm_attrs=8, seed=5))
+    coord = StateCoordinator(sc.registry, sc.dpm)
+    app = RMETLApp(coord, engine="fused", device_densify=True)
+    plan = app.engine.plan
+    reg = sc.registry
+    blocks = reg.domain.blocks()
+    state = reg.state
+    rng = np.random.default_rng(3)
+    adversarial = []
+    for i in range(40):
+        sv = blocks[int(rng.integers(len(blocks)))]
+        other = blocks[int(rng.integers(len(blocks)))]
+        payload = {u: float(rng.normal()) for u in sv.uids if rng.random() < 0.8}
+        payload[other.uids[0]] = 7.0  # foreign when `other` is another column
+        payload[[10**7, 2**40, -3][i % 3]] = 1.0
+        adversarial.append(_mk_event(i, sv.schema_id, sv.version, payload, state))
+    chunks = [
+        REventSource(reg, seed=9).slice_columnar(0, 64),
+        r_columnarize(adversarial),
+    ]
+    out = []
+    for chunk in chunks:
+        app.reset_dedup()  # the two chunks share event keys
+        layout = r_chunk_layout(plan, app.triage(chunk))
+        s = layout.row_ids.size
+        s_pad = 1 << (s - 1).bit_length()
+        rows = np.zeros(s_pad, np.int32)
+        blks = np.zeros(s_pad, np.int32)
+        rows[:s], blks[:s] = layout.row_ids, layout.blk_ids
+        packed, ni, b, k = r_pack_columnar(layout, rows, blks)
+        out.append((packed, plan, dict(n_items=ni, n_events=b, k=k), s_pad))
+    return out
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_resolve_items_ref_matches_reference(which):
+    packed, plan, sizes, _ = _packed_chunks()[which]
+    js, jx = r_resolve_items(jnp.asarray(packed), plan.uid_slot_dev,
+                             plan.uid_col_dev, **sizes)
+    ts, tx = tref.resolve_items_ref(_t(packed), _t(plan.uid_slot),
+                                    _t(plan.uid_col), **sizes)
+    _assert_exact(ts.numpy(), js)
+    _assert_exact(tx.numpy(), jx)
+    assert (ts.numpy() >= 0).any()  # not vacuous
+
+
+def test_resolve_items_ref_with_empty_uid_table():
+    packed, _, sizes, _ = _packed_chunks()[0]
+    empty = np.empty(0, np.int32)
+    js, jx = r_resolve_items(jnp.asarray(packed), jnp.asarray(empty),
+                             jnp.asarray(empty), **sizes)
+    ts, tx = tref.resolve_items_ref(_t(packed), _t(empty), _t(empty), **sizes)
+    _assert_exact(ts.numpy(), js)
+    _assert_exact(tx.numpy(), jx)
+    assert (ts.numpy() == -1).all()
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_densify_map_packed_matches_reference_composition(which):
+    packed, plan, sizes, n_rows = _packed_chunks()[which]
+    js, jx = r_resolve_items(jnp.asarray(packed), plan.uid_slot_dev,
+                             plan.uid_col_dev, **sizes)
+    o = tref.route_offset(sizes["n_items"], sizes["n_events"])
+    rows, blks = packed[o : o + n_rows], packed[o + n_rows : o + 2 * n_rows]
+    jv, jm = jref.densify_map_ref(js, jx, jnp.asarray(rows), jnp.asarray(blks),
+                                  jnp.asarray(plan.src2d))
+    tv, tm = t_densify_map(_t(packed), _t(plan.uid_slot), _t(plan.uid_col),
+                           _t(np.asarray(plan.src2d)), n_rows=n_rows, **sizes)
+    _assert_exact(tv.numpy(), jv)
+    _assert_exact(tm.numpy(), jm)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against their plain versions (on the card only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", [0.0, 0.25])
+def test_segmented_gather_kernel_matches_plain(hopper, fill):
+    for case in SG_SWEEP:
+        args = [_t(a).to(hopper) for a in _sg_case(*case)]
+        kv, km = t_segmented_gather(*args, fill=fill)
+        rv, rm = tref.segmented_gather_ref(*args, fill=fill)
+        torch.cuda.synchronize()
+        _assert_exact(kv.cpu().numpy(), rv.cpu().numpy())
+        _assert_exact(km.cpu().numpy(), rm.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", [0, 1])
+def test_densify_map_kernel_matches_plain(hopper, which):
+    packed, plan, sizes, n_rows = _packed_chunks()[which]
+    args = [_t(a).to(hopper) for a in (packed, plan.uid_slot, plan.uid_col,
+                                        np.asarray(plan.src2d))]
+    kv, km = t_densify_map(*args, n_rows=n_rows, fill=0.25, **sizes)
+    rv, rm = tref.densify_map_packed_ref(*args, n_rows=n_rows, fill=0.25, **sizes)
+    torch.cuda.synchronize()
+    _assert_exact(kv.cpu().numpy(), rv.cpu().numpy())
+    _assert_exact(km.cpu().numpy(), rm.cpu().numpy())
