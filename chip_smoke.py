@@ -25,13 +25,15 @@ failure raises and the script exits non-zero):
    row and every stats counter with the same stream through
    ``device="cpu"`` apps (the plain versions);
 5. time each kernel at the main path's shapes beside its plain version and
-   a one-call PyTorch yardstick, and print the ``kernels`` line.
+   a one-call PyTorch yardstick, L2-hot and cold, count the bytes each call
+   must move on this data for its bound, and print the ``kernels`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -45,6 +47,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 CHUNKS, CHUNK_EVENTS, EVOLVE_AT = 64, 512, 32
+COLD_COPIES = 192  # operand copies rotated for a cold time: ~190 MB, past the 50 MB L2
 SG_SWEEP = [  # (b, n_in, w) x (n_blocks, s), as the reference kernel tests
     (b, n_in, w, nb, s)
     for (b, n_in, w) in [(8, 64, 128), (37, 300, 256), (64, 128, 128)]
@@ -318,22 +321,24 @@ def stage_breakdown(app, chunks):
 
 
 
-def time_ms(fn, *, iters=100, reps=7):
+def time_ms(*fns, iters=100, reps=7):
     """Median device time per call: ``iters`` calls captured in one CUDA
-    graph, replayed ``reps`` times between CUDA events (launch overhead of
-    the eager loop is not in it); also the same loop run eagerly."""
-    for _ in range(3):
+    graph, call i running ``fns[i % len(fns)]``, replayed ``reps`` times
+    between CUDA events (launch overhead of the eager loop is not in it);
+    also the same loop run eagerly."""
+    calls = [fns[i % len(fns)] for i in range(iters)]
+    for fn in fns:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()  # warm the allocator pool on the capture stream
+        fns[0]()  # warm the allocator pool on the capture stream
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
+        for fn in calls:
             fn()
     graph_ms, eager_ms = [], []
     for _ in range(reps):
@@ -344,12 +349,78 @@ def time_ms(fn, *, iters=100, reps=7):
         b.synchronize()
         graph_ms.append(a.elapsed_time(b) / iters)
         a.record()
-        for _ in range(iters):
+        for fn in calls:
             fn()
         b.record()
         b.synchronize()
         eager_ms.append(a.elapsed_time(b) / iters)
     return statistics.median(graph_ms), statistics.median(eager_ms)
+
+
+def hot_and_cold_ms(fn, operands):
+    """``fn(*operands)`` timed two ways: L2-hot (every call on the same
+    operands, which stay in the card's 50 MB L2) and cold (the calls rotate
+    over ``COLD_COPIES`` copies of the operands, more than the L2 holds in
+    all, so each call reads its operands from HBM).  Returns (hot graph ms,
+    hot eager ms, cold graph ms) per call."""
+    hot, eager = time_ms(lambda: fn(*operands))
+    copies = [tuple(x.clone() for x in operands) for _ in range(COLD_COPIES)]
+    cold, _ = time_ms(*[functools.partial(fn, *c) for c in copies], iters=COLD_COPIES)
+    return hot, eager, cold
+
+
+def segmented_gather_bytes(values, mask, rows, blks, src2d) -> int:
+    """Bytes one ``segmented_gather`` call must move on this data: the
+    routing, each distinct block-table row it names, 1 B of mask for each
+    distinct (event row, input column) that those table rows point at and
+    4 B of value where that mask is set, and the outputs.  Payload the table
+    names nowhere (lane padding, attributes of other versions) is not read,
+    so it is not counted.  Every routed pair counts, the bucket padding's
+    included, since the kernel computes those output rows too."""
+    r, b = rows.cpu().numpy(), blks.cpu().numpy()
+    src, m = src2d.cpu().numpy(), mask.cpu().numpy()
+    pairs = np.unique(np.stack([r, b], axis=1), axis=0)
+    p = src[pairs[:, 1]]
+    ev = np.broadcast_to(pairs[:, :1], p.shape)
+    named = p >= 0
+    cells = np.unique(ev[named].astype(np.int64) * m.shape[1] + p[named])
+    hits = np.count_nonzero(m.reshape(-1)[cells])
+    s, w = r.size, src.shape[1]
+    return int(r.nbytes + b.nbytes + np.unique(b).size * w * 4 + cells.size + 4 * hits
+               + s * w * 5)
+
+
+def densify_map_bytes(packed, uid_slot, uid_col, src2d, *, n_items, n_events, n_rows,
+                      k) -> int:
+    """Bytes one ``densify_map`` call must move on this data: the routing;
+    ``starts``/``counts``/``ev_col`` of each event the routing names; the uid
+    of each item those events hold (up to ``k``); the ``uid_slot`` entry of
+    each distinct in-range uid, the ``uid_col`` entry of each with a slot, the
+    value of each item that resolves; each distinct block-table row named;
+    and the outputs.  Bucket padding of the item and event sections that no
+    routed event reaches is not read, so it is not counted."""
+    pk, slot, col = (x.cpu().numpy() for x in (packed, uid_slot, uid_col))
+    o = 2 * n_items
+    starts, counts = pk[o : o + n_events], pk[o + n_events : o + 2 * n_events]
+    ev_col = pk[o + 2 * n_events : o + 3 * n_events]
+    o += 3 * n_events
+    rows, blks = pk[o : o + n_rows], pk[o + n_rows : o + 2 * n_rows]
+    evs = np.unique(np.clip(rows, 0, n_events - 1))
+    n = np.clip(counts[evs], 0, k)
+    ev = np.repeat(evs, n)
+    j = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+    ix = np.clip(starts[ev].astype(np.int64) + j, 0, n_items - 1)
+    uid = pk[ix]
+    in_range = (uid >= 0) & (uid < slot.size)
+    u = uid[in_range]
+    has_slot = slot[u] >= 0
+    resolves = np.zeros(ix.size, bool)
+    resolves[np.flatnonzero(in_range)[has_slot]] = col[u[has_slot]] == ev_col[ev[in_range][has_slot]]
+    w = src2d.shape[1]
+    return int(2 * n_rows * 4 + evs.size * 12 + np.unique(ix).size * 4
+               + np.unique(u).size * 4 + np.unique(u[has_slot]).size * 4
+               + np.unique(ix[resolves]).size * 4 + np.unique(blks).size * w * 4
+               + n_rows * w * 5)
 
 
 def main_path_operands(app, chunk):
@@ -380,28 +451,29 @@ def measure_segmented_gather(app, chunk):
         raise AssertionError("segmented_gather != plain at the main-path shape")
     err = float((kv - rv).abs().max())
 
-    def yardstick():
+    def yardstick(v, m, r, b, t):
         src = t[b]
         safe = src.clamp(min=0)
         hit = (m[r].gather(1, safe) != 0) & (src >= 0)
         return torch.where(hit, v[r].gather(1, safe), 0.0), hit
 
-    yv, ym = yardstick()
+    yv, ym = yardstick(v, m, r, b, t)
     if not (_bits_equal(yv, rv) and torch.equal(ym.to(torch.int8), rm)):
         raise AssertionError("yardstick != plain at the main-path shape")
-    ms, eager = time_ms(lambda: segmented_gather(v, m, r, b, t))
-    plain_ms, _ = time_ms(lambda: segmented_gather_ref(v, m, r, b, t))
-    lib_ms, _ = time_ms(yardstick)
-    touched = np.unique(dense.blk_ids).size
-    nbytes = (v.nbytes + m.nbytes + r.nbytes + b.nbytes + touched * t.shape[1] * 4
-              + kv.nbytes + km.nbytes)
+    ops = (v, m, r, b, t)
+    ms, eager, cold = hot_and_cold_ms(segmented_gather, ops)
+    plain_ms, _, plain_cold = hot_and_cold_ms(segmented_gather_ref, ops)
+    lib_ms, _, lib_cold = hot_and_cold_ms(yardstick, ops)
     return {
         "shape": {"S": int(r.numel()), "S_true": int(dense.row_ids.size),
                   "W": int(t.shape[1]), "B": int(v.shape[0]), "N_in": int(v.shape[1]),
-                  "n_blocks_pad": int(t.shape[0]), "blocks_touched": int(touched)},
-        "max_abs_err": err, "ms": ms, "eager_ms": eager, "plain_ms": plain_ms,
-        "library_ms": lib_ms,
-        "bytes": int(nbytes),
+                  "n_blocks_pad": int(t.shape[0]),
+                  "blocks_touched": int(torch.unique(b).numel())},
+        "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
+        "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
+        "library_ms": lib_ms, "library_cold_ms": lib_cold,
+        "operand_bytes": int(sum(x.nbytes for x in ops)),
+        "bytes": segmented_gather_bytes(*ops),
     }
 
 
@@ -418,24 +490,22 @@ def measure_densify_map(app, chunk):
     if not (_bits_equal(kv, rv) and _bits_equal(km, rm)):
         raise AssertionError("densify_map != plain at the main-path shape")
     err = float((kv - rv).abs().max())
-    ms, eager = time_ms(lambda: densify_map(p, *tabs, **sizes))
-    plain_ms, _ = time_ms(lambda: densify_map_packed_ref(p, *tabs, **sizes))
-    # bytes this chunk needs: the packed buffer, the uid-table entries of its
-    # in-range uids (slot + owner), the touched block-table rows, the outputs
-    uids = dense.packed[: dense.n_items]
-    n_uid = plan.uid_slot.size
-    live = np.unique(uids[(uids >= 0) & (uids < n_uid)]).size
+    ops = (p, *tabs)
+    ms, eager, cold = hot_and_cold_ms(functools.partial(densify_map, **sizes), ops)
+    plain_ms, _, plain_cold = hot_and_cold_ms(
+        functools.partial(densify_map_packed_ref, **sizes), ops)
     o = route_offset(dense.n_items, dense.n_events)
     touched = np.unique(dense.packed[o + dense.n_rows : o + 2 * dense.n_rows]).size
-    nbytes = p.nbytes + live * 8 + touched * plan.width * 4 + kv.nbytes + km.nbytes
     return {
         "shape": {"S": dense.n_rows, "S_true": int(dense.row_ids.size),
                   "W": plan.width, "NI": dense.n_items, "B": dense.n_events,
                   "K": dense.k, "packed_bytes": int(p.nbytes),
                   "blocks_touched": int(touched)},
-        "max_abs_err": err, "ms": ms, "eager_ms": eager, "plain_ms": plain_ms,
-        "library_ms": None,
-        "bytes": int(nbytes),
+        "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
+        "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
+        "library_ms": None, "library_cold_ms": None,
+        "operand_bytes": int(sum(x.nbytes for x in ops)),
+        "bytes": densify_map_bytes(*ops, **sizes),
     }
 
 
