@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's consume path on one NVIDIA card and check it.
+"""Drive the PyTorch port's consume paths on one NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -10,23 +10,33 @@ either it exits non-zero before printing any result.  Phases, in order (any
 failure raises and the script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``build/`` (one ``nvcc`` per source, started together);
-3. hold each kernel against its plain PyTorch version on the card, bit for
-   bit: ``segmented_gather`` over a shape sweep with ``fill`` 0 and 0.25,
-   ``densify_map`` over random packed chunks with duplicate slots, unknown,
-   out-of-range and foreign-column uids and up to 32 items per event;
+3. hold each kernel against its plain PyTorch version on the card:
+   ``segmented_gather`` bit for bit over a shape sweep with ``fill`` 0 and
+   0.25; ``densify_map`` bit for bit over random packed chunks with
+   duplicate slots, unknown, out-of-range and foreign-column uids and up to
+   32 items per event; ``masked_gather`` bit for bit and ``onehot_map``
+   (masks bit for bit, values within ``atol=1e-5``: its float32 sum runs in
+   another order) over the sweep of ``tests/test_kernels.py`` (shapes
+   (1, 1, 128) to (130, 1000, 384), float32 and bfloat16, densities 0 to 1,
+   ``fill`` 0 and 0.25), plus a non-finite event row for ``onehot_map``;
 4. consume 64 chunks of 512 events of the paper-scale scenario (128 schemas
    x 10 versions x 10 attributes, 40 business entities of 25 attributes)
-   through ``METLApp`` on the card, once with host densify and once with
-   ``device_densify=True``, with one ``SchemaEvolved`` applied at chunk 32;
-   check one dispatch per chunk, 4 (host) or 1 (device) transfers per chunk
-   and that each path's kernel launched once per chunk; then compare every
-   row and every stats counter with the same stream through
-   ``device="cpu"`` apps (the plain versions);
+   through ``METLApp`` on the card four ways -- the fused engine with host
+   densify and with ``device_densify=True``, and the per-block engine with
+   ``engine="blocks"`` (``masked_gather``) and with ``impl="onehot"``
+   (``onehot_map``) -- with one ``SchemaEvolved`` applied at chunk 32;
+   check each chunk's accounting (fused: one dispatch, 4 or 1 transfers;
+   per-block: one dispatch per block its groups touch, 2 transfers per
+   group; on the card one launch of the path's kernel per dispatch); then
+   compare every row and every stats counter with the same stream through
+   ``device="cpu"`` apps (the plain versions), and the per-block rows with
+   the fused rows;
 5. time each kernel at the main path's shapes beside its plain version and
-   a one-call PyTorch yardstick, L2-hot and cold, count the bytes each call
-   must move on this data for its bound, and print the ``kernels`` line.
+   a PyTorch yardstick, L2-hot and cold, count the bytes (and for
+   ``onehot_map`` the operations) each call must do on this data for its
+   bound, and print the ``kernels`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -46,13 +56,28 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+FP32_LANES_PER_SM = 128  # Hopper: 128 float32 FMA units per SM (each FMA is 2 operations)
 CHUNKS, CHUNK_EVENTS, EVOLVE_AT = 64, 512, 32
+ONEHOT_ATOL = 1e-5  # float32 sum order; tests/test_kernels.py holds the Pallas kernel so
+# the per-block stage split runs under the profiler, whose cost grows with
+# the ~1,200 device operations a per-block chunk makes: fewer chunks there
+BLOCK_STAGE_CHUNKS = 8
+START = time.perf_counter()
+
+
+def elapsed() -> str:
+    return f"[{time.perf_counter() - START:.1f} s]"
 COLD_COPIES = 192  # operand copies rotated for a cold time: ~190 MB, past the 50 MB L2
 SG_SWEEP = [  # (b, n_in, w) x (n_blocks, s), as the reference kernel tests
     (b, n_in, w, nb, s)
     for (b, n_in, w) in [(8, 64, 128), (37, 300, 256), (64, 128, 128)]
     for (nb, s) in [(8, 16), (16, 130)]
 ]
+# (B, N_in, N_out) as tests/test_kernels.py, plus an output width that is no
+# multiple of 128 (the port lifts the reference's tiling rule)
+BLOCK_SHAPES = [(1, 1, 128), (8, 10, 128), (37, 300, 256), (130, 1000, 384),
+                (256, 128, 128), (9, 20, 130)]
+KERNEL_NAMES = ("segmented_gather", "densify_map", "masked_gather", "onehot_map")
 
 
 def _paper_config():
@@ -74,12 +99,25 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(a, b))
 
 
-def card_line() -> str:
+def _smi(query: str, fmt: str = "csv,noheader") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def card_line() -> str:
+    return _smi("name,power.limit")
+
+
+def fp32_peak_per_s() -> tuple:
+    """The card's float32 CUDA-core peak, operations per second: SMs x
+    128 FMA lanes x 2 operations x the maximum SM clock ``nvidia-smi``
+    reports.  Returns (peak, SM count, clock MHz)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_smi("clocks.max.sm", "csv,noheader,nounits"))
+    return sms * FP32_LANES_PER_SM * 2 * mhz * 1e6, sms, mhz
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -195,6 +233,74 @@ def check_densify_map(device: torch.device) -> int:
     return n + 1
 
 
+def _block_case(rng, b, n_in, n_out, density):
+    """tests/test_kernels.py::_mk_case: each of ``density * min(n_in,
+    n_out)`` output slots names a distinct input slot."""
+    vals = rng.normal(size=(b, n_in)).astype(np.float32)
+    mask = (rng.random((b, n_in)) < 0.7).astype(np.int8)
+    src = np.full((n_out,), -1, np.int32)
+    k = int(density * min(n_in, n_out))
+    if k:
+        src[rng.choice(n_out, size=k, replace=False)] = rng.choice(n_in, size=k, replace=False)
+    return vals, mask, src
+
+
+def _close(kv, km, rv, rm, atol) -> bool:
+    """Masks bit for bit; values bit for bit (``atol`` None) or within
+    ``atol`` with NaN where the plain version has NaN."""
+    if not torch.equal(km, rm):
+        return False
+    if atol is None:
+        return _bits_equal(kv, rv)
+    return kv.dtype == rv.dtype and bool(torch.allclose(
+        kv.float(), rv.float(), rtol=0.0, atol=atol, equal_nan=True))
+
+
+def check_per_block(device: torch.device, name: str) -> int:
+    """``masked_gather`` (bit for bit) or ``onehot_map`` (values within
+    ``ONEHOT_ATOL``) against its plain version over the reference's sweep."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.masked_gather import masked_gather
+    from repro_torch.kernels.onehot_map import onehot_map
+
+    kernel, plain, atol = {
+        "masked_gather": (masked_gather, ref.masked_gather_ref, None),
+        "onehot_map": (onehot_map, ref.onehot_map_ref, ONEHOT_ATOL),
+    }[name]
+    n = 0
+    for i, (b, n_in, n_out) in enumerate(BLOCK_SHAPES):
+        for density in (0.0, 0.3, 1.0):
+            rng = np.random.default_rng(2000 + 10 * i + int(10 * density))
+            case = _block_case(rng, b, n_in, n_out, density)
+            for dtype in (torch.float32, torch.bfloat16):
+                v, m, src = (torch.from_numpy(a).to(device) for a in case)
+                v = v.to(dtype)
+                for fill in (0.0, 0.25):
+                    kv, km = kernel(v, m, src, fill=fill)
+                    rv, rm = plain(v, m, src, fill=fill)
+                    if not _close(kv, km, rv, rm, atol):
+                        raise AssertionError(
+                            f"{name} != plain at B={b} N_in={n_in} N_out={n_out} "
+                            f"density={density} {dtype} fill={fill}")
+                    n += 1
+    if name == "onehot_map":
+        # a non-finite value anywhere in an event row reaches every
+        # mask-set output of that row, as through a matrix unit
+        vals, mask, src = _block_case(np.random.default_rng(7), 8, 10, 128, 0.5)
+        mask[:] = 1
+        vals[2, 0], vals[5, 9] = np.inf, np.nan
+        src[src == 0] = -1
+        v, m, s_ = (torch.from_numpy(a).to(device) for a in (vals, mask, src))
+        kv, km = kernel(v, m, s_, fill=0.25)
+        rv, rm = plain(v, m, s_, fill=0.25)
+        hit = km.bool()
+        if not (_close(kv, km, rv, rm, atol) and bool(kv[2][hit[2]].isnan().all())
+                and bool(kv[5][hit[5]].isnan().all()) and bool(kv[0].isfinite().all())):
+            raise AssertionError("onehot_map: a non-finite row did not spread as in the plain version")
+        n += 1
+    return n
+
+
 # -- phase 4: the main path ----------------------------------------------------
 
 
@@ -216,66 +322,134 @@ class Stream:
         return self.chunks[k]
 
 
-def run_main_path(device, device_densify, cfg, stream, *, n_chunks, evolve_at):
-    """One METLApp over the stream on ``device``; returns (rows, stats,
-    consume seconds per chunk, kernel launch counts, per-chunk accounting,
-    the app)."""
+class DensifyLog:
+    """Records each per-block chunk the engine densifies (an observer on the
+    engine's public ``densify``), so the accounting check can count the
+    groups and the blocks they touch independently of the counters."""
+
+    def __init__(self, engine) -> None:
+        self.engine = engine
+        self.inner = engine.densify
+        self.dense = []
+        engine.densify = self
+
+    def __call__(self, groups):
+        dense = self.inner(groups)
+        if dense is not None:
+            self.dense.append(dense)
+        return dense
+
+    def take(self):
+        """(groups, blocks touched) over the chunks densified since the
+        last call."""
+        out = (sum(len(d.groups) for d in self.dense),
+               sum(len(d.plan.column(*g[0])) for d in self.dense for g in d.groups))
+        self.dense.clear()
+        return out
+
+    def close(self) -> None:
+        del self.engine.densify  # the class's own method again
+
+
+def _launch_counts():
+    from repro_torch.kernels import (densify_map, masked_gather, onehot_map,
+                                     segmented_gather)
+    mods = (segmented_gather, densify_map, masked_gather, onehot_map)
+    return {name: mod.launches for name, mod in zip(KERNEL_NAMES, mods)}
+
+
+def _zero_launch_counts() -> None:
+    from repro_torch.kernels import (densify_map, masked_gather, onehot_map, ops,
+                                     segmented_gather)
+    for mod in (segmented_gather, densify_map, masked_gather, onehot_map):
+        mod.launches = 0
+    ops.dispatch_count = 0
+
+
+def run_main_path(device, path, cfg, stream, *, n_chunks, evolve_at):
+    """One METLApp over the stream on ``device``, configured by ``path``
+    (``engine``/``impl``/``device_densify`` keywords); returns (rows,
+    stats, consume seconds per chunk, kernel launch counts, per-chunk
+    accounting, the app)."""
     from repro_torch.core.state import StateCoordinator
     from repro_torch.core.synthetic import build_scenario, churn_schedule
     from repro_torch.etl.metl import METLApp
-    from repro_torch.kernels import densify_map as dm, ops, segmented_gather as sg
+    from repro_torch.kernels import ops
 
     sc = build_scenario(cfg)
     coord = StateCoordinator(sc.registry, sc.dpm)
     sched = churn_schedule(coord.registry, steps=1, first_chunk=evolve_at, seed=0)
-    app = METLApp(coord, engine="fused", device=device, device_densify=device_densify)
+    app = METLApp(coord, device=device, **path)
+    log = DensifyLog(app.engine) if app.engine.plan_kind == "blocks" else None
     rows, per_chunk, chunk_s = [], [], []
-    ops.dispatch_count = 0
-    sg.launches = 0
-    dm.launches = 0
+    _zero_launch_counts()
     for k in range(n_chunks):
         if k in sched:
             coord.apply(sched[k])
         chunk = stream.get(k, coord.registry)  # set-up, outside the clock
-        before = (app.stats["dispatches"], app.stats["transfers"], sg.launches, dm.launches)
+        before = (app.stats["dispatches"], app.stats["transfers"], _launch_counts())
         t0 = time.perf_counter()
         out = app.consume(chunk)
         chunk_s.append(time.perf_counter() - t0)
-        after = (app.stats["dispatches"], app.stats["transfers"], sg.launches, dm.launches)
-        per_chunk.append(tuple(a - b for a, b in zip(after, before)))
+        launched = _launch_counts()
+        acct = {"dispatches": app.stats["dispatches"] - before[0],
+                "transfers": app.stats["transfers"] - before[1],
+                **{n: launched[n] - before[2][n] for n in KERNEL_NAMES}}
+        if log is not None:
+            acct["groups"], acct["blocks_touched"] = log.take()
+        per_chunk.append(acct)
         rows.extend(out)
-    launches = {"segmented_gather": sg.launches, "densify_map": dm.launches,
-                "dispatch_count": ops.dispatch_count}
+    if log is not None:
+        log.close()
+    launches = {**_launch_counts(), "dispatch_count": ops.dispatch_count}
     return rows, dict(app.stats), chunk_s, launches, per_chunk, app
 
 
-def check_accounting(name, per_chunk, device_densify, on_card):
-    for k, (disp, xfer, n_sg, n_dm) in enumerate(per_chunk):
-        want_xfer = 1 if device_densify else 4
-        if disp != 1 or xfer != want_xfer:
+def check_accounting(name, per_chunk, path, on_card):
+    """Fused: 1 dispatch and 4 (host) or 1 (device) transfers per chunk.
+    Per-block: one dispatch per block the chunk's groups touch, 2 transfers
+    per group.  On the card, one launch of the path's kernel per dispatch
+    and none of the others."""
+    blocks = path.get("engine") == "blocks" or path.get("impl") == "onehot"
+    if blocks:
+        kernel = "onehot_map" if path.get("impl") == "onehot" else "masked_gather"
+    else:
+        kernel = "densify_map" if path.get("device_densify") else "segmented_gather"
+    for k, a in enumerate(per_chunk):
+        if blocks:
+            want = (a["blocks_touched"], 2 * a["groups"])
+        else:
+            want = (1, 1 if path.get("device_densify") else 4)
+        if (a["dispatches"], a["transfers"]) != want:
             raise AssertionError(
-                f"{name} chunk {k}: {disp} dispatches, {xfer} transfers "
-                f"(want 1 and {want_xfer})"
-            )
-        want = (0, 1) if device_densify else (1, 0)
-        if on_card and (n_sg, n_dm) != want:
-            raise AssertionError(
-                f"{name} chunk {k}: launches segmented_gather={n_sg} "
-                f"densify_map={n_dm}, want {want}"
-            )
+                f"{name} chunk {k}: {a['dispatches']} dispatches, {a['transfers']} "
+                f"transfers (want {want[0]} and {want[1]})")
+        if on_card:
+            got = {n: a[n] for n in KERNEL_NAMES}
+            if got != {n: (a["dispatches"] if n == kernel else 0) for n in KERNEL_NAMES}:
+                raise AssertionError(f"{name} chunk {k}: launches {got}, want "
+                                     f"{a['dispatches']} of {kernel} only")
 
 
-def compare_rows(name, got, want):
+def compare_rows(name, got, want, atol=None) -> int:
+    """Routes, keys and masks equal; values bit for bit (``atol`` None) or
+    within ``atol``.  Returns the number of rows whose values differ in
+    any bit."""
     if len(got) != len(want):
         raise AssertionError(f"{name}: {len(got)} rows, reference {len(want)}")
+    n_bits = 0
     for i, (x, y) in enumerate(zip(got, want)):
         if x[0] != y[0] or x[3] != y[3]:
             raise AssertionError(f"{name} row {i}: route/key {x[0]},{x[3]} != {y[0]},{y[3]}")
         if x[1].dtype != np.float32 or not np.isfinite(x[1]).all():
             raise AssertionError(f"{name} row {i}: values not finite float32")
-        if not (np.array_equal(x[1].view(np.int32), y[1].view(np.int32))
-                and np.array_equal(x[2], y[2])):
-            raise AssertionError(f"{name} row {i}: values/mask differ from reference")
+        if not np.array_equal(x[2], y[2]):
+            raise AssertionError(f"{name} row {i}: mask differs from reference")
+        if not np.array_equal(x[1].view(np.int32), y[1].view(np.int32)):
+            n_bits += 1
+            if atol is None or not np.allclose(x[1], y[1], rtol=0.0, atol=atol):
+                raise AssertionError(f"{name} row {i}: values differ from reference")
+    return n_bits
 
 
 # -- phase 5: timing -------------------------------------------------------------
@@ -509,6 +683,98 @@ def measure_densify_map(app, chunk):
     }
 
 
+def block_groups(app, chunk):
+    """The per-block engine's device operands for ``chunk``: per (o, v)
+    group with blocks, (B, values, mask, src of its first block), sorted by
+    B."""
+    app.reset_dedup()
+    dense = app.engine.densify(app.triage(chunk))
+    dev = app.device
+    out = []
+    for ov, _keys, vals, mask in dense.groups:
+        blocks = dense.plan.column(*ov)
+        if blocks:
+            out.append((vals.shape[0], torch.from_numpy(vals).to(dev),
+                        torch.from_numpy(mask).to(dev), blocks[0].src_dev))
+    out.sort(key=lambda g: g[0])
+    return out
+
+
+def per_block_bytes(values, mask, src, *, reads_all: bool) -> int:
+    """Bytes one per-block call must move on this data: ``src``; the
+    outputs; and either (``masked_gather``) 1 B of mask for each event row
+    and distinct input column a live ``src`` entry names plus the value
+    where that mask is set, or (``onehot_map``, whose contraction reads
+    every payload slot) the whole values and mask."""
+    v, m, s = (x.cpu() for x in (values, mask, src))
+    b, e = v.shape[0], v.element_size()
+    out = b * s.numel() * (e + 1)
+    if reads_all:
+        return int(s.nbytes + v.nbytes + m.nbytes + out)
+    named = torch.unique(s[s >= 0]).long()
+    hits = int((m[:, named] != 0).sum())
+    return int(s.nbytes + b * named.numel() + hits * e + out)
+
+
+def measure_per_block(name, group, fp32_peak):
+    """Time one per-block kernel on a group's operands beside its plain
+    version and a PyTorch yardstick, hot and cold, with its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.masked_gather import masked_gather
+    from repro_torch.kernels.onehot_map import onehot_map
+
+    b, v, m, src = group
+    ops = (v, m, src)
+    if name == "masked_gather":
+        kernel, plain, atol = masked_gather, ref.masked_gather_ref, None
+        valid = src >= 0
+        safe = torch.where(valid, src, 0).long()
+
+        def yardstick(v, m, safe, valid):  # index_select + where
+            hit = (m.index_select(1, safe) != 0) & valid
+            return torch.where(hit, v.index_select(1, safe), 0.0), hit
+
+        lib_ops = (v, m, safe, valid)
+    else:
+        kernel, plain, atol = onehot_map, ref.onehot_map_ref, ONEHOT_ATOL
+        cols = torch.arange(v.shape[1], dtype=src.dtype, device=src.device)
+        onehot_t = (src[:, None] == cols[None, :]).float().t().contiguous()  # (N_in, N_out)
+
+        def yardstick(v, mf, onehot_t):  # two IEEE float32 matmuls
+            return torch.matmul(v, onehot_t), torch.matmul(mf, onehot_t)
+
+        lib_ops = (v, m.float(), onehot_t)
+    kv, km = kernel(*ops)
+    rv, rm = plain(*ops)
+    if not _close(kv, km, rv, rm, atol):
+        raise AssertionError(f"{name} != plain at the main-path shape B={b}")
+    err = float((kv.float() - rv.float()).abs().max())
+    yv, ym = yardstick(*lib_ops)
+    if name == "masked_gather":
+        ok = _bits_equal(yv, rv) and torch.equal(ym.to(torch.int8), rm)
+    else:
+        ok = torch.equal((ym > 0.5).to(torch.int8), rm) and bool(torch.allclose(
+            torch.where(ym > 0.5, yv, 0.0), rv, rtol=0.0, atol=ONEHOT_ATOL))
+    if not ok:
+        raise AssertionError(f"{name} yardstick != plain at the main-path shape")
+    ms, eager, cold = hot_and_cold_ms(kernel, ops)
+    plain_ms, _, plain_cold = hot_and_cold_ms(plain, ops)
+    lib_ms, _, lib_cold = hot_and_cold_ms(yardstick, lib_ops)
+    n_bytes = per_block_bytes(v, m, src, reads_all=name == "onehot_map")
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    flops = 2 * 2 * v.shape[0] * v.shape[1] * src.numel() if name == "onehot_map" else 0
+    ops_ms = flops / fp32_peak * 1e3
+    return {
+        "shape": {"B": int(b), "N_in": int(v.shape[1]), "N_out_pad": int(src.numel())},
+        "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
+        "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
+        "library_ms": lib_ms, "library_cold_ms": lib_cold,
+        "bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+    }
+
+
 # -- main --------------------------------------------------------------------------
 
 
@@ -524,6 +790,8 @@ def main() -> int:
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
+    # every float32 product here is IEEE float32, the yardsticks' included
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -540,74 +808,123 @@ def main() -> int:
 
     n_sg = check_segmented_gather(dev)
     n_dm = check_densify_map(dev)
+    n_mg = check_per_block(dev, "masked_gather")
+    n_oh = check_per_block(dev, "onehot_map")
     torch.cuda.synchronize()
-    print(f"kernels vs plain versions: segmented_gather {n_sg} cases, "
-          f"densify_map {n_dm} cases, bit-exact", flush=True)
+    print(f"{elapsed()} kernels vs plain versions: segmented_gather {n_sg} cases, "
+          f"densify_map {n_dm} cases, masked_gather {n_mg} cases bit-exact; "
+          f"onehot_map {n_oh} cases, masks bit-exact, values within "
+          f"atol={ONEHOT_ATOL}", flush=True)
 
     cfg = _paper_config()
     stream = Stream(CHUNK_EVENTS)
+    paths = {
+        "host": {"device_densify": False},
+        "device": {"device_densify": True},
+        "blocks-gather": {"engine": "blocks"},
+        "blocks-onehot": {"impl": "onehot"},
+    }
     runs = {}
-    for name, device, dd in (("cuda/host", dev, False), ("cuda/device", dev, True),
-                             ("cpu/host", "cpu", False), ("cpu/device", "cpu", True)):
-        rows, stats, chunk_s, launches, per_chunk, app = run_main_path(
-            device, dd, cfg, stream, n_chunks=CHUNKS, evolve_at=EVOLVE_AT
-        )
-        if device == dev:
-            torch.cuda.synchronize()
-        check_accounting(name, per_chunk, dd, on_card=device == dev)
-        runs[name] = (rows, stats, launches, app)
-        info = app.engine.info()
-        seconds, median_s = sum(chunk_s), statistics.median(chunk_s)
-        print(f"main path {name}: {CHUNKS} x {CHUNK_EVENTS} events in "
-              f"{seconds:.3f} s consume = {CHUNKS * CHUNK_EVENTS / seconds:.0f} ev/s "
-              f"(median chunk {median_s * 1e3:.3f} ms = "
-              f"{CHUNK_EVENTS / median_s:.0f} ev/s; first chunk "
-              f"{chunk_s[0] * 1e3:.1f} ms, chunk {EVOLVE_AT} {chunk_s[EVOLVE_AT] * 1e3:.1f} ms); "
-              f"rows {len(rows)}; dispatches {stats['dispatches']}; transfers "
-              f"{stats['transfers']}; launches {json.dumps(launches)}; "
-              f"n_blocks {info['n_blocks']} table_bytes {info['table_bytes']}",
-              flush=True)
-    for path in ("host", "device"):
-        got, want = runs[f"cuda/{path}"], runs[f"cpu/{path}"]
-        compare_rows(f"cuda/{path}", got[0], want[0])
+    for where, device in (("cuda", dev), ("cpu", "cpu")):
+        for pname, path in paths.items():
+            name = f"{where}/{pname}"
+            rows, stats, chunk_s, launches, per_chunk, app = run_main_path(
+                device, path, cfg, stream, n_chunks=CHUNKS, evolve_at=EVOLVE_AT
+            )
+            if device == dev:
+                torch.cuda.synchronize()
+            check_accounting(name, per_chunk, path, on_card=device == dev)
+            runs[name] = (rows, stats, launches, app)
+            info = app.engine.info()
+            seconds, median_s = sum(chunk_s), statistics.median(chunk_s)
+            per = {k: sum(a[k] for a in per_chunk) / CHUNKS
+                   for k in ("dispatches", "transfers")}
+            print(f"{elapsed()} main path {name}: {CHUNKS} x {CHUNK_EVENTS} events in "
+                  f"{seconds:.3f} s consume = {CHUNKS * CHUNK_EVENTS / seconds:.0f} ev/s "
+                  f"(median chunk {median_s * 1e3:.3f} ms = "
+                  f"{CHUNK_EVENTS / median_s:.0f} ev/s; first chunk "
+                  f"{chunk_s[0] * 1e3:.1f} ms, chunk {EVOLVE_AT} {chunk_s[EVOLVE_AT] * 1e3:.1f} ms); "
+                  f"rows {len(rows)}; dispatches {stats['dispatches']} "
+                  f"({per['dispatches']:.2f}/chunk); transfers {stats['transfers']} "
+                  f"({per['transfers']:.2f}/chunk); launches {json.dumps(launches)}; "
+                  f"engine {info['engine']} impl {info['impl']} "
+                  f"n_blocks {info['n_blocks']} table_bytes {info['table_bytes']}",
+                  flush=True)
+    for pname in paths:
+        got, want = runs[f"cuda/{pname}"], runs[f"cpu/{pname}"]
+        atol = ONEHOT_ATOL if pname == "blocks-onehot" else None
+        n_bits = compare_rows(f"cuda/{pname}", got[0], want[0], atol)
         if got[1] != want[1]:
-            raise AssertionError(f"cuda/{path} stats {got[1]} != cpu {want[1]}")
-    compare_rows("cuda/device vs cuda/host", runs["cuda/device"][0], runs["cuda/host"][0])
-    if runs["cuda/host"][2]["segmented_gather"] < 1 or runs["cuda/device"][2]["densify_map"] < 1:
-        raise AssertionError("a kernel of the main path never launched")
-    print("main path: rows and stats bit-exact with the cpu runs", flush=True)
+            raise AssertionError(f"cuda/{pname} stats {got[1]} != cpu {want[1]}")
+        print(f"main path cuda/{pname}: rows and stats equal to the cpu run "
+              f"({n_bits} rows not bit-identical)", flush=True)
+    host_rows = runs["cuda/host"][0]
+    compare_rows("cuda/device vs cuda/host", runs["cuda/device"][0], host_rows)
+    compare_rows("cuda/blocks-gather vs cuda/host", runs["cuda/blocks-gather"][0], host_rows)
+    n_bits = compare_rows("cuda/blocks-onehot vs cuda/host", runs["cuda/blocks-onehot"][0],
+                          host_rows, ONEHOT_ATOL)
+    for key in ("events", "mapped", "empty", "unknown_uid"):
+        if len({runs[f"cuda/{p}"][1].get(key) for p in paths}) != 1:
+            raise AssertionError(f"stats[{key!r}] differs between the paths")
+    origin = {  # kernel: (source, the TPU kernel it replaces, the path that runs it)
+        "segmented_gather": ("src/repro_torch/kernels/csrc/segmented_gather.cu",
+                             "src/repro/kernels/segmented_gather.py:91", "cuda/host"),
+        "densify_map": ("src/repro_torch/kernels/csrc/densify_map.cu",
+                        "src/repro/kernels/densify_map.py:95", "cuda/device"),
+        "masked_gather": ("src/repro_torch/kernels/csrc/masked_gather.cu",
+                          "src/repro/kernels/masked_gather.py:73", "cuda/blocks-gather"),
+        "onehot_map": ("src/repro_torch/kernels/csrc/onehot_map.cu",
+                       "src/repro/kernels/onehot_map.py:61", "cuda/blocks-onehot"),
+    }
+    for name, (_, _, run) in origin.items():
+        if runs[run][2][name] < 1:
+            raise AssertionError(f"{name}, a kernel of the main path, never launched")
+    print("main path: fused and per-block rows equal (blocks-gather bit-exact, "
+          f"blocks-onehot within atol={ONEHOT_ATOL}, {n_bits} rows not bit-identical); "
+          "every kernel launched", flush=True)
 
     # where the consume time goes, on chunks after the evolution
-    sg_app, dm_app = runs["cuda/host"][3], runs["cuda/device"][3]
     later = [stream.chunks[k] for k in range(EVOLVE_AT + 1, CHUNKS)]
-    for name, app in (("cuda/host", sg_app), ("cuda/device", dm_app)):
-        print(f"stages {name}: " + json.dumps(stage_breakdown(app, later)), flush=True)
+    for pname in paths:
+        name = f"cuda/{pname}"
+        chunks = later[:BLOCK_STAGE_CHUNKS] if pname.startswith("blocks") else later
+        print(f"{elapsed()} stages {name}: "
+              + json.dumps(stage_breakdown(runs[name][3], chunks)), flush=True)
 
     # timing at the main path's shapes, on a chunk after the evolution
     probe = stream.chunks[EVOLVE_AT + 1]
-    sg_app.reset_dedup()
-    dm_app.reset_dedup()
-    meas = {"segmented_gather": measure_segmented_gather(sg_app, probe),
-            "densify_map": measure_densify_map(dm_app, probe)}
+    for name in ("cuda/host", "cuda/device"):
+        runs[name][3].reset_dedup()
+    meas = {"segmented_gather": measure_segmented_gather(runs["cuda/host"][3], probe),
+            "densify_map": measure_densify_map(runs["cuda/device"][3], probe)}
+    for m in meas.values():
+        m["bound_ms"] = m["bytes"] / PEAK_BYTES_PER_S * 1e3
+        m["bound_by"] = "bytes"
+    peak, sms, mhz = fp32_peak_per_s()
+    print(f"float32 CUDA-core peak: {sms} SMs x {FP32_LANES_PER_SM} lanes x 2 x "
+          f"{mhz:.0f} MHz = {peak / 1e12:.3f} TFLOP/s", flush=True)
+    for name, run in (("masked_gather", "cuda/blocks-gather"),
+                      ("onehot_map", "cuda/blocks-onehot")):
+        groups = block_groups(runs[run][3], probe)
+        sizes = [g[0] for g in groups]
+        median, largest = groups[len(groups) // 2], groups[-1]
+        print(f"groups {name}: {len(groups)} groups with blocks, B median "
+              f"{median[0]} largest {largest[0]} (B histogram "
+              f"{json.dumps({int(k): sizes.count(k) for k in sorted(set(sizes))})})",
+              flush=True)
+        meas[name] = measure_per_block(name, median, peak)
+        big = measure_per_block(name, largest, peak)
+        print(f"{elapsed()} timing {name} largest group: " + json.dumps(big), flush=True)
     torch.cuda.synchronize()
-    origin = {
-        "segmented_gather": ("src/repro_torch/kernels/csrc/segmented_gather.cu",
-                             "src/repro/kernels/segmented_gather.py:91",
-                             runs["cuda/host"][2]["segmented_gather"]),
-        "densify_map": ("src/repro_torch/kernels/csrc/densify_map.cu",
-                        "src/repro/kernels/densify_map.py:95",
-                        runs["cuda/device"][2]["densify_map"]),
-    }
     kernels = []
     for name, m in meas.items():
-        source, replaces, launches = origin[name]
-        bound_ms = m["bytes"] / PEAK_BYTES_PER_S * 1e3
-        print(f"timing {name}: " + json.dumps({**m, "bound_ms": bound_ms}), flush=True)
+        source, replaces, run = origin[name]
+        print(f"timing {name}: " + json.dumps(m), flush=True)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": m["library_ms"],
+            "launches": runs[run][2][name], "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

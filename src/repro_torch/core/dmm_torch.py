@@ -1,8 +1,12 @@
 """Tensorised, device-resident form of the compacted mapping (Algorithm 6).
 
 The PyTorch counterpart of ``repro.core.dmm_jax``, limited to what the
-fused consume path runs: the per-block lowering (:func:`compile_block`,
-:func:`compile_dpm`) and the fused block table (:func:`compile_fused`).
+consume paths run: the per-block lowering (:func:`compile_block`,
+:func:`compile_dpm`), its device placement for the per-block engine
+(:func:`place_blocks`), the two per-block apply functions
+(:func:`apply_compacted`, the DMM gather, and :func:`apply_onehot`, the
+paper's matrix-operator baseline) and the fused block table
+(:func:`compile_fused`).
 
 The paper's final mapping function is a *set lookup*: for each dense set
 element ``(q, p)`` with value 1, move payload slot ``p`` to output slot
@@ -20,7 +24,9 @@ and the fused plan (:class:`FusedDMM`) stacks every block of a state into
                ids plus the uid -> payload-slot lookup
 
 ``src2d`` and the uid tables' device copies live on the plan's ``device``;
-everything else is host-side numpy.  The ``LANE`` / ``SUBLANE`` padding of
+everything else is host-side numpy.  A per-block plan placed with
+:func:`place_blocks` keeps every block's ``src`` on the device too, as views
+of one buffer uploaded once per state.  The ``LANE`` / ``SUBLANE`` padding of
 the reference is kept as it is, so every table here equals the reference's
 byte for byte; the CUDA kernels do not need it (they mask their own edges).
 """
@@ -46,7 +52,11 @@ __all__ = [
     "CompactedBlockMap",
     "compile_block",
     "compile_dpm",
+    "apply_compacted",
+    "onehot_matrix",
+    "apply_onehot",
     "CompiledDMM",
+    "place_blocks",
     "FusedColumn",
     "FusedDMM",
     "compile_fused",
@@ -98,16 +108,25 @@ def bucket_rows(n: int, floor: int = SUBLANE) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class CompactedBlockMap:
-    """One compacted mapping block (host-side index vector)."""
+    """One compacted mapping block: its host index vector and, once the
+    plan is placed (:func:`place_blocks`), a device-resident copy."""
 
     key: BlockKey
     n_in: int  # true width of the incoming message (attrs of iD_v^o)
     n_out: int  # true width of the outgoing message (attrs of iR_w^r)
     src: np.ndarray  # int32 (n_out_pad,): input slot per output slot, -1 = null
+    src_dev: Optional[torch.Tensor] = None  # int32 (n_out_pad,) on the plan's device
 
     @property
     def n_out_pad(self) -> int:
         return int(self.src.shape[0])
+
+    def src_on(self, device: torch.device) -> torch.Tensor:
+        """``src`` as a tensor on ``device``: the resident copy where the
+        plan was placed there, else a copy of the host vector."""
+        if self.src_dev is not None and self.src_dev.device == device:
+            return self.src_dev
+        return torch.from_numpy(self.src).to(device)
 
 
 def compile_block(
@@ -125,12 +144,68 @@ def compile_block(
     return CompactedBlockMap(key=key, n_in=len(in_uids), n_out=len(out_uids), src=src)
 
 
+def apply_compacted(
+    block: CompactedBlockMap,
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The DMM mapping: batched masked gather.
+
+    values: (..., n_in) payload, mask: (..., n_in) bool.
+    Returns (out_values (..., n_out_pad), out_mask (..., n_out_pad) bool).
+    """
+    src = block.src_on(values.device).long()
+    valid = src >= 0
+    safe = torch.where(valid, src, 0)
+    out_v = values.index_select(-1, safe)
+    out_m = mask.to(torch.bool).index_select(-1, safe) & valid
+    out_v = torch.where(out_m, out_v, fill)
+    return out_v, out_m
+
+
+def onehot_matrix(block: CompactedBlockMap, device: DeviceLike = "cpu") -> torch.Tensor:
+    """The block as an explicit (n_out_pad, n_in) 0/1 float32 matrix -- the
+    baseline representation the paper compacts away."""
+    dev = torch.device(device)
+    src = block.src_on(dev)
+    cols = torch.arange(block.n_in, dtype=torch.int32, device=dev)
+    return (src[:, None] == cols[None, :]).to(torch.float32)
+
+
+def apply_onehot(
+    block: CompactedBlockMap,
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Baseline: ``out = M @ in`` against the block's 0/1 matrix.
+
+    Mathematically identical to :func:`apply_compacted`; structurally it is
+    the paper's Algorithm-1 world where the matrix itself is the operator.
+    The contraction is a float32 multiply and sum, so no TF32 setting of
+    the matrix units can touch it.  Returns (out_values (..., n_out_pad) in
+    ``values.dtype``, out_mask (..., n_out_pad) bool).
+    """
+    m = onehot_matrix(block, values.device)  # (n_out_pad, n_in)
+    out_v = (values.to(torch.float32).unsqueeze(-2) * m).sum(-1)
+    out_m = (mask.to(torch.float32).unsqueeze(-2) * m).sum(-1) > 0.5
+    out_v = torch.where(out_m, out_v, fill)
+    return out_v.to(values.dtype), out_m
+
+
 @dataclasses.dataclass
 class CompiledDMM:
-    """All compacted blocks of a state-i DPM, grouped by incoming (o, v)."""
+    """All compacted blocks of a state-i DPM, grouped by incoming (o, v).
+
+    After :func:`place_blocks`, ``src_flat`` is the one device buffer that
+    every block's ``src_dev`` views."""
 
     state: int
     by_column: Dict[Tuple[int, int], List[CompactedBlockMap]]
+    src_flat: Optional[torch.Tensor] = None
 
     def column(self, o: int, v: int) -> List[CompactedBlockMap]:
         return self.by_column.get((o, v), [])
@@ -138,6 +213,23 @@ class CompiledDMM:
     @property
     def n_blocks(self) -> int:
         return sum(len(b) for b in self.by_column.values())
+
+    @property
+    def src_bytes(self) -> int:
+        """Bytes of all block index vectors (what a placed plan holds on
+        its device)."""
+        return int(sum(b.src.nbytes for col in self.by_column.values() for b in col))
+
+    def map_batch(
+        self, o: int, v: int, values: torch.Tensor, mask: torch.Tensor
+    ) -> List[Tuple[BlockKey, torch.Tensor, torch.Tensor]]:
+        """Map a batch of dense messages of one (o, v) through every block in
+        its column super-set (each block an independent mapping path, paper
+        SS5.5)."""
+        return [
+            (block.key, *apply_compacted(block, values, mask))
+            for block in self.column(o, v)
+        ]
 
 
 def compile_dpm(dpm: DPM, registry: Registry, lane: int = LANE) -> CompiledDMM:
@@ -149,6 +241,29 @@ def compile_dpm(dpm: DPM, registry: Registry, lane: int = LANE) -> CompiledDMM:
             compile_block(key, elements, registry, lane)
         )
     return CompiledDMM(state=registry.state, by_column=by_column)
+
+
+def place_blocks(compiled: CompiledDMM, device: DeviceLike = "cuda") -> CompiledDMM:
+    """The per-block plan with every block's ``src`` resident on ``device``.
+
+    All index vectors of the state go to the device in ONE host->device
+    copy (their concatenation, ``src_flat``); each block's ``src_dev`` is a
+    view of it.  Built once per state by the plan manager, so no dispatch
+    copies an index vector."""
+    dev = resolve_device(device)
+    blocks = [b for col in compiled.by_column.values() for b in col]
+    host = (np.concatenate([b.src for b in blocks]) if blocks
+            else np.empty(0, dtype=np.int32))
+    flat = torch.from_numpy(host).to(dev)
+    by_column: Dict[Tuple[int, int], List[CompactedBlockMap]] = {}
+    off = 0
+    for ov, col in compiled.by_column.items():
+        placed = []
+        for b in col:
+            placed.append(dataclasses.replace(b, src_dev=flat[off : off + b.n_out_pad]))
+            off += b.n_out_pad
+        by_column[ov] = placed
+    return CompiledDMM(state=compiled.state, by_column=by_column, src_flat=flat)
 
 
 @dataclasses.dataclass(frozen=True)

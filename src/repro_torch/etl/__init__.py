@@ -13,10 +13,15 @@ from .control import (  # noqa: F401
 )
 from .plan import PlanEpoch, PlanManager  # noqa: F401
 from .engines import (  # noqa: F401
+    ENGINES,
+    BlockDense,
+    BlocksEngine,
     CanonicalRow,
     FusedEngine,
     MappingEngine,
     TriagedChunk,
+    densify_chunk_dicts,
     make_engine,
+    register_engine,
 )
 from .metl import METLApp  # noqa: F401

@@ -1,6 +1,6 @@
 """The mapping engine: the device side of the METL app.
 
-Counterpart of ``repro.etl.engines`` for the fused path.  A
+Counterpart of ``repro.etl.engines`` for the fused and per-block paths.  A
 :class:`MappingEngine` maps *triaged* event chunks to canonical rows through
 four explicit stages:
 
@@ -19,7 +19,12 @@ ONE dispatch: with host densify (the default) through the
 ``segmented_gather`` kernel over a dense payload; with
 ``device_densify=True`` through the ``densify_map`` kernel, which takes the
 chunk's raw (uid, value) items packed into one int32 buffer and resolves,
-densifies and maps them in the one launch.
+densifies and maps them in the one launch.  The :class:`BlocksEngine` is the
+paper's per-block path: one dispatch per compacted block of each (schema,
+version) group, through ``masked_gather`` (``impl="gather"``, the DMM) or
+``onehot_map`` (``impl="onehot"``, the matrix-operator baseline).  Engines
+are registered by name (:func:`register_engine`) and resolved by
+:func:`make_engine`.
 
 Each :class:`DenseChunk` / :class:`ColumnarDense` pins the plan it was
 densified against, so a state change between stages never mixes plans.
@@ -35,15 +40,22 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 import numpy as np
 import torch
 
-from ..core.dmm_torch import DeviceLike, bucket_rows, resolve_device
+from ..core.dmm_torch import (
+    CompiledDMM,
+    DeviceLike,
+    bucket_rows,
+    global_uid_tables,
+    resolve_device,
+    uid_lookup_table,
+)
 from ..core.registry import Registry
 from ..core.state import SystemState
-from ..kernels.ops import dmm_apply_columnar, dmm_apply_fused
+from ..kernels.ops import IMPLS, dmm_apply, dmm_apply_columnar, dmm_apply_fused
 from .events import CDCEvent, ColumnarChunk, columnarize
 from .plan import PlanEpoch, PlanManager
 
@@ -55,9 +67,14 @@ __all__ = [
     "DenseChunk",
     "ColumnarDense",
     "DispatchHandle",
+    "densify_chunk_dicts",
     "MappingEngine",
-    "FusedEngine",
+    "ENGINES",
+    "register_engine",
     "make_engine",
+    "FusedEngine",
+    "BlockDense",
+    "BlocksEngine",
 ]
 
 
@@ -345,6 +362,62 @@ def _pack_columnar(
     return p, ni_pad, b_pad, k
 
 
+def densify_chunk_dicts(plan: Any, groups: Groups) -> Optional[DenseChunk]:
+    """The pre-columnar densification: one python pass over every payload
+    dict item, resolved through each column's ``uid_pos`` dict.
+
+    Kept (not routed in production) as the bit-exactness oracle for the
+    columnar densify; accepts only the legacy ``Groups`` form.
+    """
+    cols = [
+        (col, evs)
+        for (o, v), evs in groups.items()
+        if (col := plan.column(o, v)) is not None and col.block_ids.size
+    ]
+    if not cols:
+        return None
+
+    n_events = sum(len(evs) for _, evs in cols)
+    vals = np.zeros((bucket_rows(n_events), plan.n_in_pad), np.float32)
+    mask = np.zeros_like(vals, dtype=np.int8)
+    row_parts: List[np.ndarray] = []
+    blk_parts: List[np.ndarray] = []
+    out_keys: List[int] = []
+    base = 0
+    for col, evs in cols:
+        lookup = col.uid_pos
+        r_idx: List[int] = []
+        c_idx: List[int] = []
+        v_buf: List[float] = []
+        for b, ev in enumerate(evs):
+            for uid, val in ev.payload().items():
+                if val is None:
+                    continue
+                pos = lookup.get(uid)
+                if pos is not None:
+                    r_idx.append(base + b)
+                    c_idx.append(pos)
+                    v_buf.append(val)
+        if r_idx:
+            vals[r_idx, c_idx] = v_buf
+            mask[r_idx, c_idx] = 1
+        ev_rows = np.arange(base, base + len(evs), dtype=np.int32)
+        for t in col.block_ids:
+            row_parts.append(ev_rows)
+            blk_parts.append(np.full(len(evs), t, np.int32))
+            out_keys.extend(ev.key for ev in evs)
+        base += len(evs)
+
+    return DenseChunk(
+        plan=plan,
+        vals=vals,
+        mask=mask,
+        row_ids=np.concatenate(row_parts),
+        blk_ids=np.concatenate(blk_parts),
+        out_keys=np.asarray(out_keys, dtype=np.int64),
+    )
+
+
 def _emit_rows(plan, ov, om, blk_ids, out_keys, stats) -> List[CanonicalRow]:
     """Row emission: one ``any``/``nonzero`` over the output mask, then
     slice each surviving row to its block's true width."""
@@ -364,23 +437,39 @@ def _emit_rows(plan, ov, om, blk_ids, out_keys, stats) -> List[CanonicalRow]:
 class MappingEngine:
     """Protocol base for mapping engines.
 
-    Subclasses implement the three chunk stages (``densify`` / ``dispatch``
-    / ``emit``) plus ``info``; ``compile`` ACQUIRES the plan from the
-    engine's own :class:`~repro_torch.etl.plan.PlanManager`, on the
-    engine's device.  ``stats`` is the counter the owning METL app injects.
+    Subclasses declare their ``plan_kind`` and implement the three chunk
+    stages (``densify`` / ``dispatch`` / ``emit``) plus ``info``;
+    ``compile`` ACQUIRES the plan from the engine's
+    :class:`~repro_torch.etl.plan.PlanManager` (its own, on the engine's
+    device, unless one is passed; a manager of another kind or device
+    raises).  ``stats`` is the counter the owning METL app injects.
     """
 
     name: str = "base"
+    plan_kind: str = "fused"  # the PlanManager kind this engine consumes
+    impl: str = "gather"  # the mapping algorithm (only the blocks engine varies it)
 
     def __init__(
         self,
         *,
         device: DeviceLike = "cuda",
         stats: Optional[collections.Counter] = None,
+        manager: Optional[PlanManager] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.stats = stats if stats is not None else collections.Counter()
-        self.manager = PlanManager(device=self.device)
+        if manager is None:
+            manager = PlanManager(kind=self.plan_kind, device=self.device)
+        if manager.kind != self.plan_kind:
+            raise ValueError(
+                f"engine {self.name!r} consumes plan kind {self.plan_kind!r}, "
+                f"manager builds {manager.kind!r}"
+            )
+        if manager.device != self.device:
+            raise ValueError(
+                f"manager builds on {manager.device}, engine runs on {self.device}"
+            )
+        self.manager = manager
         self.plan: Any = None
         self.lease: Optional[PlanEpoch] = None
         # observability binding (set by METLApp): the coordinator whose
@@ -436,27 +525,75 @@ class MappingEngine:
 
     def info(self) -> Dict[str, Any]:
         """Public observability surface.  Keys (every engine): ``engine``,
-        ``device``, ``n_shards``, ``device_densify``, ``dispatches``,
-        ``transfers``, ``plan_epoch``, ``rebuilds``, ``role``, ``term``,
-        ``log_offset``, ``lag_records``; once a plan is compiled also
-        ``state``, ``n_blocks``, ``blocks_per_shard``, ``width``,
-        ``table_bytes``, ``table_bytes_per_shard`` and ``bytes_resident``."""
+        ``impl``, ``device``, ``n_shards``, ``device_densify``,
+        ``dispatches``, ``transfers``, ``plan_epoch``, ``rebuilds``,
+        ``role``, ``term``, ``log_offset``, ``lag_records``; once a plan is
+        compiled also ``state``, ``n_blocks``, ``blocks_per_shard``,
+        ``table_bytes``, ``table_bytes_per_shard``, ``bytes_resident`` and,
+        for the fused engine, ``width``."""
         raise NotImplementedError
+
+    def _base_info(self) -> Dict[str, Any]:
+        """The keys of ``info()`` every engine carries."""
+        return {
+            "engine": self.name,
+            "impl": self.impl,
+            "device": str(self.device),
+            "n_shards": 1,
+            "device_densify": bool(getattr(self, "device_densify", False)),
+            "dispatches": int(self.stats["dispatches"]),
+            "transfers": int(self.stats["transfers"]),
+            **self._manager_info(),
+        }
+
+
+# -- engine registry ---------------------------------------------------------
+
+ENGINES: Dict[str, Type[MappingEngine]] = {}
+
+
+def register_engine(name: str) -> Any:
+    """Class decorator: register a :class:`MappingEngine` under ``name`` so
+    ``METLApp(..., engine=name)`` resolves it through :func:`make_engine`."""
+
+    def deco(cls: Type[MappingEngine]) -> Type[MappingEngine]:
+        cls.name = name
+        ENGINES[name] = cls
+        return cls
+
+    return deco
 
 
 def make_engine(
     engine: Any = "fused",
     *,
+    impl: str = "gather",
     device: Optional[DeviceLike] = None,
     device_densify: bool = False,
     stats: Optional[collections.Counter] = None,
 ) -> MappingEngine:
-    """Resolve an engine name (only ``"fused"`` is ported) or adopt an
-    instance.  ``device`` defaults to ``"cuda"`` for a name and to the
-    instance's own device for an instance; a conflicting ``device`` or
+    """Resolve a registered engine name, or adopt an instance.
+
+    Routing rules, as in the reference:
+
+      * ``impl="onehot"`` only exists as a per-block kernel, so with
+        ``engine="fused"`` it routes to the ``blocks`` engine rather than
+        silently changing the benched path;
+      * ``device_densify=True`` is realised by the fused engine only, so it
+        raises with ``impl="onehot"`` or ``engine="blocks"``.
+
+    ``impl`` is ``"gather"`` or ``"onehot"``; anything else raises.
+    ``device`` defaults to ``"cuda"`` for a name and to the instance's own
+    device for an instance; a conflicting ``impl``, ``device`` or
     ``device_densify`` raises instead of running a different path than
-    asked."""
+    asked.
+    """
     if isinstance(engine, MappingEngine):
+        if impl != "gather" and impl != engine.impl:
+            raise ValueError(
+                f"impl={impl!r} conflicts with engine instance impl="
+                f"{engine.impl!r}; configure the instance instead"
+            )
         if device is not None and resolve_device(device) != engine.device:
             raise ValueError(
                 f"device={device!r} conflicts with the engine instance's "
@@ -470,15 +607,28 @@ def make_engine(
         if stats is not None:
             engine.stats = stats
         return engine
-    if engine != "fused":
-        raise ValueError(f"unknown engine {engine!r} (ported: 'fused')")
-    return FusedEngine(
-        device="cuda" if device is None else device,
-        device_densify=device_densify,
-        stats=stats,
-    )
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} (registered: {sorted(ENGINES)})")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (ported: {IMPLS})")
+    dev = "cuda" if device is None else device
+    if impl == "onehot" and engine == "fused":
+        if device_densify:
+            raise ValueError(
+                "device_densify=True has no onehot realisation (impl='onehot' "
+                "routes to the per-block engine)"
+            )
+        engine = "blocks"
+    if engine == "fused":
+        return ENGINES["fused"](device=dev, device_densify=device_densify, stats=stats)
+    if device_densify:
+        raise ValueError(
+            f"engine={engine!r} has no device-densify path (fused only)"
+        )
+    return ENGINES[engine](impl=impl, device=dev, stats=stats)
 
 
+@register_engine("fused")
 class FusedEngine(MappingEngine):
     """One fused dispatch for the whole chunk (all columns, all blocks).
 
@@ -489,8 +639,6 @@ class FusedEngine(MappingEngine):
     scatter (four transfers, one dispatch), as in the reference.
     """
 
-    name = "fused"
-
     def __init__(
         self,
         *,
@@ -498,8 +646,9 @@ class FusedEngine(MappingEngine):
         device_densify: bool = False,
         min_device_events: int = 32,
         stats: Optional[collections.Counter] = None,
+        manager: Optional[PlanManager] = None,
     ) -> None:
-        super().__init__(device=device, stats=stats)
+        super().__init__(device=device, stats=stats, manager=manager)
         self.device_densify = device_densify
         self.min_device_events = min_device_events
 
@@ -572,15 +721,7 @@ class FusedEngine(MappingEngine):
         )
 
     def info(self) -> Dict[str, Any]:
-        d: Dict[str, Any] = {
-            "engine": self.name,
-            "device": str(self.device),
-            "n_shards": 1,
-            "device_densify": self.device_densify,
-            "dispatches": int(self.stats["dispatches"]),
-            "transfers": int(self.stats["transfers"]),
-            **self._manager_info(),
-        }
+        d = self._base_info()
         if self.lease is not None:
             p = self.lease.plan
             table_bytes = int(p.src2d.nbytes)
@@ -589,6 +730,145 @@ class FusedEngine(MappingEngine):
                 n_blocks=p.n_blocks,
                 blocks_per_shard=p.n_blocks,
                 width=p.width,
+                table_bytes=table_bytes,
+                table_bytes_per_shard=table_bytes,
+                bytes_resident=self.lease.bytes_resident,
+            )
+        return d
+
+
+# -- the per-block engine ------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BlockDense:
+    """Per-column dense payloads for the per-block engine: one (keys, vals,
+    mask) triple per (schema, version) group, mapped block by block in
+    dispatch (``keys`` carries the event key per dense row), pinned to the
+    placed per-block plan it was densified against."""
+
+    plan: CompiledDMM
+    groups: List[Tuple[Tuple[int, int], np.ndarray, np.ndarray, np.ndarray]]
+
+
+@register_engine("blocks")
+class BlocksEngine(MappingEngine):
+    """One device dispatch per compacted block of each (o, v) group -- the
+    paper's per-block mapping, kept for the A/B against the fused engine
+    and as the only realisation of ``impl="onehot"``.
+
+    Densification is the same columnar numpy scatter as the fused engine
+    (shared :func:`_event_items` / :func:`_uid_slots`), per column at the
+    column's true width.  Per group, dispatch makes 2 transfers (values,
+    mask) and one :func:`~repro_torch.kernels.ops.dmm_apply` per block,
+    against block index vectors that the plan keeps resident on the device.
+    """
+
+    plan_kind = "blocks"
+
+    def __init__(
+        self,
+        *,
+        impl: str = "gather",
+        device: DeviceLike = "cuda",
+        stats: Optional[collections.Counter] = None,
+        manager: Optional[PlanManager] = None,
+    ) -> None:
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r} (ported: {IMPLS})")
+        super().__init__(device=device, stats=stats, manager=manager)
+        self.impl = impl
+        self._registry: Optional[Registry] = None
+        self._luts: Dict[Tuple[int, int], np.ndarray] = {}
+        self._uid_col_global: Optional[np.ndarray] = None
+
+    def compile(self, snapshot: SystemState, registry: Registry) -> Any:
+        plan = super().compile(snapshot, registry)
+        self._registry = registry
+        self._luts = {}  # uid -> slot tables are per registry state
+        # plan-global uid -> owning-column table, so stats["unknown_uid"] is
+        # counted as the fused engine counts it
+        self._uid_col_global = global_uid_tables(self.lease.compiled, registry)[1]
+        return plan
+
+    def _column_lut(self, o: int, v: int) -> np.ndarray:
+        lut = self._luts.get((o, v))
+        if lut is None:
+            lut = uid_lookup_table(self._registry.domain.get(o, v).uids)
+            self._luts[(o, v)] = lut
+        return lut
+
+    def densify(self, groups) -> Optional[BlockDense]:
+        tri = as_triaged(groups)
+        if tri is None:
+            return None
+        chunk = tri.chunk
+        _count_unknown_uids(self._uid_col_global, chunk, tri.by_column, self.stats)
+        out = []
+        for (o, v), idx in tri.by_column.items():
+            idx = np.asarray(idx, dtype=np.int64)
+            n_in = len(self._registry.domain.get(o, v).uids)
+            vals = np.zeros((idx.size, n_in), np.float32)
+            mask = np.zeros((idx.size, n_in), np.int8)
+            ev_rows, item_idx = _event_items(chunk, idx)
+            if item_idx.size:
+                slots = _uid_slots(self._column_lut(o, v), chunk.uids[item_idx])
+                keep = slots >= 0
+                if keep.any():
+                    vals[ev_rows[keep], slots[keep]] = chunk.vals[item_idx[keep]]
+                    mask[ev_rows[keep], slots[keep]] = 1
+            out.append(((o, v), chunk.keys[idx], vals, mask))
+        return BlockDense(plan=self.plan, groups=out)
+
+    def dispatch(self, dense: BlockDense) -> DispatchHandle:
+        outputs = []
+        staging: Tuple[torch.Tensor, ...] = ()
+        for (o, v), keys, vals, mask in dense.groups:
+            (jv, jm), st = _to_device(self.device, vals, mask)
+            staging += st
+            self.stats["transfers"] += 2  # per-group vals + mask
+            for block in dense.plan.column(o, v):
+                ov, om = dmm_apply(jv, jm, block.src_dev, impl=self.impl)
+                self.stats["dispatches"] += 1
+                outputs.append((block, keys, ov, om))
+        return DispatchHandle(outputs=outputs, dense=dense, staging=staging)
+
+    def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
+        rows: List[CanonicalRow] = []
+        outs = handle.outputs
+        if not outs:
+            handle.staging = ()
+            return rows
+        # one readback per output kind: every block's outputs, flattened
+        # into one buffer on the device first
+        ov_all = torch.cat([ov.reshape(-1) for _, _, ov, _ in outs]).cpu().numpy()
+        om_all = torch.cat([om.reshape(-1) for _, _, _, om in outs]).cpu().numpy()
+        handle.staging = ()  # the copies that read the staging buffers are done
+        off = 0
+        for block, keys, ov, _ in outs:
+            n = ov.numel()
+            v = ov_all[off : off + n].reshape(ov.shape)
+            m = om_all[off : off + n].reshape(ov.shape)
+            off += n
+            live = np.flatnonzero(m.any(axis=1))  # only non-empty outgoing messages
+            # counted per row in the reference, so a counter appears only once hit
+            for stat, count in (("mapped", live.size), ("empty", keys.size - live.size)):
+                if count:
+                    self.stats[stat] += int(count)
+            route, no = (block.key[2], block.key[3]), block.n_out
+            for b, key in zip(live.tolist(), keys[live].tolist()):
+                rows.append((route, v[b, :no], m[b, :no], key))
+        return rows
+
+    def info(self) -> Dict[str, Any]:
+        d = self._base_info()
+        if self.lease is not None:
+            p = self.lease.plan
+            table_bytes = p.src_bytes
+            d.update(
+                state=p.state,
+                n_blocks=p.n_blocks,
+                blocks_per_shard=p.n_blocks,
                 table_bytes=table_bytes,
                 table_bytes_per_shard=table_bytes,
                 bytes_resident=self.lease.bytes_resident,

@@ -6,8 +6,8 @@ stale events raise in strict mode, or park / dead-letter), at-least-once
 dedup over a sliding key window, parked-event replay after a refresh, and
 dead-letter offset reset -- and exposes them as :meth:`METLApp.triage`.  The
 mapping itself lives behind the engine (:mod:`repro_torch.etl.engines`):
-``consume`` is ``triage -> engine.consume_groups`` -- densify, one dispatch,
-emit.
+``consume`` is ``triage -> engine.consume_groups`` -- densify, dispatch (one
+per chunk on the fused engine, one per block on the per-block engine), emit.
 
 The app runs on the card by default (``device="cuda"``) and raises when no
 CUDA device exists; ``device="cpu"`` runs the same path through the plain
@@ -35,7 +35,10 @@ class METLApp:
     """One horizontally-scaled METL instance (triage facade + engine).
 
     ``engine`` is a registered name (built on ``device``, which defaults to
-    ``"cuda"``) or an engine instance (adopted on its own device).
+    ``"cuda"``) or an engine instance (adopted on its own device).  ``impl``
+    picks the per-block mapping algorithm: ``"gather"`` (the compacted DMM)
+    or ``"onehot"`` (the matrix-operator baseline, which routes
+    ``engine="fused"`` to the per-block engine; see :func:`make_engine`).
     """
 
     def __init__(
@@ -45,6 +48,7 @@ class METLApp:
         strict_state: bool = False,
         dedup_window: int = 4096,
         engine: Union[str, MappingEngine] = "fused",
+        impl: str = "gather",
         device: Optional[DeviceLike] = None,
         device_densify: bool = False,
     ) -> None:
@@ -54,7 +58,8 @@ class METLApp:
         # a name builds a new engine on ``device`` ("cuda" unless given); an
         # instance is adopted with its own device and shares the app's stats
         self.engine = make_engine(
-            engine, device=device, device_densify=device_densify, stats=self.stats
+            engine, impl=impl, device=device, device_densify=device_densify,
+            stats=self.stats,
         )
         self.device = self.engine.device
         # observability binding only: engine.info() reads the replication
@@ -207,7 +212,7 @@ class METLApp:
         self, events: Union[Iterable[CDCEvent], ColumnarChunk]
     ) -> List[CanonicalRow]:
         """Map a chunk of events (legacy list or columnar) to canonical rows:
-        triage per event, then densify -> one dispatch -> emit per chunk.
+        triage per event, then densify -> dispatch -> emit per chunk.
         Rows of a replay tripped by the triage's lazy refresh come first."""
         rows = self.engine.consume_groups(self.triage(events))
         replayed = self.take_replayed()

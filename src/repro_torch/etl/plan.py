@@ -2,8 +2,11 @@
 
 Counterpart of ``repro.etl.plan``, first cut: the :class:`PlanManager` is the
 single site that lowers a state's DPM (:func:`~repro_torch.core.dmm_torch.
-compile_dpm`) and builds its fused device plan (:func:`~repro_torch.core.
-dmm_torch.compile_fused`) on the manager's device.  Engines ask for a plan
+compile_dpm`) and builds its device plan on the manager's device: the fused
+block table (:func:`~repro_torch.core.dmm_torch.compile_fused`) for
+``kind="fused"``, or the per-block plan with every index vector resident
+(:func:`~repro_torch.core.dmm_torch.place_blocks`) for ``kind="blocks"``.
+One manager serves one engine kind.  Engines ask for a plan
 with :meth:`PlanManager.acquire` and serve the returned :class:`PlanEpoch`
 lease; in-flight chunks pin the plan they were densified against, so an
 epoch keeps serving its drains after the manager moves on.
@@ -18,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 from ..core.dmm_torch import (
     CompiledDMM,
@@ -26,34 +29,41 @@ from ..core.dmm_torch import (
     FusedDMM,
     compile_dpm,
     compile_fused,
+    place_blocks,
     resolve_device,
 )
 from ..core.registry import Registry
 from ..core.state import SystemState
 
-__all__ = ["PlanEpoch", "PlanManager"]
+__all__ = ["PLAN_KINDS", "PlanEpoch", "PlanManager"]
+
+PLAN_KINDS = ("fused", "blocks")
 
 
 @dataclasses.dataclass(frozen=True)
 class PlanEpoch:
     """One published plan epoch: the immutable lease an engine serves.
 
-    ``plan`` is the fused device plan, ``compiled`` the per-block lowering
-    it was flattened from; ``bytes_resident`` prices the device-resident
-    block table."""
+    ``plan`` is the device plan (a :class:`FusedDMM`, or for the per-block
+    engine the placed :class:`CompiledDMM`), ``compiled`` the host lowering
+    it was built from; ``bytes_resident`` prices the device-resident block
+    table or index vectors."""
 
     epoch: int
     state: int
     compiled: CompiledDMM
-    plan: FusedDMM
+    plan: Union[FusedDMM, CompiledDMM]
     bytes_resident: int
     rebuild_s: float
 
 
 class PlanManager:
-    """Epoch-versioned owner of plan builds for one device."""
+    """Epoch-versioned owner of plan builds of one ``kind`` for one device."""
 
-    def __init__(self, *, device: DeviceLike = "cuda") -> None:
+    def __init__(self, *, kind: str = "fused", device: DeviceLike = "cuda") -> None:
+        if kind not in PLAN_KINDS:
+            raise ValueError(f"unknown plan kind {kind!r} (ported: {PLAN_KINDS})")
+        self.kind = kind
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._lease: Optional[PlanEpoch] = None
@@ -70,7 +80,13 @@ class PlanManager:
                 return self._lease
             t0 = time.perf_counter()
             compiled = compile_dpm(snapshot.dpm, registry)
-            plan = compile_fused(compiled, registry, device=self.device)  # metl: allow[plan-publish-single-site] this IS the port's plan manager, the counterpart of repro.etl.plan; the rule's owner list names only the reference modules
+            plan: Union[FusedDMM, CompiledDMM]
+            if self.kind == "blocks":
+                plan = place_blocks(compiled, self.device)
+                bytes_resident = plan.src_bytes
+            else:
+                plan = compile_fused(compiled, registry, device=self.device)  # metl: allow[plan-publish-single-site] this IS the port's plan manager, the counterpart of repro.etl.plan; the rule's owner list names only the reference modules
+                bytes_resident = int(plan.src2d.nbytes)
             rebuild_s = time.perf_counter() - t0
             self._epoch += 1
             self._lease = PlanEpoch(
@@ -78,7 +94,7 @@ class PlanManager:
                 state=snapshot.i,
                 compiled=compiled,
                 plan=plan,
-                bytes_resident=int(plan.src2d.nbytes),
+                bytes_resident=bytes_resident,
                 rebuild_s=rebuild_s,
             )
             self.rebuilds += 1

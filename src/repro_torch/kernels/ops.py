@@ -1,9 +1,10 @@
 """Public entry points of the mapping kernels, as the engines call them.
 
-Counterpart of ``repro.kernels.ops`` for the fused consume path.  There is
-no ``impl`` switch: each op picks by the device of its tensors (a CUDA
-tensor launches the Hopper kernel or raises, a CPU tensor takes the plain
-PyTorch version).
+Counterpart of ``repro.kernels.ops`` for the consume paths.  Each op picks
+kernel or plain version by the device of its tensors (a CUDA tensor
+launches the Hopper kernel or raises, a CPU tensor takes the plain PyTorch
+version); :func:`dmm_apply`'s ``impl`` picks the per-block *algorithm*, the
+compacted gather or the one-hot contraction.
 
 Dispatch handles, not results: every op returns its output tensors without
 synchronising -- no ``.item()``, ``.cpu()``, ``.tolist()`` or
@@ -18,14 +19,46 @@ from typing import Tuple
 import torch
 
 from .densify_map import densify_map
+from .masked_gather import masked_gather
+from .onehot_map import onehot_map
 from .segmented_gather import segmented_gather
 
-__all__ = ["dmm_apply_fused", "dmm_apply_columnar", "dispatch_count"]
+__all__ = ["IMPLS", "dmm_apply", "dmm_apply_fused", "dmm_apply_columnar",
+           "dispatch_count"]
 
-# Device-dispatch accounting: one per dmm_apply_* call.  The fused-engine
+# Device-dispatch accounting: one per dmm_apply* call.  The fused-engine
 # contract (one dispatch per consume chunk, not one per block) is asserted
 # against this counter.
 dispatch_count = 0
+
+_PER_BLOCK = {"gather": masked_gather, "onehot": onehot_map}
+IMPLS = tuple(_PER_BLOCK)  # the per-block algorithms dmm_apply takes
+
+
+def dmm_apply(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    src: torch.Tensor,
+    *,
+    impl: str = "gather",
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply one compacted block (index vector ``src``) to a payload batch.
+
+    impl:
+      "gather"   the compacted masked gather (the DMM path,
+                 :func:`~repro_torch.kernels.masked_gather.masked_gather`)
+      "onehot"   the one-hot contraction (the paper's baseline,
+                 :func:`~repro_torch.kernels.onehot_map.onehot_map`)
+
+    Any other ``impl`` raises.
+    """
+    global dispatch_count
+    fn = _PER_BLOCK.get(impl)
+    if fn is None:
+        raise ValueError(f"unknown impl {impl!r} (per-block: {sorted(_PER_BLOCK)})")
+    dispatch_count += 1
+    return fn(values, mask, src, fill=fill)
 
 
 def dmm_apply_fused(

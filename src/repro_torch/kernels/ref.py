@@ -7,8 +7,12 @@ and ``torch.clamp`` where the reference clips.  The kernel wrappers run them
 for tensors on the CPU; ``chip_smoke.py`` holds the kernels against them on
 the card.  Nothing on the main path calls them when a card is present.
 
-Every function here only selects (no arithmetic on values), so a kernel and
-its plain version agree bit for bit.
+Every function here but :func:`onehot_map_ref` only selects (no arithmetic
+on values), so a kernel and its plain version agree bit for bit.
+:func:`onehot_map_ref` contracts through a 0/1 matrix in IEEE float32 (a
+multiply and a sum, never a matrix unit that a TF32 setting could reach);
+its kernel sums in another order, so values agree within ``atol=1e-5`` and
+masks bit for bit.
 """
 
 from __future__ import annotations
@@ -18,12 +22,63 @@ from typing import Tuple
 import torch
 
 __all__ = [
+    "masked_gather_ref",
+    "onehot_map_ref",
     "segmented_gather_ref",
     "densify_map_ref",
     "resolve_items_ref",
     "route_offset",
     "densify_map_packed_ref",
 ]
+
+
+def masked_gather_ref(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    src: torch.Tensor,
+    *,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DMM mapping of one block.
+
+    values: (B, N_in) payload (float32 or bfloat16), mask: (B, N_in)
+    validity (bool or int8), src: (N_out,) int32 with -1 for filtered/null
+    output slots.  Returns (out_values (B, N_out) in ``values.dtype``,
+    out_mask (B, N_out) int8).
+    """
+    mask = mask != 0
+    valid = src >= 0
+    safe = torch.where(valid, src, 0).long()
+    out_v = values.index_select(1, safe)
+    out_m = mask.index_select(1, safe) & valid[None, :]
+    out_v = torch.where(out_m, out_v, fill)
+    return out_v, out_m.to(torch.int8)
+
+
+def onehot_map_ref(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    src: torch.Tensor,
+    *,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Baseline (the paper's Algorithm-1 world): the block applied as an
+    explicit 0/1 matrix, ``out = vals @ M.T`` and ``mask @ M.T > 0.5``, in
+    float32 whatever ``values.dtype``; ``fill`` where the mask is unset.
+
+    The contraction is written as a float32 multiply and sum over the true
+    N_in, so it does not depend on ``torch.backends.cuda.matmul.allow_tf32``
+    and a non-finite value anywhere in an event row reaches every output of
+    that row, as it does through a matrix unit.  Same shapes as
+    :func:`masked_gather_ref`.
+    """
+    n_in = values.shape[1]
+    cols = torch.arange(n_in, dtype=src.dtype, device=src.device)
+    m = (src[:, None] == cols[None, :]).to(torch.float32)  # (N_out, N_in)
+    out_v = (values.to(torch.float32)[:, None, :] * m[None]).sum(-1)
+    out_m = (mask.to(torch.float32)[:, None, :] * m[None]).sum(-1) > 0.5
+    out_v = torch.where(out_m, out_v, fill)
+    return out_v.to(values.dtype), out_m.to(torch.int8)
 
 
 def segmented_gather_ref(

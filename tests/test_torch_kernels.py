@@ -28,6 +28,8 @@ from repro.kernels.segmented_gather import segmented_gather as pallas_segmented_
 
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.densify_map import densify_map as t_densify_map
+from repro_torch.kernels.masked_gather import masked_gather as t_masked_gather
+from repro_torch.kernels.onehot_map import onehot_map as t_onehot_map
 from repro_torch.kernels.segmented_gather import segmented_gather as t_segmented_gather
 
 SG_SWEEP = [  # the sweep of tests/test_kernels.py::test_segmented_gather_matches_oracle
@@ -116,6 +118,13 @@ def test_kernel_wrappers_refuse_other_devices():
     src2d = torch.zeros((8, 128), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no densify_map kernel"):
         t_densify_map(packed, tab, tab, src2d, n_items=8, n_events=8, n_rows=8, k=1)
+    vals = torch.zeros((8, 10), dtype=torch.float32, device="meta")
+    mask = torch.zeros((8, 10), dtype=torch.int8, device="meta")
+    src = torch.zeros(128, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no masked_gather kernel"):
+        t_masked_gather(vals, mask, src)
+    with pytest.raises(ValueError, match="no onehot_map kernel"):
+        t_onehot_map(vals, mask, src)
 
 
 # ---------------------------------------------------------------------------

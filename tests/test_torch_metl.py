@@ -195,7 +195,7 @@ def test_engine_instance_keeps_its_device():
         METLApp(coordinator_from_snapshot(snap), engine=FusedEngine(device="cpu"),
                 device="meta")
     with pytest.raises(ValueError, match="unknown engine"):
-        METLApp(coordinator_from_snapshot(snap), engine="blocks", device="cpu")
+        METLApp(coordinator_from_snapshot(snap), engine="sharded", device="cpu")
     assert isinstance(app.stats, collections.Counter)
 
 

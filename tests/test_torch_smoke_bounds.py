@@ -97,3 +97,37 @@ def test_densify_map_bytes_count_only_reached_items(smoke, case):
     want = _walk_densify_map(packed, slot, col, src2d, **sizes)
     ops = [torch.from_numpy(a) for a in (packed, slot, col, src2d)]
     assert smoke.densify_map_bytes(*ops, **sizes) == want
+
+
+def _walk_per_block(vals, mask, src, *, reads_all):
+    """Distinct bytes read by ``masked_gather``'s threads (one per output
+    column: src[q], then mask[b, src[q]] and, on a hit, the value) or by
+    ``onehot_map``'s (src, and every staged value and mask), plus the
+    outputs."""
+    read = set()
+    b_n, e = vals.shape[0], vals.itemsize
+    for q, p in enumerate(src.tolist()):
+        read.add(("src", q, 4))
+        if p >= 0 and not reads_all:
+            for b in range(b_n):
+                read.add(("mask", (b, p), 1))
+                if mask[b, p] != 0:
+                    read.add(("vals", (b, p), e))
+    if reads_all:
+        read |= {("vals", i, e) for i in range(vals.size)}
+        read |= {("mask", i, 1) for i in range(mask.size)}
+    return sum(n for *_, n in read) + b_n * src.size * (e + 1)
+
+
+@pytest.mark.parametrize("reads_all", [False, True])
+@pytest.mark.parametrize("seed", range(3))
+def test_per_block_bytes_match_the_kernels_reads(smoke, seed, reads_all):
+    rng = np.random.default_rng(seed)
+    b, n_in, n_out = 5, 12, 128
+    vals = rng.normal(size=(b, n_in)).astype(np.float32)
+    mask = (rng.random((b, n_in)) < 0.6).astype(np.int8)
+    src = np.full(n_out, -1, np.int32)
+    src[rng.choice(n_out, size=10, replace=False)] = rng.choice(n_in, size=10)
+    want = _walk_per_block(vals, mask, src, reads_all=reads_all)
+    ops = [torch.from_numpy(a) for a in (vals, mask, src)]
+    assert smoke.per_block_bytes(*ops, reads_all=reads_all) == want
