@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's consume paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's consume paths and its olmo-1b server on one
+NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -10,8 +11,9 @@ either it exits non-zero before printing any result.  Phases, in order (any
 failure raises and the script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` into
-   ``build/`` (one ``nvcc`` per source, started together);
+2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+   ``build/`` (one ``nvcc`` per source, started together) and print their
+   ``ptxas`` register and spill lines;
 3. hold each kernel against its plain PyTorch version on the card:
    ``segmented_gather`` bit for bit over a shape sweep with ``fill`` 0 and
    0.25; ``densify_map`` bit for bit over random packed chunks with
@@ -21,6 +23,14 @@ failure raises and the script exits non-zero):
    another order) over the sweep of ``tests/test_kernels.py`` (shapes
    (1, 1, 128) to (130, 1000, 384), float32 and bfloat16, densities 0 to 1,
    ``fill`` 0 and 0.25), plus a non-finite event row for ``onehot_map``;
+   ``flash_attention`` over the shapes of ``tests/test_kernels_flash.py`` in
+   float32 and bfloat16, ragged non-causal T, causal S > T with ragged T,
+   head dims 8 and 16, and the olmo-1b, phi3-medium (n_rep 4) and
+   llama3-405b (n_rep 16) head layouts at hd 128 (float32 atol 3e-5 / rtol
+   1e-4, bfloat16 3e-2, the reference tests' tolerances); ``moe_combine``
+   over the sweep of ``tests/test_kernels.py`` and the qwen3-moe group shape
+   (T 512, E 128, C 40, D 2048) (float32 atol 1e-4, bfloat16 0.1, rtol
+   1e-2);
 4. consume 64 chunks of 512 events of the paper-scale scenario (128 schemas
    x 10 versions x 10 attributes, 40 business entities of 25 attributes)
    through ``METLApp`` on the card four ways -- the fused engine with host
@@ -33,10 +43,24 @@ failure raises and the script exits non-zero):
    compare every row and every stats counter with the same stream through
    ``device="cpu"`` apps (the plain versions), and the per-block rows with
    the fused rows;
-5. time each kernel at the main path's shapes beside its plain version and
-   a PyTorch yardstick, L2-hot and cold, count the bytes (and for
-   ``onehot_map`` the operations) each call must do on this data for its
-   bound, and print the ``kernels`` line.
+5. serve olmo-1b at full width (16 layers, d_model 2048, random weights
+   from a seeded ``torch.Generator``): (a) the prefill ``forward`` with
+   ``attn_impl="pallas"`` over a (2, 2048) prompt batch, 16 launches of
+   ``flash_attention`` per call and no other kernel, held against the
+   dense ``forward`` in bfloat16 (max abs error and argmax agreement
+   printed; agreement >= 0.9 required) and in float32 (atol 2e-3, rtol
+   1e-3); (b) 32 ``decode_step`` logits against the prefill's (teacher
+   forcing; float32 at the same tolerance); (c) a ``Server`` (batch 8,
+   cache 1024, 32 new tokens) answering 16 requests of 4-32 prompt tokens,
+   each with 32 tokens; (d) the same path at 2 layers in float32 on the card
+   and on the CPU (plain versions): logits within atol 1e-3 / rtol 1e-3 and
+   equal ``Server`` tokens; then prefill tokens/s, decode ms per step and
+   tokens/s at batch 8, and from ``torch.profiler`` the device busy share of
+   a prefill and ``flash_attention``'s share of its device time;
+6. time each kernel at the main path's shapes beside its plain version and
+   a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
+   each call must do on this data for its bound, and print the ``kernels``
+   line with all six.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -77,7 +101,18 @@ SG_SWEEP = [  # (b, n_in, w) x (n_blocks, s), as the reference kernel tests
 # multiple of 128 (the port lifts the reference's tiling rule)
 BLOCK_SHAPES = [(1, 1, 128), (8, 10, 128), (37, 300, 256), (130, 1000, 384),
                 (256, 128, 128), (9, 20, 130)]
-KERNEL_NAMES = ("segmented_gather", "densify_map", "masked_gather", "onehot_map")
+KERNEL_NAMES = ("segmented_gather", "densify_map", "masked_gather", "onehot_map",
+                "flash_attention", "moe_combine")
+PEAK_BF16_PER_S = 989e12  # H100 SXM bf16 dense tensor-core peak, NVIDIA's data sheet
+COLD_BYTES = 190e6  # operands rotated for a cold time: past the 50 MB L2
+# the reference tests' tolerances (tests/test_kernels_flash.py, tests/test_kernels.py)
+FLASH_TOL = {torch.float32: (3e-5, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+MOE_TOL = {torch.float32: (1e-4, 1e-2), torch.bfloat16: (0.1, 1e-2)}
+# the serving path: float32 logits of two algorithms or two devices (sums in
+# other orders through 16 layers, logits of O(10))
+SERVE_F32_TOL = (2e-3, 1e-3)
+CARD_CPU_TOL = (1e-3, 1e-3)
+BF16_ARGMAX_AGREE = 0.9
 
 
 def _paper_config():
@@ -351,17 +386,20 @@ class DensifyLog:
         del self.engine.densify  # the class's own method again
 
 
+def _kernel_modules():
+    from repro_torch.kernels import (densify_map, flash_attention, masked_gather,
+                                     moe_combine, onehot_map, segmented_gather)
+    return (segmented_gather, densify_map, masked_gather, onehot_map, flash_attention,
+            moe_combine)
+
+
 def _launch_counts():
-    from repro_torch.kernels import (densify_map, masked_gather, onehot_map,
-                                     segmented_gather)
-    mods = (segmented_gather, densify_map, masked_gather, onehot_map)
-    return {name: mod.launches for name, mod in zip(KERNEL_NAMES, mods)}
+    return {name: mod.launches for name, mod in zip(KERNEL_NAMES, _kernel_modules())}
 
 
 def _zero_launch_counts() -> None:
-    from repro_torch.kernels import (densify_map, masked_gather, onehot_map, ops,
-                                     segmented_gather)
-    for mod in (segmented_gather, densify_map, masked_gather, onehot_map):
+    from repro_torch.kernels import ops
+    for mod in _kernel_modules():
         mod.launches = 0
     ops.dispatch_count = 0
 
@@ -531,15 +569,19 @@ def time_ms(*fns, iters=100, reps=7):
     return statistics.median(graph_ms), statistics.median(eager_ms)
 
 
-def hot_and_cold_ms(fn, operands):
+def hot_and_cold_ms(fn, operands, iters=100):
     """``fn(*operands)`` timed two ways: L2-hot (every call on the same
-    operands, which stay in the card's 50 MB L2) and cold (the calls rotate
-    over ``COLD_COPIES`` copies of the operands, more than the L2 holds in
-    all, so each call reads its operands from HBM).  Returns (hot graph ms,
-    hot eager ms, cold graph ms) per call."""
-    hot, eager = time_ms(lambda: fn(*operands))
-    copies = [tuple(x.clone() for x in operands) for _ in range(COLD_COPIES)]
-    cold, _ = time_ms(*[functools.partial(fn, *c) for c in copies], iters=COLD_COPIES)
+    operands, which stay in the card's 50 MB L2 where they fit) and cold
+    (the calls rotate over copies of the operands, ``COLD_COPIES`` or as
+    many as hold ``COLD_BYTES``, more than the L2 holds in all, so each
+    call reads its operands from HBM).  Returns (hot graph ms, hot eager ms,
+    cold graph ms) per call."""
+    hot, eager = time_ms(lambda: fn(*operands), iters=iters)
+    nbytes = sum(x.nbytes for x in operands)
+    n = int(min(COLD_COPIES, max(2, -(-COLD_BYTES // nbytes))))
+    copies = [tuple(x.clone() for x in operands) for _ in range(n)]
+    cold, _ = time_ms(*[functools.partial(fn, *c) for c in copies], iters=n)
+    del copies
     return hot, eager, cold
 
 
@@ -775,6 +817,413 @@ def measure_per_block(name, group, fp32_peak):
     }
 
 
+# -- phase 3 (model kernels) ---------------------------------------------------
+
+# (N, S, T, hd, n_rep, causal): tests/test_kernels_flash.py's shapes, then the
+# cases the port adds: ragged non-causal T, causal S > T with ragged T, the
+# smoke configs' head dims, many key tiles, and the olmo-1b (16 heads), phi3
+# -medium (40 on 10 KV heads) and llama3-405b (128 on 8) layouts at hd 128
+FLASH_CASES = [
+    (1, 64, 64, 64, 1, True), (4, 128, 128, 64, 1, True), (8, 300, 300, 64, 2, True),
+    (2, 256, 256, 128, 1, False), (6, 64, 512, 64, 3, True), (4, 257, 257, 128, 4, True),
+    (2, 100, 100, 64, 1, False), (3, 37, 130, 128, 1, False), (2, 100, 50, 64, 1, True),
+    (3, 40, 40, 8, 1, True), (4, 33, 33, 16, 2, True), (1, 64, 2048, 64, 1, True),
+    (32, 1024, 1024, 128, 1, True), (40, 512, 512, 128, 4, True),
+    (128, 256, 256, 128, 16, True),
+]
+# (T, E, C, D): tests/test_kernels.py's sweep, then the qwen3-moe group
+MOE_CASES = [(8, 2, 4, 32), (64, 8, 16, 96), (130, 4, 8, 256), (256, 16, 8, 128),
+             (512, 128, 40, 2048)]
+
+
+def _allclose(got, want, atol, rtol) -> bool:
+    return got.dtype == want.dtype and got.shape == want.shape and bool(torch.allclose(
+        got.float(), want.float(), atol=atol, rtol=rtol))
+
+
+def flash_operands(device, n, s, t, hd, n_rep, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+                 for shape in ((n, s, hd), (n // n_rep, t, hd), (n // n_rep, t, hd)))
+
+
+def check_flash_attention(device: torch.device) -> int:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    n_cases = 0
+    for n, s, t, hd, n_rep, causal in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_operands(device, n, s, t, hd, n_rep, dtype)
+            got = flash_attention(q, k, v, causal=causal, n_rep=n_rep)
+            want = attention_ref(q, k, v, causal=causal, n_rep=n_rep)
+            atol, rtol = FLASH_TOL[dtype]
+            if t >= 2048:
+                atol = 5e-5 if dtype == torch.float32 else atol  # the reference's own
+            if not _allclose(got, want, atol, rtol):
+                err = float((got.float() - want.float()).abs().max())
+                raise AssertionError(
+                    f"flash_attention != plain at N={n} S={s} T={t} hd={hd} n_rep={n_rep} "
+                    f"causal={causal} {dtype}: max abs err {err}")
+            n_cases += 1
+    return n_cases
+
+
+def moe_operands(device, t, e, c, d, *, top_k=2, dtype=torch.float32, seed=None):
+    """combine (T, E, C) with ``top_k`` router weights a token (as the
+    reference test builds it: random slots, weights in [0, 1)) and
+    expert_out (E, C, D) normal."""
+    rng = np.random.default_rng(hash((t, e, c, d)) % 2**31 if seed is None else seed)
+    eo = rng.normal(size=(e, c, d)).astype(np.float32)
+    cw = np.zeros((t, e, c), np.float32)
+    for ti in range(t):
+        for _ in range(top_k):
+            cw[ti, rng.integers(e), rng.integers(c)] = rng.random()
+    return (torch.from_numpy(cw).to(device, dtype),
+            torch.from_numpy(eo).to(device, dtype))
+
+
+def check_moe_combine(device: torch.device) -> int:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import moe_combine_ref
+
+    n_cases = 0
+    for shape in MOE_CASES:
+        top_k = 8 if shape[1] == 128 else 2  # qwen3-moe routes each token to 8 experts
+        for cdt, edt in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                         (torch.bfloat16, torch.bfloat16)):
+            cw, _ = moe_operands(device, *shape, top_k=top_k, dtype=cdt)
+            _, eo = moe_operands(device, *shape, top_k=top_k, dtype=edt)
+            got = ops.moe_combine(eo, cw)
+            want = moe_combine_ref(eo, cw)
+            atol, rtol = MOE_TOL[edt]
+            if not _allclose(got, want, atol, rtol):
+                err = float((got.float() - want.float()).abs().max())
+                raise AssertionError(f"moe_combine != plain at T,E,C,D={shape} combine {cdt} "
+                                     f"expert_out {edt}: max abs err {err}")
+            n_cases += 1
+    return n_cases
+
+
+# -- phase 5: serving olmo-1b --------------------------------------------------
+
+SERVE_BATCH, PROMPT_LEN = 2, 2048
+TEACHER_STEPS = 32
+
+
+def _to(tree, device, dtype=None):
+    if isinstance(tree, dict):
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device, dtype) for v in tree]
+    return tree.to(device, dtype) if dtype is not None else tree.to(device)
+
+
+def _logit_stats(got, want) -> dict:
+    g, w = got.float(), want.float()
+    return {"max_abs_err": float((g - w).abs().max()),
+            "max_abs_logit": float(w.abs().max()),
+            "argmax_agree": float((g.argmax(-1) == w.argmax(-1)).float().mean()),
+            "finite": bool(torch.isfinite(g).all())}
+
+
+def _check_close(name, got, want, tol) -> dict:
+    stats = _logit_stats(got, want)
+    if not (stats["finite"] and bool(torch.allclose(got.float(), want.float(),
+                                                    atol=tol[0], rtol=tol[1]))):
+        raise AssertionError(f"{name}: not within atol={tol[0]} rtol={tol[1]}: {stats}")
+    return stats
+
+
+def _prompts(vocab, n, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
+            for _ in range(n)]
+
+
+def _timed(fn, reps=3):
+    """Median host seconds of ``fn()`` ending in a device sync, after one
+    warm-up call; returns (seconds, last result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def prefill_profile(params, cfg, batch) -> dict:
+    """Device busy share of one prefill's wall time and ``flash_attention``'s
+    share of its device time, from ``torch.profiler`` (None where the
+    profiler records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        M.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    flash_us = sum(e.self_device_time_total for e in device if "flash_attention" in e.key)
+    top = sorted(((e.key[:60], e.self_device_time_total, e.count) for e in device),
+                 key=lambda x: -x[1])[:6]
+    return {"wall_s": wall, "device_us": busy_us, "flash_attention_us": flash_us,
+            "device_busy_share": busy_us * 1e-6 / wall if busy_us > 0 else None,
+            "flash_attention_share": flash_us / busy_us if busy_us > 0 else None,
+            "top_device_us": top}
+
+
+def run_server(params, cfg, device, sc, prompts):
+    """A ``Server`` on ``device`` answering ``prompts``; returns (done,
+    seconds, device steps, launch counts over the run)."""
+    from repro_torch.serve.decode import Server
+
+    server = Server(params, cfg, sc, device=device)
+    rids = [server.submit(p) for p in prompts]
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    server.run(n_steps=len(prompts) * (sc.max_new + 40))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    for rid in rids:
+        if len(server.done.get(rid, ())) != sc.max_new:
+            raise AssertionError(f"server on {device}: request {rid} got "
+                                 f"{len(server.done.get(rid, ()))} of {sc.max_new} tokens")
+    return [server.done[r] for r in rids], seconds, server.steps, launches
+
+
+def decode_step_ms(params, cfg, device, batch, cache_len, fill) -> float:
+    """Median device ms of one batch-``batch`` serve step on a cache already
+    holding ``fill`` positions (host clock around synchronised steps)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import make_serve_step
+
+    step = make_serve_step(cfg)
+    state = M.init_decode_state(cfg, batch, cache_len, device=device)
+    state["pos"] = fill
+    tok = torch.full((batch,), 7, dtype=torch.int32, device=device)
+    times = []
+    for i in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, _, state = step(params, state, tok)
+        torch.cuda.synchronize()
+        if i >= 5:
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def serving_path(dev: torch.device) -> dict:
+    """Phase 5 (see the module docstring); returns the numbers it measured
+    and ``flash_attention``'s launches in the bf16 prefill."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import ServeConfig
+
+    cfg = configs.get("olmo_1b")  # bfloat16, 16 layers, full width
+    fa = cfg.replace(attn_impl="pallas")
+    out = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "hd": cfg.hd, "d_ff": cfg.d_ff,
+                      "vocab_padded": cfg.vocab_padded, "params": cfg.param_count()}}
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))).to(dev)
+    batch = {"tokens": tokens}
+
+    # (a) the prefill, bfloat16: counts zeroed just before, read just after
+    _zero_launch_counts()
+    logits, _ = M.forward(params, fa, batch)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    want = {n: (cfg.n_layers if n == "flash_attention" else 0) for n in KERNEL_NAMES}
+    if launches != want:
+        raise AssertionError(f"prefill launches {launches}, want {want}")
+    dense, _ = M.forward(params, cfg, batch)
+    out["prefill_bf16_vs_dense"] = _logit_stats(logits, dense)
+    if not (out["prefill_bf16_vs_dense"]["finite"]
+            and out["prefill_bf16_vs_dense"]["argmax_agree"] >= BF16_ARGMAX_AGREE):
+        raise AssertionError(f"bf16 prefill vs dense: {out['prefill_bf16_vs_dense']}")
+    if logits.shape != (SERVE_BATCH, PROMPT_LEN, cfg.vocab_padded):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    del logits, dense
+    prefill_s, _ = _timed(lambda: M.forward(params, fa, batch))
+    dense_s, _ = _timed(lambda: M.forward(params, cfg, batch))
+    out["prefill_flash_attention_launches"] = launches["flash_attention"]
+    out["prefill_s"], out["prefill_dense_s"] = prefill_s, dense_s
+    out["prefill_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / prefill_s
+    out["prefill_dense_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / dense_s
+    out["prefill_profile"] = prefill_profile(params, fa, batch)
+    print(f"{elapsed()} serving (a) bf16 prefill: " + json.dumps(
+        {k: out[k] for k in ("prefill_bf16_vs_dense", "prefill_flash_attention_launches",
+                             "prefill_s", "prefill_tokens_per_s", "prefill_dense_s",
+                             "prefill_profile")}), flush=True)
+
+    # (c) serving: 16 requests through a batch-8 server
+    sc = ServeConfig(batch=8, cache_len=1024, max_new=32, eos=-1)
+    prompts = _prompts(cfg.vocab, 16, 4, 32, seed=1)
+    _, seconds, steps, launches = run_server(params, cfg, dev, sc, prompts)
+    out["server"] = {"requests": len(prompts), "prompt_tokens": sum(map(len, prompts)),
+                     "new_tokens": len(prompts) * sc.max_new, "seconds": seconds,
+                     "steps": steps, "ms_per_step": seconds / steps * 1e3,
+                     "new_tokens_per_s": len(prompts) * sc.max_new / seconds,
+                     "launches": launches}
+    step_ms = decode_step_ms(params, cfg, dev, sc.batch, sc.cache_len, fill=512)
+    out["decode_ms_per_step_b8"] = step_ms
+    out["decode_tokens_per_s_b8"] = sc.batch / step_ms * 1e3
+    print(f"{elapsed()} serving (c) server: " + json.dumps(
+        {k: out[k] for k in ("server", "decode_ms_per_step_b8", "decode_tokens_per_s_b8")}),
+        flush=True)
+    del params
+
+    # (a) float32 and (b) teacher forcing
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    fa32 = cfg32.replace(attn_impl="pallas")
+    params32 = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), device=dev)
+    _zero_launch_counts()
+    logits, _ = M.forward(params32, fa32, batch)
+    torch.cuda.synchronize()
+    if _launch_counts()["flash_attention"] != cfg.n_layers:
+        raise AssertionError("float32 prefill: flash_attention launches != 16")
+    dense, _ = M.forward(params32, cfg32, batch)
+    out["prefill_f32_vs_dense"] = _check_close("f32 prefill vs dense", logits, dense,
+                                               SERVE_F32_TOL)
+    del logits, dense
+    head = {"tokens": tokens[:, :TEACHER_STEPS]}
+    full, _ = M.forward(params32, fa32, head)
+    state = M.init_decode_state(cfg32, SERVE_BATCH, TEACHER_STEPS, device=dev)
+    steps = []
+    for t in range(TEACHER_STEPS):
+        step_logits, state = M.decode_step(params32, cfg32, state, tokens[:, t])
+        steps.append(step_logits)
+    out["teacher_forcing_f32"] = _check_close("f32 decode vs prefill",
+                                              torch.stack(steps, 1), full, SERVE_F32_TOL)
+    print(f"{elapsed()} serving (a, b) float32: " + json.dumps(
+        {k: out[k] for k in ("prefill_f32_vs_dense", "teacher_forcing_f32")}), flush=True)
+    del params32, full, steps, state
+
+    # (d) card against CPU: 2 layers at full width, float32
+    cfg2 = cfg32.replace(n_layers=2, attn_impl="pallas")
+    cpu = torch.device("cpu")
+    params_cpu = M.init_params(cfg2, 0, device=cpu)
+    params_dev = _to(params_cpu, dev)
+    short = {"tokens": tokens[:, :256]}
+    l_dev, _ = M.forward(params_dev, cfg2, short)
+    l_cpu, _ = M.forward(params_cpu, cfg2, _to(short, cpu))
+    out["card_vs_cpu_f32"] = _check_close("card vs cpu prefill", l_dev.cpu(), l_cpu,
+                                          CARD_CPU_TOL)
+    sc2 = ServeConfig(batch=4, cache_len=64, max_new=8, eos=-1)
+    prompts2 = _prompts(cfg.vocab, 6, 2, 7, seed=2)
+    done_dev, _, _, _ = run_server(params_dev, cfg2, dev, sc2, prompts2)
+    done_cpu, _, _, _ = run_server(params_cpu, cfg2, cpu, sc2, prompts2)
+    if done_dev != done_cpu:
+        raise AssertionError(f"server tokens differ: card {done_dev} cpu {done_cpu}")
+    out["card_vs_cpu_f32"]["server_tokens_equal"] = len(done_dev)
+    print(f"{elapsed()} serving (d) card vs cpu: " + json.dumps(out["card_vs_cpu_f32"]),
+          flush=True)
+    return out
+
+
+# -- phase 6: timing of the model kernels ----------------------------------------
+
+
+def measure_flash_attention():
+    """``flash_attention`` at the olmo-1b prefill's shape (N = 2 x 16
+    heads, S = T = 2048, hd 128, bfloat16, causal) beside its plain
+    version and ``F.scaled_dot_product_attention`` (timed here only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    n, s, hd = SERVE_BATCH * 16, PROMPT_LEN, 128
+    q, k, v = flash_operands(torch.device("cuda"), n, s, s, hd, 1, torch.bfloat16, seed=5)
+    got = flash_attention(q, k, v)
+    want = attention_ref(q, k, v)
+    if not _allclose(got, want, *FLASH_TOL[torch.bfloat16]):
+        raise AssertionError("flash_attention != plain at the prefill shape")
+    err = float((got.float() - want.float()).abs().max())
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True)[0]
+
+    if not _allclose(library(q, k, v), want, *FLASH_TOL[torch.bfloat16]):
+        raise AssertionError("scaled_dot_product_attention != plain at the prefill shape")
+    ops = (q, k, v)
+    ms, eager, cold = hot_and_cold_ms(flash_attention, ops, iters=20)
+    plain_ms, _, plain_cold = hot_and_cold_ms(attention_ref, ops, iters=10)
+    lib_ms, _, lib_cold = hot_and_cold_ms(library, ops, iters=20)
+    n_bytes = 4 * n * s * hd * 2  # q, k, v read once, out written once
+    flops = 4 * n * hd * (s * (s + 1) // 2)  # q.k and p.v over the causal half
+    bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_PER_S * 1e3
+    return {
+        "shape": {"N": n, "S": s, "T": s, "hd": hd, "dtype": "bfloat16", "causal": True},
+        "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
+        "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
+        "library_ms": lib_ms, "library_cold_ms": lib_cold,
+        "bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+    }
+
+
+def measure_moe_combine(fp32_peak):
+    """``moe_combine`` at the qwen3-moe group shape (T 512, E 128, C 40,
+    D 2048, float32, 8 router weights a token) beside its plain version and
+    one IEEE float32 ``torch.matmul`` of the reshaped operands (timed here
+    only).  The bound counts what this data needs: all of ``combine``, the
+    ``expert_out`` rows some weight names, the output, and 2 D operations
+    per non-zero weight."""
+    from repro_torch.kernels.moe_combine import moe_combine
+    from repro_torch.kernels.ref import moe_combine_ref
+
+    t, e, c, d = MOE_CASES[-1]
+    cw, eo = moe_operands(torch.device("cuda"), t, e, c, d, top_k=8, seed=9)
+    got = moe_combine(cw, eo)
+    want = moe_combine_ref(eo, cw)
+    if not _allclose(got, want, *MOE_TOL[torch.float32]):
+        raise AssertionError("moe_combine != plain at the qwen3-moe group shape")
+    err = float((got - want).abs().max())
+
+    def library(cw, eo):
+        return torch.matmul(cw.reshape(t, e * c), eo.reshape(e * c, d))
+
+    if not _allclose(library(cw, eo), want, *MOE_TOL[torch.float32]):
+        raise AssertionError("torch.matmul != plain at the qwen3-moe group shape")
+    ops = (cw, eo)
+    ms, eager, cold = hot_and_cold_ms(moe_combine, ops, iters=20)
+    plain_ms, _, plain_cold = hot_and_cold_ms(
+        lambda cw, eo: moe_combine_ref(eo, cw), ops, iters=5)
+    lib_ms, _, lib_cold = hot_and_cold_ms(library, ops, iters=20)
+    flat = cw.reshape(t, e * c)
+    nnz = int((flat != 0).sum())
+    rows = int((flat != 0).any(0).sum())
+    n_bytes = flat.nbytes + rows * d * 4 + t * d * 4
+    flops = 2 * nnz * d
+    dense_flops = 2 * t * e * c * d
+    bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / fp32_peak * 1e3
+    return {
+        "shape": {"T": t, "E": e, "C": c, "D": d, "dtype": "float32", "top_k": 8,
+                  "nonzero_weights": nnz, "expert_rows_named": rows},
+        "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
+        "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
+        "library_ms": lib_ms, "library_cold_ms": lib_cold,
+        "bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "dense_flops": dense_flops, "dense_ops_ms": dense_flops / fp32_peak * 1e3,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+    }
+
+
 # -- main --------------------------------------------------------------------------
 
 
@@ -810,11 +1259,16 @@ def main() -> int:
     n_dm = check_densify_map(dev)
     n_mg = check_per_block(dev, "masked_gather")
     n_oh = check_per_block(dev, "onehot_map")
+    n_fa = check_flash_attention(dev)
+    n_mc = check_moe_combine(dev)
     torch.cuda.synchronize()
     print(f"{elapsed()} kernels vs plain versions: segmented_gather {n_sg} cases, "
           f"densify_map {n_dm} cases, masked_gather {n_mg} cases bit-exact; "
           f"onehot_map {n_oh} cases, masks bit-exact, values within "
-          f"atol={ONEHOT_ATOL}", flush=True)
+          f"atol={ONEHOT_ATOL}; flash_attention {n_fa} cases within "
+          f"{FLASH_TOL[torch.float32]} (float32) / {FLASH_TOL[torch.bfloat16]} (bfloat16); "
+          f"moe_combine {n_mc} cases within {MOE_TOL[torch.float32]} (float32) / "
+          f"{MOE_TOL[torch.bfloat16]} (bfloat16 expert_out) (atol, rtol)", flush=True)
 
     cfg = _paper_config()
     stream = Stream(CHUNK_EVENTS)
@@ -883,6 +1337,8 @@ def main() -> int:
           f"blocks-onehot within atol={ONEHOT_ATOL}, {n_bits} rows not bit-identical); "
           "every kernel launched", flush=True)
 
+    serving = serving_path(dev)
+
     # where the consume time goes, on chunks after the evolution
     later = [stream.chunks[k] for k in range(EVOLVE_AT + 1, CHUNKS)]
     for pname in paths:
@@ -915,14 +1371,27 @@ def main() -> int:
         meas[name] = measure_per_block(name, median, peak)
         big = measure_per_block(name, largest, peak)
         print(f"{elapsed()} timing {name} largest group: " + json.dumps(big), flush=True)
+    meas["flash_attention"] = measure_flash_attention()
+    meas["moe_combine"] = measure_moe_combine(peak)
     torch.cuda.synchronize()
+    print("serving: " + json.dumps(serving), flush=True)
+    origin["flash_attention"] = ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                 "src/repro/kernels/flash_attention.py:93", "prefill")
+    origin["moe_combine"] = ("src/repro_torch/kernels/csrc/moe_combine.cu",
+                             "src/repro/kernels/moe_combine.py:53", None)
+    # launches on the main paths: the consume paths' runs, the olmo-1b
+    # prefill's (16 per forward); moe_combine is on no path (op only)
+    path_launches = {name: runs[run][2][name] for name, (_, _, run) in origin.items()
+                     if run in runs}
+    path_launches["flash_attention"] = serving["prefill_flash_attention_launches"]
+    path_launches["moe_combine"] = 0
     kernels = []
     for name, m in meas.items():
-        source, replaces, run = origin[name]
+        source, replaces, _ = origin[name]
         print(f"timing {name}: " + json.dumps(m), flush=True)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": runs[run][2][name], "max_abs_err": m["max_abs_err"],
+            "launches": path_launches[name], "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })

@@ -1,0 +1,91 @@
+"""Forward attention with an online softmax: the flash kernel.
+
+Hopper counterpart of the Pallas kernel ``repro.kernels.flash_attention``
+(``csrc/flash_attention.cu``): q (N, S, hd) against k, v (N / n_rep, T, hd),
+query head ``h`` reading KV head ``h // n_rep``, causal or not, float32 or
+bfloat16.  It computes what the oracle
+:func:`repro_torch.kernels.ref.attention_ref` computes, for any S, T and
+``hd <= 128`` (the reference kernel's ``T % block_k`` rule for non-causal
+attention is lifted, and keys past T never count when S > T).  The model's
+prefill (``attn_impl="pallas"``) launches it once per layer.
+
+:func:`flash_attention` picks by tensor device: on a CUDA tensor it launches
+the kernel (or raises), on a CPU tensor it runs the plain version.
+``launches`` counts kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "launches", "MAX_HEAD_DIM"]
+
+launches = 0  # kernel launches (CPU calls to the plain version not counted)
+MAX_HEAD_DIM = 128  # the widest head the kernel's shared-memory tiles take
+_MAX_HEADS = 65535  # the grid's y extent
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _fn():
+    fn = build.load("flash_attention").metl_flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = [_VP] * 4 + [_I] * 7 + [_VP]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    n_rep: int = 1,
+) -> torch.Tensor:
+    """Attention of q (N, S, hd) over k, v (N // n_rep, T, hd).
+
+    All three of one dtype (float32 or bfloat16), contiguous, on one
+    device.  Returns (N, S, hd) in ``q.dtype``, not synchronised.
+    """
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, n_rep=n_rep)
+    global launches
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"no flash_attention kernel for device {dev}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        build.check_operand(name, t, q.dtype, 3, dev)
+    (n, s, hd), (nk, t, hd_k) = q.shape, k.shape
+    if v.shape != k.shape or hd_k != hd:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if n_rep < 1 or nk * n_rep != n:
+        raise ValueError(f"{n} query heads != {nk} KV heads x n_rep {n_rep}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} outside the kernel's 1..{MAX_HEAD_DIM}")
+    if n > _MAX_HEADS:
+        raise ValueError(f"{n} query heads exceed the kernel's grid ({_MAX_HEADS})")
+    out = torch.empty_like(q)
+    if n == 0 or s == 0:
+        return out
+    if t == 0:
+        raise ValueError("flash_attention needs at least one key")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, s, t, hd,
+            n_rep, int(causal), q.element_size(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    launches += 1
+    return out

@@ -1,7 +1,8 @@
-"""Public entry points of the mapping kernels, as the engines call them.
+"""Public entry points of the kernels, as the engines and models call them.
 
-Counterpart of ``repro.kernels.ops`` for the consume paths.  Each op picks
-kernel or plain version by the device of its tensors (a CUDA tensor
+Counterpart of ``repro.kernels.ops``: the mapping ops of the consume paths,
+and :func:`attention` and :func:`moe_combine` of the model stack.  Each op
+picks kernel or plain version by the device of its tensors (a CUDA tensor
 launches the Hopper kernel or raises, a CPU tensor takes the plain PyTorch
 version); :func:`dmm_apply`'s ``impl`` picks the per-block *algorithm*, the
 compacted gather or the one-hot contraction.
@@ -19,16 +20,18 @@ from typing import Tuple
 import torch
 
 from .densify_map import densify_map
+from .flash_attention import flash_attention
 from .masked_gather import masked_gather
+from .moe_combine import moe_combine as _moe_combine_kernel
 from .onehot_map import onehot_map
 from .segmented_gather import segmented_gather
 
 __all__ = ["IMPLS", "dmm_apply", "dmm_apply_fused", "dmm_apply_columnar",
-           "dispatch_count"]
+           "dispatch_count", "attention", "moe_combine"]
 
-# Device-dispatch accounting: one per dmm_apply* call.  The fused-engine
-# contract (one dispatch per consume chunk, not one per block) is asserted
-# against this counter.
+# Device-dispatch accounting: one per dmm_apply* call (the model ops are no
+# mapping dispatches and do not count).  The fused-engine contract (one
+# dispatch per consume chunk, not one per block) is asserted against it.
 dispatch_count = 0
 
 _PER_BLOCK = {"gather": masked_gather, "onehot": onehot_map}
@@ -118,3 +121,23 @@ def dmm_apply_columnar(
         packed, uid_slot, uid_col, src2d, n_items=n_items, n_events=n_events,
         n_rows=n_rows, k=k, fill=fill,
     )
+
+
+def moe_combine(expert_out: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
+    """Combine expert outputs: (E, C, D), (T, E, C) -> (T, D)
+    (:func:`~repro_torch.kernels.moe_combine.moe_combine`, which takes its
+    operands the other way round)."""
+    return _moe_combine_kernel(combine, expert_out)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    n_rep: int = 1,
+) -> torch.Tensor:
+    """Single-kernel attention: q (N, S, hd), k/v (N/n_rep, T, hd)
+    (:func:`~repro_torch.kernels.flash_attention.flash_attention`)."""
+    return flash_attention(q, k, v, causal=causal, n_rep=n_rep)

@@ -7,16 +7,20 @@ and ``torch.clamp`` where the reference clips.  The kernel wrappers run them
 for tensors on the CPU; ``chip_smoke.py`` holds the kernels against them on
 the card.  Nothing on the main path calls them when a card is present.
 
-Every function here but :func:`onehot_map_ref` only selects (no arithmetic
-on values), so a kernel and its plain version agree bit for bit.
+The mapping functions but :func:`onehot_map_ref` only select (no
+arithmetic on values), so a kernel and its plain version agree bit for bit.
 :func:`onehot_map_ref` contracts through a 0/1 matrix in IEEE float32 (a
 multiply and a sum, never a matrix unit that a TF32 setting could reach);
 its kernel sums in another order, so values agree within ``atol=1e-5`` and
-masks bit for bit.
+masks bit for bit.  The model kernels' plain versions,
+:func:`attention_ref` and :func:`moe_combine_ref`, compute in float32 and
+round once to the output dtype; their kernels sum in another order, so they
+are held to the tolerances of the reference's own kernel tests.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -29,7 +33,11 @@ __all__ = [
     "resolve_items_ref",
     "route_offset",
     "densify_map_packed_ref",
+    "attention_ref",
+    "moe_combine_ref",
 ]
+
+NEG_INF = -1e30  # the masked score of attention_ref, as the reference's oracle
 
 
 def masked_gather_ref(
@@ -217,3 +225,57 @@ def densify_map_packed_ref(
     rows = packed[o : o + n_rows]
     blks = packed[o + n_rows : o + 2 * n_rows]
     return densify_map_ref(slot2d, x2d, rows, blks, src2d, fill=fill)
+
+
+def moe_combine_ref(expert_out: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
+    """MoE combine: ``out[t, d] = sum_{e,c} combine[t, e, c] *
+    expert_out[e, c, d]``.
+
+    expert_out: (E, C, D) per-expert capacity-bucketed outputs, combine:
+    (T, E, C) combine weights (router prob where token t occupies slot
+    (e, c), else 0); float32 or bfloat16 each.  Returns (T, D) in
+    ``expert_out.dtype``.  The contraction is an IEEE float32 multiply and
+    sum over E*C, taken a slice of E*C at a time so the (T, slice, D)
+    product stays under ~64 Mi elements; it never goes through a matrix
+    unit, so ``torch.backends.cuda.matmul.allow_tf32`` cannot reach it.
+    """
+    t, e, c = combine.shape
+    d = expert_out.shape[-1]
+    cmb = combine.reshape(t, e * c).to(torch.float32)
+    exp = expert_out.reshape(e * c, d).to(torch.float32)
+    out = torch.zeros((t, d), dtype=torch.float32, device=exp.device)
+    step = max(1, (1 << 26) // max(1, t * d))
+    for k0 in range(0, e * c, step):
+        out += (cmb[:, k0 : k0 + step, None] * exp[None, k0 : k0 + step]).sum(1)
+    return out.to(expert_out.dtype)
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    n_rep: int = 1,
+) -> torch.Tensor:
+    """Dense attention, the oracle of the flash kernel.
+
+    q: (N, S, hd); k, v: (N // n_rep, T, hd) -- each KV head shared by
+    ``n_rep`` adjacent query heads (GQA, ``repeat_interleave``).  Scores in
+    float32, scaled by ``1/sqrt(hd)``; causal masks key j > query i with
+    ``NEG_INF`` (absolute indices, also when S != T).  Returns (N, S, hd)
+    in ``q.dtype``.  Its products are ``torch.matmul`` in float32: IEEE on
+    the CPU, and on the card as long as ``allow_tf32`` is off (the default,
+    and what ``chip_smoke.py`` sets).
+    """
+    s, hd = q.shape[1], q.shape[2]
+    kk = k.to(torch.float32).repeat_interleave(n_rep, dim=0)
+    vv = v.to(torch.float32).repeat_interleave(n_rep, dim=0)
+    scores = torch.matmul(q.to(torch.float32), kk.transpose(1, 2)) / math.sqrt(hd)
+    if causal:
+        t = kk.shape[1]
+        keep = (torch.arange(s, device=q.device)[:, None]
+                >= torch.arange(t, device=q.device)[None, :])
+        scores = torch.where(keep[None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs, vv).to(q.dtype)

@@ -1,0 +1,172 @@
+"""The model zoo's dense family: one functional model over plain parameter
+dicts.
+
+Counterpart of ``repro.models.model`` for ``family == "dense"`` (olmo-1b,
+llama3-405b, phi3-medium-14b, stablelm-1.6b), sliding windows included.
+The reference scans stacked layers with ``lax.scan``; here ``params
+["layers"]`` is a list of per-layer dicts and the layers run in a Python
+loop.  The remat and sharding knobs are training-only and not ported.  The
+other families raise :class:`NotImplementedError` naming the ROADMAP item
+that ports them.
+
+Entry points: ``init_params``, ``forward`` (logits; the serving prefill),
+``init_decode_state`` / ``decode_step`` (single-token serving).  Parameters
+keep the reference's layout, so :func:`repro_torch.core.convert.
+params_from_jax` carries the reference's weights across unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple, Union
+
+import torch
+
+from ..core.dmm_torch import DeviceLike, resolve_device
+from .attention import attention_decode, attention_train, attn_params, init_kv_cache
+from .config import ModelConfig
+from .layers import apply_mlp, apply_norm, embed_params, lm_logits, mlp_params, norm_params
+
+__all__ = [
+    "init_params",
+    "forward",
+    "init_decode_state",
+    "decode_step",
+]
+
+# The families a later slice ports, with the ROADMAP queue 1 item that does.
+_UNPORTED = {
+    "moe": "item 14.2 (moe family)",
+    "ssm": "item 14.3 (ssm family)",
+    "hybrid": "item 14.4 (hybrid family)",
+    "audio": "item 14.5 (audio family)",
+    "vlm": "item 14.6 (vlm family)",
+}
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        where = _UNPORTED.get(cfg.family, "no item")
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP queue 1 {where})"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+
+def _layer_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    dev = gen.device
+    return {
+        "norm1": norm_params(cfg, dev),
+        "attn": attn_params(gen, cfg),
+        "norm2": norm_params(cfg, dev),
+        "mlp": mlp_params(gen, cfg),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0, *,
+                device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """Random parameters for ``cfg`` on ``device`` (the card by default;
+    raises when there is none).  ``generator`` is a :class:`torch.Generator`
+    on that device, or an int that seeds a new one.  The draws come in a
+    fixed order (embeddings, then each layer, then the final norm), so one
+    seed on one device always gives the same parameters; they are not the
+    reference's ``PRNGKey`` draws (use ``params_from_jax`` for those)."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, parameters on {dev}")
+    return {
+        "embed": embed_params(generator, cfg),
+        "layers": [_layer_params(generator, cfg) for _ in range(cfg.n_layers)],
+        "final_norm": norm_params(cfg, dev),
+    }
+
+
+def params_device(params: Dict[str, Any]) -> torch.device:
+    """The device the parameters live on (that of the token embedding)."""
+    return params["embed"]["tok"].device
+
+
+# ---------------------------------------------------------------------------
+# Forward (the serving prefill)
+# ---------------------------------------------------------------------------
+
+
+def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    xn = apply_norm(lp["norm1"], x, cfg)
+    x = x + attention_train(lp["attn"], xn, positions, cfg, causal=True, window=cfg.window)
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+
+
+def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = params["embed"]["tok"][tokens.long()].to(cfg.cdtype)
+    if cfg.pos == "learned":
+        S = tokens.shape[1]
+        x = x + params["embed"]["pos"][:S][None].to(cfg.cdtype)
+    return x
+
+
+def forward(params: Dict[str, Any], cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V_pad), aux_loss) for ``batch["tokens"]``
+    (B, S) on the parameters' device.  The dense family has no auxiliary
+    loss, so ``aux_loss`` is a float32 zero."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    for lp in params["layers"]:
+        x = _decoder_layer(lp, x, positions, cfg)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = lm_logits(params["embed"], x, cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Decode (serving): single-token step against a cache
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
+                      device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """KV cache for one-token-at-a-time serving, on ``device`` (the card by
+    default; raises when there is none).
+
+    ``cache_len``: KV history length (the window size for sliding-window
+    archs).  ``state["pos"]`` is a host int, one position for the whole
+    batch, as in the reference."""
+    _require_dense(cfg)
+    kv_len = min(cache_len, cfg.window) if cfg.window else cache_len
+    return {"pos": 0, **init_kv_cache(cfg, batch, kv_len, cfg.n_layers, resolve_device(device))}
+
+
+def decode_step(params: Dict[str, Any], cfg: ModelConfig, state: Dict[str, Any],
+                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One serving step: consume ``token`` (B,), return (logits (B, V_pad),
+    state').
+
+    ``state'`` holds ``pos + 1`` and the SAME cache tensors as ``state``:
+    the new K/V are written into them in place (see
+    :func:`~repro_torch.models.attention.attention_decode`), so a state is
+    not reusable after the step that consumed it."""
+    _require_dense(cfg)
+    pos = state["pos"]
+    x = params["embed"]["tok"][token.long()[:, None]].to(cfg.cdtype)
+    if cfg.pos == "learned":
+        x = x + params["embed"]["pos"][pos][None, None].to(cfg.cdtype)
+    for layer, lp in enumerate(params["layers"]):
+        hn = apply_norm(lp["norm1"], x, cfg)
+        attn_out, _, _ = attention_decode(
+            lp["attn"], hn, state["k"][layer], state["v"][layer], pos, cfg, window=cfg.window
+        )
+        x = x + attn_out
+        x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = lm_logits(params["embed"], x, cfg)[:, 0]
+    return logits, {"pos": pos + 1, "k": state["k"], "v": state["v"]}

@@ -72,6 +72,43 @@ def test_port_imports_and_consumes_without_jax_or_reference():
     assert proc.stdout.startswith("OK")
 
 
+def test_port_serves_without_jax_or_reference():
+    """The model stack, the serving layer and the launcher's modules run
+    with JAX and the reference package blocked."""
+    code = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        import repro_torch.configs as C
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve
+        from repro_torch.models import model as M
+        from repro_torch.serve.decode import ServeConfig, Server
+        cfg = C.get_smoke("llama3_405b").replace(attn_impl="pallas")
+        params = M.init_params(cfg, 0, device="cpu")
+        logits, _ = M.forward(params, cfg, {"tokens": torch.arange(24).reshape(2, 12)})
+        assert logits.shape == (2, 12, cfg.vocab_padded)
+        server = Server(params, cfg, ServeConfig(batch=2, cache_len=16, max_new=3, eos=-1),
+                        device="cpu")
+        rids = [server.submit([3, 4, 5]) for _ in range(3)]
+        server.run(n_steps=50)
+        assert all(len(server.done[r]) == 3 for r in rids)
+        out = ops.moe_combine(torch.ones(2, 3, 4), torch.ones(5, 2, 3))
+        assert out.shape == (5, 4)
+        assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
+                       if v is not None)
+        print("OK")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists here")

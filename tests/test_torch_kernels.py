@@ -4,9 +4,10 @@ reference.
 On the CPU the plain versions (``repro_torch.kernels.ref``) are held
 against the reference's Pallas kernels (run in interpret mode, as
 ``tests/test_kernels.py`` runs them) and its pure-jnp oracles, on the same
-numpy inputs.  The tolerance is exact everywhere: these functions only
-select values, they never compute them.  The CUDA kernels against their
-plain versions need a Hopper card (marker ``gpu``) and skip here.
+numpy inputs.  The tolerance is exact for the mapping kernels, which only
+select values; the model kernels' tolerances are stated with them below.
+The CUDA kernels against their plain versions need a Hopper card (marker
+``gpu``) and skip here.
 """
 
 import numpy as np
@@ -23,12 +24,17 @@ from repro.etl.engines import _pack_columnar as r_pack_columnar
 from repro.etl.events import columnarize as r_columnarize
 from repro.kernels import ref as jref
 from repro.kernels.densify_map import densify_map as pallas_densify_map
+from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
+from repro.kernels.moe_combine import moe_combine as pallas_moe_combine
 from repro.kernels.ops import _resolve_items as r_resolve_items
 from repro.kernels.segmented_gather import segmented_gather as pallas_segmented_gather
 
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.densify_map import densify_map as t_densify_map
+from repro_torch.kernels.flash_attention import flash_attention as t_flash_attention
 from repro_torch.kernels.masked_gather import masked_gather as t_masked_gather
+from repro_torch.kernels.moe_combine import moe_combine as t_moe_combine
 from repro_torch.kernels.onehot_map import onehot_map as t_onehot_map
 from repro_torch.kernels.segmented_gather import segmented_gather as t_segmented_gather
 
@@ -125,6 +131,12 @@ def test_kernel_wrappers_refuse_other_devices():
         t_masked_gather(vals, mask, src)
     with pytest.raises(ValueError, match="no onehot_map kernel"):
         t_onehot_map(vals, mask, src)
+    q = torch.zeros((4, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="no flash_attention kernel"):
+        tops.attention(q, q, q)
+    with pytest.raises(ValueError, match="no moe_combine kernel"):
+        tops.moe_combine(torch.zeros((2, 4, 8), device="meta"),
+                         torch.zeros((3, 2, 4), device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -281,3 +293,186 @@ def test_densify_map_kernel_matches_plain(hopper, which):
     torch.cuda.synchronize()
     _assert_exact(kv.cpu().numpy(), rv.cpu().numpy())
     _assert_exact(km.cpu().numpy(), rm.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the model kernels: flash_attention and moe_combine
+# ---------------------------------------------------------------------------
+#
+# Tolerances are the reference's own kernel tests': attention f32 atol 3e-5 /
+# rtol 1e-4 and bf16 3e-2 (tests/test_kernels_flash.py), moe_combine f32
+# atol 1e-4 and bf16 0.1, rtol 1e-2 (tests/test_kernels.py).  The plain
+# versions compute in float32 like the oracles but sum in another order, so
+# they are held by these tolerances rather than bit for bit.
+
+FLASH_SWEEP = [  # tests/test_kernels_flash.py::test_flash_matches_dense
+    (1, 64, 64, 64, 1, True),
+    (4, 128, 128, 64, 1, True),
+    (8, 300, 300, 64, 2, True),  # unaligned S
+    (2, 256, 256, 128, 1, False),
+    (6, 64, 512, 64, 3, True),  # long KV (decode-ish), GQA 3:1
+    (4, 257, 257, 128, 4, True),  # prime-ish length
+]
+MOE_SWEEP = [(8, 2, 4, 32), (64, 8, 16, 96), (130, 4, 8, 256), (256, 16, 8, 128)]
+
+
+def _flash_case(n, s, t, hd, n_rep, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, s, hd)).astype(np.float32)
+    k = rng.normal(size=(n // n_rep, t, hd)).astype(np.float32)
+    v = rng.normal(size=(n // n_rep, t, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _moe_case(t, e, c, d):
+    """tests/test_kernels.py::test_moe_combine_matches_oracle's inputs:
+    (expert_out (E, C, D) float32, combine (T, E, C) with two weights a row)."""
+    rng = np.random.default_rng(hash((t, e, c, d)) % 2**31)
+    eo = rng.normal(size=(e, c, d)).astype(np.float32)
+    cw = np.zeros((t, e, c), np.float32)
+    for ti in range(t):
+        for _ in range(2):
+            cw[ti, rng.integers(e), rng.integers(c)] = rng.random()
+    return eo, cw
+
+
+def _close(got, want, atol, rtol):
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("n,s,t,hd,n_rep,causal", FLASH_SWEEP)
+def test_attention_ref_matches_reference(n, s, t, hd, n_rep, causal):
+    case = _flash_case(n, s, t, hd, n_rep)
+    want = jref.attention_ref(*map(jnp.asarray, case), causal=causal, n_rep=n_rep)
+    pallas = pallas_flash_attention(*map(jnp.asarray, case), causal=causal, n_rep=n_rep,
+                                    block_q=64, block_k=128, interpret=True)
+    got = tref.attention_ref(*map(_t, case), causal=causal, n_rep=n_rep)
+    assert got.dtype == torch.float32 and got.shape == (n, s, hd)
+    _close(got.numpy(), want, 3e-5, 1e-4)
+    _close(got.numpy(), pallas, 3e-5, 1e-4)
+
+
+def test_attention_ref_bf16_matches_reference():
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _flash_case(4, 128, 128, 64, 2))
+    jq, jk, jv = (jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in (q, k, v))
+    want = jref.attention_ref(jq, jk, jv, causal=True, n_rep=2)
+    pallas = pallas_flash_attention(jq, jk, jv, causal=True, n_rep=2, block_q=64,
+                                    block_k=64, interpret=True)
+    got = tref.attention_ref(q, k, v, causal=True, n_rep=2)
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), want, 3e-2, 3e-2)
+    _close(got.float().numpy(), pallas, 3e-2, 3e-2)
+
+
+@pytest.mark.parametrize("s,t,causal", [(64, 2048, True), (100, 100, False), (33, 70, False)])
+def test_attention_ref_long_and_ragged_keys_match_reference(s, t, causal):
+    """Many key tiles (tests/test_kernels_flash.py's row-exactness case) and
+    ragged non-causal T, which the reference kernel refuses
+    (``T % block_k``) and the Hopper kernel takes."""
+    case = _flash_case(1, s, t, 64, 1, seed=3)
+    want = jref.attention_ref(*map(jnp.asarray, case), causal=causal)
+    got = tref.attention_ref(*map(_t, case), causal=causal)
+    _close(got.numpy(), want, 5e-5, 1e-4)
+    if not causal:
+        with pytest.raises(ValueError, match="T % block_k"):
+            pallas_flash_attention(*map(jnp.asarray, case), causal=False, block_q=64,
+                                   block_k=64, interpret=True)
+
+
+def test_reference_flash_kernel_diverges_for_causal_s_greater_than_ragged_t():
+    """A fault of the reference kernel, recorded (ROADMAP queue 3): with
+    causal attention, S > T and T no multiple of block_k, it zero-pads the
+    keys and only the causal mask hides the padding, so query rows >= T also
+    attend the padded zero keys.  The port holds its kernel to the oracle
+    ``attention_ref``, which both packages agree on."""
+    case = _flash_case(2, 100, 50, 64, 1)
+    want = np.asarray(jref.attention_ref(*map(jnp.asarray, case), causal=True))
+    pallas = np.asarray(pallas_flash_attention(*map(jnp.asarray, case), causal=True,
+                                               block_q=64, block_k=32, interpret=True))
+    got = tref.attention_ref(*map(_t, case), causal=True).numpy()
+    _close(got, want, 3e-5, 1e-4)
+    err = np.abs(pallas - want).max(axis=(0, 2))  # per query row
+    assert err[:50].max() < 3e-5  # rows < T see no padding
+    assert int(np.argmax(err > 1e-3)) == 50  # the first differing row is T
+    assert err[50:].max() > 0.1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,e,c,d", MOE_SWEEP)
+def test_moe_combine_ref_matches_reference(t, e, c, d, dtype):
+    eo, cw = _moe_case(t, e, c, d)
+    jeo = jnp.asarray(eo).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    want = jref.moe_combine_ref(jeo, jnp.asarray(cw))
+    pallas = pallas_moe_combine(jnp.asarray(cw), jeo, interpret=True)
+    teo = _t(eo).to(getattr(torch, dtype))
+    got = tref.moe_combine_ref(teo, _t(cw))
+    assert got.dtype == teo.dtype and got.shape == (t, d)
+    atol = 1e-4 if dtype == "float32" else 0.1
+    _close(got.float().numpy(), want, atol, 1e-2)
+    _close(got.float().numpy(), pallas, atol, 1e-2)
+    # the op takes (expert_out, combine), the kernel (combine, expert_out)
+    assert torch.equal(tops.moe_combine(teo, _t(cw)), got)
+    assert torch.equal(t_moe_combine(_t(cw), teo), got)
+
+
+def test_moe_combine_ref_ignores_the_tf32_flag():
+    eo, cw = _moe_case(64, 8, 16, 96)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        a = tref.moe_combine_ref(_t(eo), _t(cw))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        b = tref.moe_combine_ref(_t(eo), _t(cw))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert torch.equal(a, b)
+
+
+def test_model_kernel_wrappers_take_plain_version_on_cpu():
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.moe_combine as mc
+
+    before = (fa.launches, mc.launches)
+    q, k, v = map(_t, _flash_case(4, 30, 20, 16, 2))
+    assert torch.equal(tops.attention(q, k, v, causal=False, n_rep=2),
+                       tref.attention_ref(q, k, v, causal=False, n_rep=2))
+    assert torch.equal(t_flash_attention(q, k, v, n_rep=2),
+                       tref.attention_ref(q, k, v, n_rep=2))
+    eo, cw = map(_t, _moe_case(8, 2, 4, 32))
+    assert torch.equal(t_moe_combine(cw, eo), tref.moe_combine_ref(eo, cw))
+    assert (fa.launches, mc.launches) == before  # the plain version is no launch
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_matches_plain(hopper):
+    import repro_torch.kernels.flash_attention as fa
+
+    cases = [(c, torch.float32, 3e-5, 1e-4) for c in FLASH_SWEEP] + [
+        ((4, 128, 128, 64, 2, True), torch.bfloat16, 3e-2, 3e-2),
+        ((2, 100, 100, 64, 1, False), torch.float32, 3e-5, 1e-4),  # ragged T, non-causal
+        ((2, 100, 50, 64, 1, True), torch.float32, 3e-5, 1e-4),  # S > T, ragged T
+        ((3, 40, 40, 8, 1, True), torch.float32, 3e-5, 1e-4),  # llama3 smoke hd
+        ((4, 33, 33, 16, 2, True), torch.bfloat16, 3e-2, 3e-2),  # smoke hd
+    ]
+    before = fa.launches
+    for (n, s, t, hd, n_rep, causal), dtype, atol, rtol in cases:
+        q, k, v = (_t(a).to(hopper, dtype) for a in _flash_case(n, s, t, hd, n_rep))
+        got = t_flash_attention(q, k, v, causal=causal, n_rep=n_rep)
+        want = tref.attention_ref(q, k, v, causal=causal, n_rep=n_rep)
+        torch.cuda.synchronize()
+        _close(got.float().cpu().numpy(), want.float().cpu().numpy(), atol, rtol)
+    assert fa.launches == before + len(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_combine_kernel_matches_plain(hopper, dtype):
+    for shape in MOE_SWEEP:
+        eo, cw = (_t(a).to(hopper) for a in _moe_case(*shape))
+        eo = eo.to(getattr(torch, dtype))
+        got = tops.moe_combine(eo, cw)
+        want = tref.moe_combine_ref(eo, cw)
+        torch.cuda.synchronize()
+        atol = 1e-4 if dtype == "float32" else 0.1
+        _close(got.float().cpu().numpy(), want.float().cpu().numpy(), atol, 1e-2)
