@@ -13,7 +13,9 @@ failure raises and the script exits non-zero):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``build/`` (one ``nvcc`` per source, started together) and print their
-   ``ptxas`` register and spill lines;
+   ``ptxas`` register and spill lines, and the count of ``HGMMA`` (tensor-
+   core ``wgmma``) instructions in the ``flash_attention`` library's SASS
+   (``cuobjdump -sass``; 0 fails);
 3. hold each kernel against its plain PyTorch version on the card:
    ``segmented_gather`` bit for bit over a shape sweep with ``fill`` 0 and
    0.25; ``densify_map`` bit for bit over random packed chunks with
@@ -24,10 +26,13 @@ failure raises and the script exits non-zero):
    (1, 1, 128) to (130, 1000, 384), float32 and bfloat16, densities 0 to 1,
    ``fill`` 0 and 0.25), plus a non-finite event row for ``onehot_map``;
    ``flash_attention`` over the shapes of ``tests/test_kernels_flash.py`` in
-   float32 and bfloat16, ragged non-causal T, causal S > T with ragged T,
-   head dims 8 and 16, and the olmo-1b, phi3-medium (n_rep 4) and
-   llama3-405b (n_rep 16) head layouts at hd 128 (float32 atol 3e-5 / rtol
-   1e-4, bfloat16 3e-2, the reference tests' tolerances); ``moe_combine``
+   float32 (its FFMA kernel) and bfloat16 (its tensor-core kernel), ragged
+   non-causal T, causal S > T with ragged T, head dims 8 and 16, and the
+   olmo-1b, phi3-medium (n_rep 4) and llama3-405b (n_rep 16) head layouts
+   at hd 128 (float32 atol 3e-5 / rtol 1e-4, the reference tests'
+   tolerance; bfloat16 atol 5e-3 / rtol 1e-2, a limit that three planted
+   faults -- p in float8, a skipped key tile, an off-by-one diagonal --
+   must fail at the largest causal shape and at the prefill's); ``moe_combine``
    over the sweep of ``tests/test_kernels.py`` and the qwen3-moe group shape
    (T 512, E 128, C 40, D 2048) (float32 atol 1e-4, bfloat16 0.1, rtol
    1e-2);
@@ -49,7 +54,10 @@ failure raises and the script exits non-zero):
    ``flash_attention`` per call and no other kernel, held against the
    dense ``forward`` in bfloat16 (max abs error and argmax agreement
    printed; agreement >= 0.9 required) and in float32 (atol 2e-3, rtol
-   1e-3); (b) 32 ``decode_step`` logits against the prefill's (teacher
+   1e-3), the bfloat16 prefill's 16 flash launches all going to the
+   tensor-core kernel (the profiler's device events name it 16 times and
+   no other flash kernel); (b) 32
+   ``decode_step`` logits against the prefill's (teacher
    forcing; float32 at the same tolerance); (c) a ``Server`` (batch 8,
    cache 1024, 32 new tokens) answering 16 requests of 4-32 prompt tokens,
    each with 32 tokens; (d) the same path at 2 layers in float32 on the card
@@ -60,7 +68,8 @@ failure raises and the script exits non-zero):
 6. time each kernel at the main path's shapes beside its plain version and
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
-   line with all six.
+   line with all six; ``flash_attention`` also with its TFLOP/s and its
+   share of the bound.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -69,6 +78,9 @@ from __future__ import annotations
 
 import functools
 import json
+import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -105,8 +117,18 @@ KERNEL_NAMES = ("segmented_gather", "densify_map", "masked_gather", "onehot_map"
                 "flash_attention", "moe_combine")
 PEAK_BF16_PER_S = 989e12  # H100 SXM bf16 dense tensor-core peak, NVIDIA's data sheet
 COLD_BYTES = 190e6  # operands rotated for a cold time: past the 50 MB L2
-# the reference tests' tolerances (tests/test_kernels_flash.py, tests/test_kernels.py)
-FLASH_TOL = {torch.float32: (3e-5, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+# flash_attention against its plain version: float32 (the FFMA kernel) at the
+# reference tests' tolerance (tests/test_kernels_flash.py); bfloat16 (the
+# tensor-core kernel) at a limit set from its arithmetic, tighter than the
+# reference's 3e-2: rtol covers one bf16 ulp of the output (at most 2^-7 of
+# it), atol the rounding of p to bf16 before p.v (2^-9 of each weight; at
+# most 0.0027 over FLASH_CASES in the CPU emulation of
+# tests/test_torch_flash_tc.py).  Every planted fault of flash_fault_ref fails
+# it (flash_limit_power).
+FLASH_TOL = {torch.float32: (3e-5, 1e-4), torch.bfloat16: (5e-3, 1e-2)}
+REF_BF16_TOL = (3e-2, 3e-2)  # tests/test_kernels_flash.py's, for the library call
+FLASH_FAULTS = ("p_fp8", "skip_tile", "diag_plus_1")
+# the reference tests' tolerances (tests/test_kernels.py)
 MOE_TOL = {torch.float32: (1e-4, 1e-2), torch.bfloat16: (0.1, 1e-2)}
 # the serving path: float32 logits of two algorithms or two devices (sums in
 # other orders through 16 layers, logits of O(10))
@@ -144,6 +166,18 @@ def _smi(query: str, fmt: str = "csv,noheader") -> str:
 
 def card_line() -> str:
     return _smi("name,power.limit")
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """Lines holding ``opcode`` in the SASS of kernel ``name``'s built
+    library (``cuobjdump -sass``, from the CUDA toolkit)."""
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def fp32_peak_per_s() -> tuple:
@@ -847,25 +881,84 @@ def flash_operands(device, n, s, t, hd, n_rep, dtype, seed=0):
                  for shape in ((n, s, hd), (n // n_rep, t, hd), (n // n_rep, t, hd)))
 
 
+def limit_share(got, want, atol, rtol) -> float:
+    """Largest |got - want| / (atol + rtol |want|): below 1 is allclose."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (atol + rtol * w.abs())).max())
+
+
+def flash_fault_ref(q, k, v, fault: str) -> torch.Tensor:
+    """The plain version (causal, n_rep 1) with one planted fault of the kind
+    a wrong tensor-core kernel makes, each where outputs are small: ``p_fp8``
+    rounds p to float8 e4m3 where the kernel rounds it to bfloat16;
+    ``skip_tile`` drops keys 0-127 for the second warpgroup's 64 rows of
+    every 128-row block from row 512 on; ``diag_plus_1`` counts key i + 1
+    for every row i from 512 on."""
+    s, t, hd = q.shape[1], k.shape[1], q.shape[2]
+    x = torch.matmul(q.float(), k.float().transpose(1, 2)) / math.sqrt(hd)
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(t, device=q.device)[None, :]
+    keep = i >= j
+    if fault == "diag_plus_1":
+        keep = keep | ((j == i + 1) & (i >= 512))
+    elif fault == "skip_tile":
+        keep = keep & ~((i >= 512) & (i % 128 >= 64) & (j < 128))
+    elif fault != "p_fp8":
+        raise ValueError(f"no fault {fault!r}")
+    x = torch.where(keep[None], x, -1e30)
+    p = torch.exp(x - x.amax(-1, keepdim=True))
+    pv = p.to(torch.float8_e4m3fn).float() if fault == "p_fp8" else p
+    return (torch.matmul(pv, v.float()) / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+def flash_limit_power(q, k, v, got, want) -> dict:
+    """The bfloat16 limit's reading (``limit_share``) of the kernel's output
+    and of each planted fault, beside the reference's 3e-2; raises unless the
+    kernel passes the limit and every fault fails it."""
+    tol = FLASH_TOL[torch.bfloat16]
+    outs = {"kernel": got, **{f: flash_fault_ref(q, k, v, f) for f in FLASH_FAULTS}}
+    out = {name: {"limit": limit_share(o, want, *tol), "ref_tol": limit_share(o, want, *REF_BF16_TOL)}
+           for name, o in outs.items()}
+    if out["kernel"]["limit"] >= 1 or min(out[f]["limit"] for f in FLASH_FAULTS) <= 1:
+        raise AssertionError(f"the bf16 limit {tol} does not split the kernel from its faults: {out}")
+    return out
+
+
 def check_flash_attention(device: torch.device) -> int:
-    from repro_torch.kernels.flash_attention import flash_attention
+    """Every case in float32 (the FFMA kernel) and bfloat16 (the tensor-core
+    kernel: every head dim here is a multiple of 8); prints each bfloat16
+    case's largest error and its share of the limit, and the limit's power
+    against planted faults at the largest causal case."""
+    from repro_torch.kernels.flash_attention import flash_attention, kernel_variant
     from repro_torch.kernels.ref import attention_ref
 
-    n_cases = 0
+    n_cases, readings = 0, {}
     for n, s, t, hd, n_rep, causal in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
+            variant = kernel_variant(dtype, hd)
+            if variant != ("wgmma" if dtype == torch.bfloat16 else "ffma"):
+                raise AssertionError(f"flash_attention {dtype} hd {hd} would run {variant}")
             q, k, v = flash_operands(device, n, s, t, hd, n_rep, dtype)
             got = flash_attention(q, k, v, causal=causal, n_rep=n_rep)
             want = attention_ref(q, k, v, causal=causal, n_rep=n_rep)
             atol, rtol = FLASH_TOL[dtype]
             if t >= 2048:
                 atol = 5e-5 if dtype == torch.float32 else atol  # the reference's own
+            err = float((got.float() - want.float()).abs().max())
             if not _allclose(got, want, atol, rtol):
-                err = float((got.float() - want.float()).abs().max())
                 raise AssertionError(
                     f"flash_attention != plain at N={n} S={s} T={t} hd={hd} n_rep={n_rep} "
                     f"causal={causal} {dtype}: max abs err {err}")
+            if dtype == torch.bfloat16:
+                readings[f"{n},{s},{t},{hd},{n_rep},{int(causal)}"] = (
+                    err, limit_share(got, want, atol, rtol))
+                if causal and n_rep == 1 and s >= 1024:
+                    power = flash_limit_power(q, k, v, got, want)
+                    print(f"flash bf16 limit {FLASH_TOL[dtype]} at N={n} S={s} T={t} hd={hd}: "
+                          + json.dumps(power), flush=True)
             n_cases += 1
+    print("flash bf16 (max abs err, share of the limit) by N,S,T,hd,n_rep,causal: "
+          + json.dumps(readings), flush=True)
     return n_cases
 
 
@@ -956,9 +1049,10 @@ def _timed(fn, reps=3):
 
 
 def prefill_profile(params, cfg, batch) -> dict:
-    """Device busy share of one prefill's wall time and ``flash_attention``'s
-    share of its device time, from ``torch.profiler`` (None where the
-    profiler records no device time)."""
+    """Device busy share of one prefill's wall time, ``flash_attention``'s
+    share of its device time and the flash kernels by name (device µs,
+    launches), from ``torch.profiler`` (None where the profiler records no
+    device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
@@ -975,7 +1069,10 @@ def prefill_profile(params, cfg, batch) -> dict:
     flash_us = sum(e.self_device_time_total for e in device if "flash_attention" in e.key)
     top = sorted(((e.key[:60], e.self_device_time_total, e.count) for e in device),
                  key=lambda x: -x[1])[:6]
+    flash = {e.key: (e.self_device_time_total, e.count) for e in device
+             if "flash_attention" in e.key}
     return {"wall_s": wall, "device_us": busy_us, "flash_attention_us": flash_us,
+            "flash_kernels": flash,
             "device_busy_share": busy_us * 1e-6 / wall if busy_us > 0 else None,
             "flash_attention_share": flash_us / busy_us if busy_us > 0 else None,
             "top_device_us": top}
@@ -1063,6 +1160,13 @@ def serving_path(dev: torch.device) -> dict:
     out["prefill_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / prefill_s
     out["prefill_dense_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / dense_s
     out["prefill_profile"] = prefill_profile(params, fa, batch)
+    flash_kernels = out["prefill_profile"]["flash_kernels"]
+    print(f"{elapsed()} prefill flash kernels (bf16): " + json.dumps(flash_kernels), flush=True)
+    counts = [c for name, (_, c) in flash_kernels.items()
+              if "flash_attention_wgmma_kernel" in name]
+    if len(flash_kernels) != 1 or counts != [cfg.n_layers]:
+        raise AssertionError(f"the bf16 prefill's flash kernels {flash_kernels}: want "
+                             f"{cfg.n_layers} launches of the tensor-core kernel and no other")
     print(f"{elapsed()} serving (a) bf16 prefill: " + json.dumps(
         {k: out[k] for k in ("prefill_bf16_vs_dense", "prefill_flash_attention_launches",
                              "prefill_s", "prefill_tokens_per_s", "prefill_dense_s",
@@ -1137,9 +1241,11 @@ def serving_path(dev: torch.device) -> dict:
 
 
 def measure_flash_attention():
-    """``flash_attention`` at the olmo-1b prefill's shape (N = 2 x 16
-    heads, S = T = 2048, hd 128, bfloat16, causal) beside its plain
-    version and ``F.scaled_dot_product_attention`` (timed here only)."""
+    """``flash_attention`` (its tensor-core kernel) at the olmo-1b prefill's
+    shape (N = 2 x 16 heads, S = T = 2048, hd 128, bfloat16, causal) beside
+    its plain version and ``F.scaled_dot_product_attention`` (timed here
+    only), with the rate of causal work and the share of the bound each
+    reaches, and the bfloat16 limit's power at this shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1152,27 +1258,41 @@ def measure_flash_attention():
     if not _allclose(got, want, *FLASH_TOL[torch.bfloat16]):
         raise AssertionError("flash_attention != plain at the prefill shape")
     err = float((got.float() - want.float()).abs().max())
+    power = flash_limit_power(q, k, v, got, want)
 
     def library(q, k, v):
         return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True)[0]
 
-    if not _allclose(library(q, k, v), want, *FLASH_TOL[torch.bfloat16]):
+    lib_out = library(q, k, v)
+    if not _allclose(lib_out, want, *REF_BF16_TOL):
         raise AssertionError("scaled_dot_product_attention != plain at the prefill shape")
+    lib_share = limit_share(lib_out, want, *FLASH_TOL[torch.bfloat16])
+    del lib_out
     ops = (q, k, v)
     ms, eager, cold = hot_and_cold_ms(flash_attention, ops, iters=20)
     plain_ms, _, plain_cold = hot_and_cold_ms(attention_ref, ops, iters=10)
     lib_ms, _, lib_cold = hot_and_cold_ms(library, ops, iters=20)
+    # the same loop without the causal skip, masks and load imbalance: the
+    # rate of the kernel's steady state (twice the work)
+    full_ms, _ = time_ms(lambda: flash_attention(q, k, v, causal=False), iters=20)
     n_bytes = 4 * n * s * hd * 2  # q, k, v read once, out written once
     flops = 4 * n * hd * (s * (s + 1) // 2)  # q.k and p.v over the causal half
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
     return {
         "shape": {"N": n, "S": s, "T": s, "hd": hd, "dtype": "bfloat16", "causal": True},
         "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
         "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
         "library_ms": lib_ms, "library_cold_ms": lib_cold,
+        "limit": FLASH_TOL[torch.bfloat16], "limit_power": power,
+        "library_limit_share": lib_share,
+        "tflops": flops / ms * 1e-9, "cold_tflops": flops / cold * 1e-9,
+        "library_tflops": flops / lib_ms * 1e-9,
+        "noncausal_ms": full_ms, "noncausal_tflops": 4 * n * hd * s * s / full_ms * 1e-9,
+        "bound_share": bound / ms, "cold_bound_share": bound / cold,
+        "library_bound_share": bound / lib_ms,
         "bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+        "bound_ms": bound, "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
     }
 
 
@@ -1252,8 +1372,12 @@ def main() -> int:
           + json.dumps({k: round(v, 2) for k, v in secs.items()}), flush=True)
     for name in build.KERNELS:
         for line in build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    n_hgmma = sass_count("flash_attention", "HGMMA")
+    print(f"sass flash_attention: {n_hgmma} HGMMA instructions", flush=True)
+    if n_hgmma == 0:
+        raise AssertionError("the flash_attention library holds no HGMMA instruction")
 
     n_sg = check_segmented_gather(dev)
     n_dm = check_densify_map(dev)

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point and includes no PyTorch
 header, so one ``nvcc`` call turns it into ``build/lib<name>-<hash>.so`` at
-the repository root in seconds.  The hash is taken over the source and the
-flags, so an edited kernel is rebuilt and an unchanged one is reused.
+the repository root in seconds.  The hash is taken over the source, the
+``csrc`` headers it includes (``#include "<header>"``, followed through
+headers) and the flags, so an edited kernel or header is rebuilt and an
+unchanged one is reused.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them all; :func:`load` builds one kernel if it is missing and opens it.
 
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,8 +29,8 @@ from typing import Dict, Iterable, Optional
 import torch
 
 __all__ = [
-    "KERNELS", "NVCC_FLAGS", "build_dir", "build", "load", "ptxas_report",
-    "check_operand",
+    "KERNELS", "NVCC_FLAGS", "build_dir", "build", "load", "library_path",
+    "ptxas_report", "check_operand",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -37,6 +40,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -56,10 +61,30 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{digest}.so"
+def _inputs(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another header (each once)."""
+    found, todo = [], [_CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = _CSRC / inc.decode()
+            if header.is_file():
+                todo.append(header)
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` is (or will be) built: named by
+    a hash of its sources and the flags."""
+    h = hashlib.sha256()
+    for path in _inputs(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -74,7 +99,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        target = _target(name)
+        target = library_path(name)
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -109,7 +134,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            target = _target(name)
+            target = library_path(name)
             if not target.exists():
                 build([name])
             lib = ctypes.CDLL(str(target))

@@ -10,8 +10,17 @@ attention is lifted, and keys past T never count when S > T).  The model's
 prefill (``attn_impl="pallas"``) launches it once per layer.
 
 :func:`flash_attention` picks by tensor device: on a CUDA tensor it launches
-the kernel (or raises), on a CPU tensor it runs the plain version.
-``launches`` counts kernel launches and nothing else.
+a kernel (or raises), on a CPU tensor it runs the plain version.  On the
+card :func:`kernel_variant` picks one of the library's two kernels by dtype
+and head dim alone: ``"wgmma"`` (both products on the tensor cores, p
+rounded to bfloat16 before p.v) for bfloat16 whose head dim is a multiple
+of 8 (TMA's 16-byte row pitch), ``"ffma"`` (float32 FFMA on the CUDA cores,
+p kept in float32) for float32 and for bfloat16 of any other head dim.
+The wgmma kernel's tensor maps also need q, k and v to start 16-byte
+aligned; a call whose operands do not (a view into a larger tensor) raises
+rather than take the other kernel.  A launch error raises; nothing falls
+back.  ``launches`` counts kernel launches of either kind and nothing
+else.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import torch
 from . import build
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "launches", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "kernel_variant", "launches", "MAX_HEAD_DIM"]
 
 launches = 0  # kernel launches (CPU calls to the plain version not counted)
 MAX_HEAD_DIM = 128  # the widest head the kernel's shared-memory tiles take
@@ -32,14 +41,21 @@ _MAX_HEADS = 65535  # the grid's y extent
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = (torch.float32, torch.bfloat16)
+_TMA_ALIGN = 16  # bytes: a tensor map's base address and row pitch
 
 
 def _fn():
     fn = build.load("flash_attention").metl_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [_VP] * 4 + [_I] * 7 + [_VP]
+        fn.argtypes = [_VP] * 4 + [_I] * 8 + [_VP]
         fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_variant(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call of this dtype and head dim runs: ``"wgmma"``
+    for bfloat16 with ``hd % 8 == 0``, else ``"ffma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "ffma"
 
 
 def flash_attention(
@@ -79,11 +95,16 @@ def flash_attention(
         return out
     if t == 0:
         raise ValueError("flash_attention needs at least one key")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    wgmma = kernel_variant(q.dtype, hd) == "wgmma"
+    if wgmma and any(p % _TMA_ALIGN for p in ptrs):
+        raise ValueError(f"the bfloat16 kernel needs q, k and v {_TMA_ALIGN}-byte aligned; "
+                         "pass copies (.clone())")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, s, t, hd,
-            n_rep, int(causal), q.element_size(), stream,
+            *ptrs, out.data_ptr(), n, s, t, hd, n_rep, int(causal), q.element_size(),
+            int(wgmma), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")

@@ -303,7 +303,11 @@ def test_densify_map_kernel_matches_plain(hopper, which):
 # rtol 1e-4 and bf16 3e-2 (tests/test_kernels_flash.py), moe_combine f32
 # atol 1e-4 and bf16 0.1, rtol 1e-2 (tests/test_kernels.py).  The plain
 # versions compute in float32 like the oracles but sum in another order, so
-# they are held by these tolerances rather than bit for bit.
+# they are held by these tolerances rather than bit for bit.  The Hopper
+# flash kernels are held tighter in bf16 (chip_smoke.FLASH_TOL's limit: one
+# bf16 ulp of the output, rtol 1e-2, plus the tensor-core kernel's rounding
+# of p to bf16, atol 5e-3; tests/test_torch_flash_tc.py shows its power).
+FLASH_BF16_LIMIT = (5e-3, 1e-2)
 
 FLASH_SWEEP = [  # tests/test_kernels_flash.py::test_flash_matches_dense
     (1, 64, 64, 64, 1, True),
@@ -448,20 +452,37 @@ def test_model_kernel_wrappers_take_plain_version_on_cpu():
 def test_flash_attention_kernel_matches_plain(hopper):
     import repro_torch.kernels.flash_attention as fa
 
+    bf16 = (torch.bfloat16, *FLASH_BF16_LIMIT)
     cases = [(c, torch.float32, 3e-5, 1e-4) for c in FLASH_SWEEP] + [
-        ((4, 128, 128, 64, 2, True), torch.bfloat16, 3e-2, 3e-2),
+        ((4, 128, 128, 64, 2, True), *bf16),
         ((2, 100, 100, 64, 1, False), torch.float32, 3e-5, 1e-4),  # ragged T, non-causal
         ((2, 100, 50, 64, 1, True), torch.float32, 3e-5, 1e-4),  # S > T, ragged T
         ((3, 40, 40, 8, 1, True), torch.float32, 3e-5, 1e-4),  # llama3 smoke hd
-        ((4, 33, 33, 16, 2, True), torch.bfloat16, 3e-2, 3e-2),  # smoke hd
-    ]
+        ((4, 33, 33, 16, 2, True), *bf16),  # smoke hd
+    ] + [(c, *bf16) for c in [  # the tensor-core kernel
+        (2, 100, 100, 64, 1, False), (3, 37, 130, 128, 1, False),  # ragged T, non-causal
+        (2, 100, 50, 64, 1, True), (2, 300, 130, 128, 1, True),  # causal S > T, ragged T
+        (3, 40, 40, 8, 1, True), (4, 33, 33, 16, 2, True),  # hd 8 / 16
+        (4, 257, 257, 64, 1, True), (4, 257, 257, 128, 1, False),  # hd 64 / 128
+        (8, 200, 300, 128, 4, True), (32, 130, 130, 64, 16, True),  # GQA n_rep 4 / 16
+        (32, 2048, 2048, 128, 1, True),  # the olmo-1b prefill
+    ]] + [((2, 70, 90, 12, 1, True), *bf16)]  # hd % 8: FFMA
     before = fa.launches
     for (n, s, t, hd, n_rep, causal), dtype, atol, rtol in cases:
         q, k, v = (_t(a).to(hopper, dtype) for a in _flash_case(n, s, t, hd, n_rep))
+        want_variant = "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "ffma"
+        assert fa.kernel_variant(q.dtype, hd) == want_variant
         got = t_flash_attention(q, k, v, causal=causal, n_rep=n_rep)
         want = tref.attention_ref(q, k, v, causal=causal, n_rep=n_rep)
         torch.cuda.synchronize()
         _close(got.float().cpu().numpy(), want.float().cpu().numpy(), atol, rtol)
+    assert fa.launches == before + len(cases)
+    # an operand off the tensor maps' 16-byte alignment raises, and launches nothing
+    q, k, v = (_t(a).to(hopper, torch.bfloat16) for a in _flash_case(4, 130, 130, 128, 2))
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device=hopper)[1:].view(k.shape)
+    shifted.copy_(k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        t_flash_attention(q, shifted, v, n_rep=2)
     assert fa.launches == before + len(cases)
 
 
