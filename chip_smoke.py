@@ -27,15 +27,18 @@ failure raises and the script exits non-zero):
    ``fill`` 0 and 0.25), plus a non-finite event row for ``onehot_map``;
    ``flash_attention`` over the shapes of ``tests/test_kernels_flash.py`` in
    float32 (its FFMA kernel) and bfloat16 (its tensor-core kernel), ragged
-   non-causal T, causal S > T with ragged T, head dims 8 and 16, and the
-   olmo-1b, phi3-medium (n_rep 4) and llama3-405b (n_rep 16) head layouts
-   at hd 128 (float32 atol 3e-5 / rtol 1e-4, the reference tests'
-   tolerance; bfloat16 atol 5e-3 / rtol 1e-2, a limit that three planted
-   faults -- p in float8, a skipped key tile, an off-by-one diagonal --
-   must fail at the largest causal shape and at the prefill's); ``moe_combine``
-   over the sweep of ``tests/test_kernels.py`` and the qwen3-moe group shape
-   (T 512, E 128, C 40, D 2048) (float32 atol 1e-4, bfloat16 0.1, rtol
-   1e-2);
+   non-causal T, causal S > T with ragged T, head dims 8, 16, 24, 40, 72
+   and 120, and the olmo-1b, phi3-medium (n_rep 4) and llama3-405b (n_rep
+   16) head layouts at hd 128 (float32 atol 3e-5 / rtol 1e-4, the reference
+   tests' tolerance; bfloat16 atol 5e-3 / rtol 1e-2, a limit that three
+   planted faults -- p in float8, a skipped key tile, an off-by-one
+   diagonal -- must fail at the largest causal shape and at the prefill's);
+   ``moe_combine`` over the sweep of ``tests/test_kernels.py`` and the
+   qwen3-moe group shape (T 512, E 128, C 40, D 2048), each at 1, 2, 4 and
+   8 weights a token, every weight and none, then with inf and NaN planted
+   in expert_out and in combine (float32 atol 1e-4, bfloat16 0.1, rtol
+   1e-2; non-finite outputs exactly where the plain version has them; a
+   repeat call bit-identical);
 4. consume 64 chunks of 512 events of the paper-scale scenario (128 schemas
    x 10 versions x 10 attributes, 40 business entities of 25 attributes)
    through ``METLApp`` on the card four ways -- the fused engine with host
@@ -69,7 +72,8 @@ failure raises and the script exits non-zero):
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
    line with all six; ``flash_attention`` also with its TFLOP/s and its
-   share of the bound.
+   share of the bound; ``moe_combine`` also at the dbrx group and with a
+   fully dense combine, each beside ``torch.matmul``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -153,6 +157,8 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
         return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return bool(torch.equal(a, b))
 
 
@@ -864,15 +870,31 @@ FLASH_CASES = [
     (3, 40, 40, 8, 1, True), (4, 33, 33, 16, 2, True), (1, 64, 2048, 64, 1, True),
     (32, 1024, 1024, 128, 1, True), (40, 512, 512, 128, 4, True),
     (128, 256, 256, 128, 16, True),
+    # head dims the tensor-core kernel pads to 64 (24, 40) or 128 (72, 120),
+    # causal and ragged non-causal
+    (2, 130, 130, 24, 1, True), (2, 100, 77, 24, 1, False),
+    (4, 257, 257, 40, 2, True), (2, 64, 190, 40, 1, False),
+    (2, 200, 200, 72, 1, True), (3, 90, 133, 72, 3, False),
+    (4, 160, 160, 120, 2, True), (2, 37, 150, 120, 1, False),
 ]
 # (T, E, C, D): tests/test_kernels.py's sweep, then the qwen3-moe group
 MOE_CASES = [(8, 2, 4, 32), (64, 8, 16, 96), (130, 4, 8, 256), (256, 16, 8, 128),
              (512, 128, 40, 2048)]
+# combine's density sweep, weights a token: one, the reference tests' two,
+# dbrx's four, qwen3-moe's eight, every weight (None), none (0)
+MOE_DENSITIES = (1, 2, 4, 8, None, 0)
+# the timing groups: (T, E, C, D, weights a token; None: every weight); C is
+# repro/models/moe.py's _capacity(512) at capacity factor 1.25
+MOE_GROUPS = {
+    "qwen3-moe": (512, 128, 40, 2048, 8),
+    "dbrx": (512, 16, 160, 6144, 4),
+    "qwen3-moe dense": (512, 128, 40, 2048, None),
+}
 
 
-def _allclose(got, want, atol, rtol) -> bool:
+def _allclose(got, want, atol, rtol, equal_nan=False) -> bool:
     return got.dtype == want.dtype and got.shape == want.shape and bool(torch.allclose(
-        got.float(), want.float(), atol=atol, rtol=rtol))
+        got.float(), want.float(), atol=atol, rtol=rtol, equal_nan=equal_nan))
 
 
 def flash_operands(device, n, s, t, hd, n_rep, dtype, seed=0):
@@ -962,40 +984,87 @@ def check_flash_attention(device: torch.device) -> int:
     return n_cases
 
 
-def moe_operands(device, t, e, c, d, *, top_k=2, dtype=torch.float32, seed=None):
-    """combine (T, E, C) with ``top_k`` router weights a token (as the
-    reference test builds it: random slots, weights in [0, 1)) and
-    expert_out (E, C, D) normal."""
+def moe_arrays(t, e, c, d, *, top_k=2, seed=None, plant=()):
+    """numpy float32 (combine (T, E, C), expert_out (E, C, D)): expert_out
+    normal; combine with ``top_k`` router weights a token (as the reference
+    test builds it: random slots, weights in [0, 1)), every weight non-zero
+    for ``top_k=None``.  ``plant`` adds, by name: ``"empty_token"`` token 0
+    without a weight; ``"nonfinite_expert"`` a NaN in column 5 % D and an
+    inf in column 1 % D of two expert_out slots that no weight names (any
+    slots if every one is named); ``"nonfinite_weight"`` a NaN in place of
+    one of token 1's weights and an inf weight of token 2 % T in a slot no
+    weight names."""
     rng = np.random.default_rng(hash((t, e, c, d)) % 2**31 if seed is None else seed)
     eo = rng.normal(size=(e, c, d)).astype(np.float32)
-    cw = np.zeros((t, e, c), np.float32)
-    for ti in range(t):
-        for _ in range(top_k):
-            cw[ti, rng.integers(e), rng.integers(c)] = rng.random()
-    return (torch.from_numpy(cw).to(device, dtype),
-            torch.from_numpy(eo).to(device, dtype))
+    if top_k is None:
+        cw = rng.random((t, e, c), dtype=np.float32) + np.float32(1e-3)
+    else:
+        cw = np.zeros((t, e, c), np.float32)
+        for ti in range(t):
+            for _ in range(top_k):
+                cw[ti, rng.integers(e), rng.integers(c)] = rng.random()
+    flat, rows = cw.reshape(t, e * c), eo.reshape(e * c, d)
+    unnamed = np.flatnonzero(~(flat != 0).any(0))
+    spare = unnamed if unnamed.size >= 2 else np.arange(e * c)
+    for kind in plant:
+        if kind == "empty_token":
+            flat[0] = 0
+        elif kind == "nonfinite_expert":
+            rows[spare[0], 5 % d] = np.nan
+            rows[spare[-1], 1 % d] = np.inf
+        elif kind == "nonfinite_weight":
+            named = np.flatnonzero(flat[1 % t])
+            flat[1 % t, named[0] if named.size else 0] = np.nan
+            flat[2 % t, spare[0]] = np.inf
+        else:
+            raise ValueError(f"no plant {kind!r}")
+    return cw, eo
 
 
-def check_moe_combine(device: torch.device) -> int:
+def check_moe_case(cw, eo) -> float:
+    """``moe_combine`` on the card against its plain version on the same
+    operands: inf and NaN exactly where the plain version has them, every
+    other output within ``MOE_TOL``, and a second call bit-identical to the
+    first.  Raises on a mismatch; returns the largest |error| over the
+    outputs the two agree are finite."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import moe_combine_ref
 
-    n_cases = 0
-    for shape in MOE_CASES:
-        top_k = 8 if shape[1] == 128 else 2  # qwen3-moe routes each token to 8 experts
-        for cdt, edt in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-                         (torch.bfloat16, torch.bfloat16)):
-            cw, _ = moe_operands(device, *shape, top_k=top_k, dtype=cdt)
-            _, eo = moe_operands(device, *shape, top_k=top_k, dtype=edt)
-            got = ops.moe_combine(eo, cw)
-            want = moe_combine_ref(eo, cw)
-            atol, rtol = MOE_TOL[edt]
-            if not _allclose(got, want, atol, rtol):
-                err = float((got.float() - want.float()).abs().max())
-                raise AssertionError(f"moe_combine != plain at T,E,C,D={shape} combine {cdt} "
-                                     f"expert_out {edt}: max abs err {err}")
-            n_cases += 1
-    return n_cases
+    got = ops.moe_combine(eo, cw)
+    again = ops.moe_combine(eo, cw)
+    want = moe_combine_ref(eo, cw)
+    where = (f"T,E,C,D={tuple(cw.shape) + (eo.shape[-1],)} combine {cw.dtype} "
+             f"expert_out {eo.dtype}")
+    if not _allclose(got, want, *MOE_TOL[eo.dtype], equal_nan=True):
+        raise AssertionError(f"moe_combine != plain at {where}: non-finite outputs "
+                             f"{int((~got.isfinite()).sum())} against "
+                             f"{int((~want.isfinite()).sum())}")
+    if not _bits_equal(got, again):
+        raise AssertionError(f"moe_combine differs between two calls at {where}")
+    finite = want.isfinite()
+    return float((got.float() - want.float())[finite].abs().max()) if finite.any() else 0.0
+
+
+def check_moe_combine(device: torch.device) -> dict:
+    """Every ``MOE_CASES`` shape at every ``MOE_DENSITIES`` density with a
+    weightless token, then with non-finite values planted in expert_out
+    and in combine (whose NaNs must reach where the plain version puts
+    them), in three dtype pairs.  Returns the case counts and largest
+    errors."""
+    pairs = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16))
+    nonfinite = [(shape, 8 if shape[1] == 128 else 2, (kind,)) for shape in MOE_CASES
+                 for kind in ("nonfinite_expert", "nonfinite_weight")]
+    cases = [(shape, top_k, ("empty_token",)) for shape in MOE_CASES
+             for top_k in MOE_DENSITIES] + nonfinite
+    worst = {str(edt): 0.0 for edt in (torch.float32, torch.bfloat16)}
+    for shape, top_k, plant in cases:
+        arrays = moe_arrays(*shape, top_k=top_k, plant=plant)
+        for cdt, edt in pairs:
+            cw, eo = (torch.from_numpy(a).to(device, dt) for a, dt in zip(arrays, (cdt, edt)))
+            worst[str(edt)] = max(worst[str(edt)], check_moe_case(cw, eo))
+    return {"cases": len(cases) * len(pairs), "nonfinite_cases": len(nonfinite) * len(pairs),
+            "max_abs_err": worst}
 
 
 # -- phase 5: serving olmo-1b --------------------------------------------------
@@ -1296,52 +1365,93 @@ def measure_flash_attention():
     }
 
 
+def moe_bound(cw, eo, fp32_peak) -> dict:
+    """The least time one ``moe_combine`` call could take on this data.
+    Bytes: every element of combine and of expert_out read once and the
+    output written once.  A NaN or inf anywhere in ``expert_out[:, :, d]``
+    makes column d NaN in every row (the function multiplies every weight,
+    zeros included), so the function needs every element of expert_out,
+    not only the rows a weight names.  Operations: 2 D for each non-zero
+    weight (a NaN weight is one)."""
+    t, d = cw.shape[0], eo.shape[-1]
+    n_bytes = cw.nbytes + eo.nbytes + t * d * eo.element_size()
+    nnz = int((cw != 0).sum())
+    flops = 2 * nnz * d
+    bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / fp32_peak * 1e3
+    return {"bytes": n_bytes, "nonzero_weights": nnz, "flops": flops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def device_us_by_kernel(fn, operands, calls=10) -> dict:
+    """Device µs per call of ``fn(*operands)`` by kernel (the port's by
+    their names, PyTorch's by the first 40 characters of theirs), from
+    ``torch.profiler`` over ``calls`` calls; empty where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*operands)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*operands)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        name = next((k for k in ("moe_scan_kernel", "moe_product_kernel") if k in e.key),
+                    e.key[:40])
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / calls
+    return out
+
+
 def measure_moe_combine(fp32_peak):
-    """``moe_combine`` at the qwen3-moe group shape (T 512, E 128, C 40,
-    D 2048, float32, 8 router weights a token) beside its plain version and
-    one IEEE float32 ``torch.matmul`` of the reshaped operands (timed here
-    only).  The bound counts what this data needs: all of ``combine``, the
-    ``expert_out`` rows some weight names, the output, and 2 D operations
-    per non-zero weight."""
+    """``moe_combine`` at each ``MOE_GROUPS`` group (float32), L2-hot and
+    cold, beside one IEEE float32 ``torch.matmul`` of the reshaped operands
+    (timed here only) and the bound of :func:`moe_bound`, with the device
+    time of each of its kernels; at the qwen3-moe group also beside its
+    plain version.  Returns the qwen3-moe group's numbers with the others
+    under ``"groups"``."""
     from repro_torch.kernels.moe_combine import moe_combine
     from repro_torch.kernels.ref import moe_combine_ref
 
-    t, e, c, d = MOE_CASES[-1]
-    cw, eo = moe_operands(torch.device("cuda"), t, e, c, d, top_k=8, seed=9)
-    got = moe_combine(cw, eo)
-    want = moe_combine_ref(eo, cw)
-    if not _allclose(got, want, *MOE_TOL[torch.float32]):
-        raise AssertionError("moe_combine != plain at the qwen3-moe group shape")
-    err = float((got - want).abs().max())
+    groups = {}
+    for name, (t, e, c, d, top_k) in MOE_GROUPS.items():
+        cw, eo = (torch.from_numpy(a).cuda() for a in moe_arrays(t, e, c, d, top_k=top_k, seed=9))
+        want = moe_combine_ref(eo, cw)
+        got = moe_combine(cw, eo)
+        if not _allclose(got, want, *MOE_TOL[torch.float32]):
+            raise AssertionError(f"moe_combine != plain at the {name} group")
+        err = float((got - want).abs().max())
 
-    def library(cw, eo):
-        return torch.matmul(cw.reshape(t, e * c), eo.reshape(e * c, d))
+        def library(cw, eo, t=t, k=e * c, d=d):
+            return torch.matmul(cw.reshape(t, k), eo.reshape(k, d))
 
-    if not _allclose(library(cw, eo), want, *MOE_TOL[torch.float32]):
-        raise AssertionError("torch.matmul != plain at the qwen3-moe group shape")
-    ops = (cw, eo)
-    ms, eager, cold = hot_and_cold_ms(moe_combine, ops, iters=20)
-    plain_ms, _, plain_cold = hot_and_cold_ms(
-        lambda cw, eo: moe_combine_ref(eo, cw), ops, iters=5)
-    lib_ms, _, lib_cold = hot_and_cold_ms(library, ops, iters=20)
-    flat = cw.reshape(t, e * c)
-    nnz = int((flat != 0).sum())
-    rows = int((flat != 0).any(0).sum())
-    n_bytes = flat.nbytes + rows * d * 4 + t * d * 4
-    flops = 2 * nnz * d
-    dense_flops = 2 * t * e * c * d
-    bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / fp32_peak * 1e3
-    return {
-        "shape": {"T": t, "E": e, "C": c, "D": d, "dtype": "float32", "top_k": 8,
-                  "nonzero_weights": nnz, "expert_rows_named": rows},
-        "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
-        "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
-        "library_ms": lib_ms, "library_cold_ms": lib_cold,
-        "bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "dense_flops": dense_flops, "dense_ops_ms": dense_flops / fp32_peak * 1e3,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
-    }
+        if not _allclose(library(cw, eo), want, *MOE_TOL[torch.float32]):
+            raise AssertionError(f"torch.matmul != plain at the {name} group")
+        del got, want
+        ops = (cw, eo)
+        ms, eager, cold = hot_and_cold_ms(moe_combine, ops, iters=20)
+        lib_ms, _, lib_cold = hot_and_cold_ms(library, ops, iters=20)
+        bound = moe_bound(cw, eo, fp32_peak)
+        m = {"shape": {"T": t, "E": e, "C": c, "D": d, "dtype": "float32",
+                       "weights_a_token": top_k if top_k is not None else e * c},
+             "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
+             "library_ms": lib_ms, "library_cold_ms": lib_cold,
+             "library_over_kernel": lib_ms / ms, **bound,
+             "bound_share": bound["bound_ms"] / ms,
+             "cold_bound_share": bound["bound_ms"] / cold,
+             "dense_ops_ms": 2 * t * e * c * d / fp32_peak * 1e3,
+             "device_us_by_kernel": device_us_by_kernel(moe_combine, ops)}
+        if name == "qwen3-moe":
+            m["plain_ms"], _, m["plain_cold_ms"] = hot_and_cold_ms(
+                lambda cw, eo: moe_combine_ref(eo, cw), ops, iters=5)
+        groups[name] = m
+        del cw, eo, ops
+        torch.cuda.empty_cache()
+    main = groups.pop("qwen3-moe")
+    return {**main, "groups": groups}
 
 
 # -- main --------------------------------------------------------------------------
@@ -1384,15 +1494,18 @@ def main() -> int:
     n_mg = check_per_block(dev, "masked_gather")
     n_oh = check_per_block(dev, "onehot_map")
     n_fa = check_flash_attention(dev)
-    n_mc = check_moe_combine(dev)
+    mc = check_moe_combine(dev)
     torch.cuda.synchronize()
     print(f"{elapsed()} kernels vs plain versions: segmented_gather {n_sg} cases, "
           f"densify_map {n_dm} cases, masked_gather {n_mg} cases bit-exact; "
           f"onehot_map {n_oh} cases, masks bit-exact, values within "
           f"atol={ONEHOT_ATOL}; flash_attention {n_fa} cases within "
           f"{FLASH_TOL[torch.float32]} (float32) / {FLASH_TOL[torch.bfloat16]} (bfloat16); "
-          f"moe_combine {n_mc} cases within {MOE_TOL[torch.float32]} (float32) / "
-          f"{MOE_TOL[torch.bfloat16]} (bfloat16 expert_out) (atol, rtol)", flush=True)
+          f"moe_combine {mc['cases']} cases within {MOE_TOL[torch.float32]} (float32) / "
+          f"{MOE_TOL[torch.bfloat16]} (bfloat16 expert_out) (atol, rtol), "
+          f"{mc['nonfinite_cases']} of them with inf and NaN planted, non-finite "
+          f"outputs where the plain version has them, every repeat call bit-identical; "
+          f"max abs err by expert_out dtype {json.dumps(mc['max_abs_err'])}", flush=True)
 
     cfg = _paper_config()
     stream = Stream(CHUNK_EVENTS)

@@ -10,6 +10,9 @@ The CUDA kernels against their plain versions need a Hopper card (marker
 ``gpu``) and skip here.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -37,6 +40,11 @@ from repro_torch.kernels.masked_gather import masked_gather as t_masked_gather
 from repro_torch.kernels.moe_combine import moe_combine as t_moe_combine
 from repro_torch.kernels.onehot_map import onehot_map as t_onehot_map
 from repro_torch.kernels.segmented_gather import segmented_gather as t_segmented_gather
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 SG_SWEEP = [  # the sweep of tests/test_kernels.py::test_segmented_gather_matches_oracle
     (b, n_in, w, nb, s)
@@ -466,6 +474,11 @@ def test_flash_attention_kernel_matches_plain(hopper):
         (4, 257, 257, 64, 1, True), (4, 257, 257, 128, 1, False),  # hd 64 / 128
         (8, 200, 300, 128, 4, True), (32, 130, 130, 64, 16, True),  # GQA n_rep 4 / 16
         (32, 2048, 2048, 128, 1, True),  # the olmo-1b prefill
+        # head dims padded to 64 (24, 40) or 128 (72, 120)
+        (2, 130, 130, 24, 1, True), (2, 100, 77, 24, 1, False),
+        (4, 257, 257, 40, 2, True), (2, 64, 190, 40, 1, False),
+        (2, 200, 200, 72, 1, True), (3, 90, 133, 72, 3, False),
+        (4, 160, 160, 120, 2, True), (2, 37, 150, 120, 1, False),
     ]] + [((2, 70, 90, 12, 1, True), *bf16)]  # hd % 8: FFMA
     before = fa.launches
     for (n, s, t, hd, n_rep, causal), dtype, atol, rtol in cases:
@@ -497,3 +510,36 @@ def test_moe_combine_kernel_matches_plain(hopper, dtype):
         torch.cuda.synchronize()
         atol = 1e-4 if dtype == "float32" else 0.1
         _close(got.float().cpu().numpy(), want.float().cpu().numpy(), atol, 1e-2)
+
+
+MOE_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k", smoke.MOE_DENSITIES)
+def test_moe_combine_kernel_density_sweep(hopper, top_k):
+    """The sparse kernels against the plain version at every chip_smoke
+    shape (the reference sweep and the qwen3-moe group) and density, with a
+    weightless token; a repeat call bit-identical; two launches a call."""
+    import repro_torch.kernels.moe_combine as mc
+
+    before = mc.launches
+    for shape in smoke.MOE_CASES:
+        cw, eo = smoke.moe_arrays(*shape, top_k=top_k, plant=("empty_token",))
+        for cdt, edt in MOE_PAIRS:
+            smoke.check_moe_case(_t(cw).to(hopper, cdt), _t(eo).to(hopper, edt))
+    torch.cuda.synchronize()
+    assert mc.launches == before + 2 * 2 * len(smoke.MOE_CASES) * len(MOE_PAIRS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plant", ["nonfinite_expert", "nonfinite_weight"])
+def test_moe_combine_kernel_keeps_nonfinite_values(hopper, plant):
+    """inf and NaN in expert_out slots no weight names, and in weights: the
+    kernel's infs and NaNs are where the plain version's are."""
+    for shape in smoke.MOE_CASES:
+        cw, eo = smoke.moe_arrays(*shape, top_k=8 if shape[1] == 128 else 2,
+                                  plant=("empty_token", plant))
+        for cdt, edt in MOE_PAIRS:
+            smoke.check_moe_case(_t(cw).to(hopper, cdt), _t(eo).to(hopper, edt))

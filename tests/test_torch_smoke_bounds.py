@@ -131,3 +131,23 @@ def test_per_block_bytes_match_the_kernels_reads(smoke, seed, reads_all):
     want = _walk_per_block(vals, mask, src, reads_all=reads_all)
     ops = [torch.from_numpy(a) for a in (vals, mask, src)]
     assert smoke.per_block_bytes(*ops, reads_all=reads_all) == want
+
+
+@pytest.mark.parametrize("cdt,edt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("top_k,plant", [(2, ()), (None, ()), (0, ()),
+                                         (2, ("nonfinite_weight",))])
+def test_moe_bound_counts_every_operand_element(smoke, top_k, plant, cdt, edt):
+    """``moe_combine``'s bound reads every element of combine and of
+    expert_out once (a non-finite value in any expert_out slot reaches its
+    whole column) and writes the output once; its operations are 2 D per
+    weight != 0, a NaN weight included."""
+    t, e, c, d = 37, 8, 16, 24
+    cw, eo = smoke.moe_arrays(t, e, c, d, top_k=top_k, plant=plant)
+    nnz = sum(1 for w in cw.ravel() if w != 0)
+    bound = smoke.moe_bound(torch.from_numpy(cw).to(cdt), torch.from_numpy(eo).to(edt), 1e12)
+    size = torch.tensor([], dtype=edt).element_size()
+    assert bound["bytes"] == cw.size * torch.tensor([], dtype=cdt).element_size() + (
+        e * c * d + t * d) * size
+    assert bound["nonzero_weights"] == nnz and bound["flops"] == 2 * nnz * d
+    assert bound["bound_ms"] == max(bound["bytes_ms"], bound["ops_ms"])
