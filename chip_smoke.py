@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's consume paths and its olmo-1b server on one
-NVIDIA card and check them.
+"""Drive the PyTorch port's consume paths (fused, sharded and per-block)
+and its olmo-1b server on one NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -11,8 +11,10 @@ either it exits non-zero before printing any result.  Phases, in order (any
 failure raises and the script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc`` into
-   ``build/`` (one ``nvcc`` per source, started together) and print their
+2. build the six CUDA libraries from ``src/repro_torch/kernels/csrc`` into
+   ``build/`` (one ``nvcc`` per source, started together; eight kernels:
+   ``segmented_gather.cu`` and ``densify_map.cu`` also hold the sharded
+   engine's ``segmented_gather_shard`` and ``densify_map_shard``) and print their
    ``ptxas`` register and spill lines, and the count of ``HGMMA`` (tensor-
    core ``wgmma``) instructions in the ``flash_attention`` library's SASS
    (``cuobjdump -sass``; 0 fails);
@@ -38,19 +40,24 @@ failure raises and the script exits non-zero):
    8 weights a token, every weight and none, then with inf and NaN planted
    in expert_out and in combine (float32 atol 1e-4, bfloat16 0.1, rtol
    1e-2; non-finite outputs exactly where the plain version has them; a
-   repeat call bit-identical);
+   repeat call bit-identical); ``segmented_gather_shard`` and
+   ``densify_map_shard`` bit for bit over random cases with 2-8 shards,
+   padded and empty ones (``SHARD_*_CASES``), each also on a sub-range of
+   its shards and, shard by shard, against its base kernel;
 4. consume 64 chunks of 512 events of the paper-scale scenario (128 schemas
    x 10 versions x 10 attributes, 40 business entities of 25 attributes)
-   through ``METLApp`` on the card four ways -- the fused engine with host
-   densify and with ``device_densify=True``, and the per-block engine with
-   ``engine="blocks"`` (``masked_gather``) and with ``impl="onehot"``
-   (``onehot_map``) -- with one ``SchemaEvolved`` applied at chunk 32;
-   check each chunk's accounting (fused: one dispatch, 4 or 1 transfers;
-   per-block: one dispatch per block its groups touch, 2 transfers per
-   group; on the card one launch of the path's kernel per dispatch); then
+   through ``METLApp`` on the card six ways -- the fused engine with host
+   densify and with ``device_densify=True``, the sharded engine
+   (``engine="sharded"``, 4 shards on the card) with each, and the
+   per-block engine with ``engine="blocks"`` (``masked_gather``) and with
+   ``impl="onehot"`` (``onehot_map``) -- with one ``SchemaEvolved`` applied
+   at chunk 32; check each chunk's accounting (fused and sharded: one
+   dispatch, 4 or 1 transfers; per-block: one dispatch per block its groups
+   touch, 2 transfers per group; on the card one launch of the path's
+   kernel per dispatch, the sharded paths' of its shard kernel); then
    compare every row and every stats counter with the same stream through
-   ``device="cpu"`` apps (the plain versions), and the per-block rows with
-   the fused rows;
+   ``device="cpu"`` apps (the plain versions), and the sharded and
+   per-block rows with the fused rows;
 5. serve olmo-1b at full width (16 layers, d_model 2048, random weights
    from a seeded ``torch.Generator``): (a) the prefill ``forward`` with
    ``attn_impl="pallas"`` over a (2, 2048) prompt batch, 16 launches of
@@ -71,7 +78,7 @@ failure raises and the script exits non-zero):
 6. time each kernel at the main path's shapes beside its plain version and
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
-   line with all six; ``flash_attention`` also with its TFLOP/s and its
+   line with all eight; ``flash_attention`` also with its TFLOP/s and its
    share of the bound; ``moe_combine`` also at the dbrx group and with a
    fully dense combine, each beside ``torch.matmul``.
 
@@ -118,7 +125,9 @@ SG_SWEEP = [  # (b, n_in, w) x (n_blocks, s), as the reference kernel tests
 BLOCK_SHAPES = [(1, 1, 128), (8, 10, 128), (37, 300, 256), (130, 1000, 384),
                 (256, 128, 128), (9, 20, 130)]
 KERNEL_NAMES = ("segmented_gather", "densify_map", "masked_gather", "onehot_map",
-                "flash_attention", "moe_combine")
+                "flash_attention", "moe_combine", "segmented_gather_shard",
+                "densify_map_shard")
+SHARDS = 4  # the sharded paths' shards, all on the one card
 PEAK_BF16_PER_S = 989e12  # H100 SXM bf16 dense tensor-core peak, NVIDIA's data sheet
 COLD_BYTES = 190e6  # operands rotated for a cold time: past the 50 MB L2
 # flash_attention against its plain version: float32 (the FFMA kernel) at the
@@ -308,6 +317,125 @@ def check_densify_map(device: torch.device) -> int:
     return n + 1
 
 
+# sharded kernels' random cases: shards' live routing lengths (0: an empty
+# shard), as ShardedEngine._shard_split pads them, over a padded S_loc
+SHARD_GATHER_CASES = [  # (b, n_in, w, n_blocks_loc, s_loc, live entries a shard)
+    (37, 300, 256, 16, 130, (130, 77, 0, 3)),
+    (64, 128, 128, 8, 64, (64, 64, 64, 64)),
+    (8, 64, 128, 8, 16, (0, 16)),
+    (130, 250, 128, 24, 256, (200, 0, 256, 1, 17, 90, 0, 255)),
+]
+SHARD_DENSIFY_CASES = [  # (events, most items, K, uid-table size, n_blocks_loc, s_loc, live)
+    (24, 7, 8, 60, 16, 16, (16, 5, 0, 9)),
+    (64, 32, 32, 200, 16, 128, (128, 100, 0, 128)),
+    (130, 16, 16, 1, 8, 256, (0, 256)),
+    (200, 3, 4, 500, 16, 128, (128, 0, 1, 64, 128, 7, 0, 100)),
+    (9, 32, 32, 0, 8, 8, (8, 0, 3)),
+]
+
+
+def _shard_tables(rng, lens, n_blocks, w, n_src):
+    """Per shard z, a table slice (n_blocks, w) with a random count of live
+    blocks (none for an empty shard, whose ``lens[z]`` is 0; pad rows -1)
+    naming payload slots below ``n_src``.  Returns (src3d, live blocks a
+    shard)."""
+    n = len(lens)
+    src3d = np.full((n, n_blocks, w), -1, np.int32)
+    live = [int(rng.integers(1, n_blocks + 1)) if ln else 0 for ln in lens]
+    for z, nb in enumerate(live):
+        for t in range(nb):
+            k = int(0.5 * min(n_src, w))
+            src3d[z, t, rng.choice(w, size=k, replace=False)] = rng.choice(
+                n_src, size=k, replace=False)
+    return src3d, live
+
+
+def random_sharded_gather(rng, b, n_in, w, n_blocks, s_loc, lens):
+    """A sharded host-densify case: shared (b, n_in) values and mask, rows
+    and shard-local blks (n_shards, s_loc), src3d (n_shards, n_blocks, w)."""
+    vals = rng.normal(size=(b, n_in)).astype(np.float32)
+    mask = (rng.random((b, n_in)) < 0.7).astype(np.int8)
+    src3d, live = _shard_tables(rng, lens, n_blocks, w, n_in)
+    rows = np.zeros((len(lens), s_loc), np.int32)
+    blks = np.zeros((len(lens), s_loc), np.int32)
+    for z, (ln, nb) in enumerate(zip(lens, live)):
+        rows[z, :ln] = rng.integers(b, size=ln)
+        blks[z, :ln] = rng.integers(nb, size=ln) if nb else 0
+    return vals, mask, rows, blks, src3d
+
+
+def random_sharded_packed(rng, n_events, k_max, k, n_uid, n_blocks, s_loc, lens):
+    """A sharded device-densify case: ``_random_packed``'s items with the
+    flattened (n_shards, s_loc) routing pair (live entries, then padding) and
+    src3d (n_shards, n_blocks, 128)."""
+    n = len(lens)
+    packed, slot, col, _, sizes = _random_packed(
+        rng, n_events=n_events, k_max=k_max, k=k, n_uid=n_uid, n_cols=5,
+        n_rows=n * s_loc, n_blocks=n_blocks)
+    src3d, live = _shard_tables(rng, lens, n_blocks, 128, 40)
+    o = 2 * sizes["n_items"] + 3 * n_events
+    rows = packed[o : o + n * s_loc].reshape(n, s_loc)
+    blks = packed[o + n * s_loc :].reshape(n, s_loc)
+    for z, (ln, nb) in enumerate(zip(lens, live)):
+        rows[z, ln:] = 0
+        blks[z, :ln] = rng.integers(nb, size=ln) if nb else 0
+        blks[z, ln:] = 0
+    return packed, slot, col, src3d, dict(sizes, n_rows=s_loc, n_shards=n)
+
+
+def check_shard_kernels(device: torch.device) -> tuple:
+    """``segmented_gather_shard`` and ``densify_map_shard`` bit for bit
+    against their plain versions over ``SHARD_*_CASES`` (padded and empty
+    shards, ``fill`` 0 and 0.25), each also launched on a sub-range of its
+    shards (as a device of a mesh over several cards maps its own) and,
+    shard by shard, against the base kernel.  Returns the case counts."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.densify_map import densify_map, densify_map_shard
+    from repro_torch.kernels.segmented_gather import (segmented_gather,
+                                                      segmented_gather_shard)
+
+    n_sg = n_dm = 0
+    for i, case in enumerate(SHARD_GATHER_CASES):
+        arrays = random_sharded_gather(np.random.default_rng(3000 + i), *case)
+        v, m, r, b, t = (torch.from_numpy(a).to(device) for a in arrays)
+        for fill in (0.0, 0.25):
+            kv, km = segmented_gather_shard(v, m, r, b, t, fill=fill)
+            rv, rm = ref.segmented_gather_shard_ref(v, m, r, b, t, fill=fill)
+            lo = 1
+            sv, sm = segmented_gather_shard(v, m, r[lo:], b[lo:], t[lo:], fill=fill)
+            base = [segmented_gather(v, m, r[z], b[z], t[z], fill=fill)
+                    for z in range(r.shape[0])]
+            if not (_bits_equal(kv, rv) and _bits_equal(km, rm)
+                    and _bits_equal(sv, rv[lo:]) and _bits_equal(sm, rm[lo:])
+                    and all(_bits_equal(kv[z], bv) and _bits_equal(km[z], bm)
+                            for z, (bv, bm) in enumerate(base))):
+                raise AssertionError(f"segmented_gather_shard != plain at case {i} fill={fill}")
+            n_sg += 1
+    for i, case in enumerate(SHARD_DENSIFY_CASES):
+        packed, slot, col, src3d, sizes = random_sharded_packed(
+            np.random.default_rng(4000 + i), *case)
+        p, sl, cl, t = (torch.from_numpy(a).to(device) for a in (packed, slot, col, src3d))
+        n, s_loc = sizes["n_shards"], sizes["n_rows"]
+        o = 2 * sizes["n_items"] + 3 * sizes["n_events"]
+        for fill in (0.0, 0.25):
+            kv, km = densify_map_shard(p, sl, cl, t, fill=fill, **sizes)
+            rv, rm = ref.densify_map_shard_ref(p, sl, cl, t, fill=fill, **sizes)
+            lo = n - 1
+            sv, sm = densify_map_shard(p, sl, cl, t[lo:], shard_lo=lo, fill=fill, **sizes)
+            ok = (_bits_equal(kv, rv) and _bits_equal(km, rm)
+                  and _bits_equal(sv, rv[lo:]) and _bits_equal(sm, rm[lo:]))
+            for z in range(n):  # shard z alone, as a one-shard packed chunk
+                one = torch.cat([p[:o], p[o + z * s_loc : o + (z + 1) * s_loc],
+                                 p[o + (n + z) * s_loc : o + (n + z + 1) * s_loc]])
+                bv, bm = densify_map(one, sl, cl, t[z], fill=fill, n_items=sizes["n_items"],
+                                     n_events=sizes["n_events"], n_rows=s_loc, k=sizes["k"])
+                ok = ok and _bits_equal(kv[z], bv) and _bits_equal(km[z], bm)
+            if not ok:
+                raise AssertionError(f"densify_map_shard != plain at case {i} fill={fill}")
+            n_dm += 1
+    return n_sg, n_dm
+
+
 def _block_case(rng, b, n_in, n_out, density):
     """tests/test_kernels.py::_mk_case: each of ``density * min(n_in,
     n_out)`` output slots names a distinct input slot."""
@@ -426,38 +554,48 @@ class DensifyLog:
         del self.engine.densify  # the class's own method again
 
 
-def _kernel_modules():
+def _counters():
+    """(wrapper module, counter name) of each kernel, in ``KERNEL_NAMES``
+    order: a shard kernel's wrapper sits beside its base kernel's."""
     from repro_torch.kernels import (densify_map, flash_attention, masked_gather,
                                      moe_combine, onehot_map, segmented_gather)
-    return (segmented_gather, densify_map, masked_gather, onehot_map, flash_attention,
-            moe_combine)
+    return ((segmented_gather, "launches"), (densify_map, "launches"),
+            (masked_gather, "launches"), (onehot_map, "launches"),
+            (flash_attention, "launches"), (moe_combine, "launches"),
+            (segmented_gather, "shard_launches"), (densify_map, "shard_launches"))
 
 
 def _launch_counts():
-    return {name: mod.launches for name, mod in zip(KERNEL_NAMES, _kernel_modules())}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in zip(KERNEL_NAMES, _counters())}
 
 
 def _zero_launch_counts() -> None:
     from repro_torch.kernels import ops
-    for mod in _kernel_modules():
-        mod.launches = 0
+    for mod, attr in _counters():
+        setattr(mod, attr, 0)
     ops.dispatch_count = 0
 
 
 def run_main_path(device, path, cfg, stream, *, n_chunks, evolve_at):
     """One METLApp over the stream on ``device``, configured by ``path``
-    (``engine``/``impl``/``device_densify`` keywords); returns (rows,
-    stats, consume seconds per chunk, kernel launch counts, per-chunk
-    accounting, the app)."""
+    (``engine``/``impl``/``device_densify`` keywords, and ``shards``: that
+    many shards of a mesh on ``device``); returns (rows, stats, consume
+    seconds per chunk, kernel launch counts, per-chunk accounting, the
+    app)."""
     from repro_torch.core.state import StateCoordinator
     from repro_torch.core.synthetic import build_scenario, churn_schedule
     from repro_torch.etl.metl import METLApp
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_etl_mesh
 
     sc = build_scenario(cfg)
     coord = StateCoordinator(sc.registry, sc.dpm)
     sched = churn_schedule(coord.registry, steps=1, first_chunk=evolve_at, seed=0)
-    app = METLApp(coord, device=device, **path)
+    kwargs = dict(path)
+    if "shards" in kwargs:
+        kwargs["mesh"] = make_etl_mesh(devices=[device] * kwargs.pop("shards"))
+    app = METLApp(coord, device=device, **kwargs)
     log = DensifyLog(app.engine) if app.engine.plan_kind == "blocks" else None
     rows, per_chunk, chunk_s = [], [], []
     _zero_launch_counts()
@@ -484,15 +622,18 @@ def run_main_path(device, path, cfg, stream, *, n_chunks, evolve_at):
 
 
 def check_accounting(name, per_chunk, path, on_card):
-    """Fused: 1 dispatch and 4 (host) or 1 (device) transfers per chunk.
-    Per-block: one dispatch per block the chunk's groups touch, 2 transfers
-    per group.  On the card, one launch of the path's kernel per dispatch
-    and none of the others."""
+    """Fused and sharded: 1 dispatch and 4 (host) or 1 (device) transfers
+    per chunk.  Per-block: one dispatch per block the chunk's groups touch,
+    2 transfers per group.  On the card, one launch of the path's kernel per
+    dispatch (the sharded paths: of its shard kernel, every shard on the one
+    card) and none of the others."""
     blocks = path.get("engine") == "blocks" or path.get("impl") == "onehot"
     if blocks:
         kernel = "onehot_map" if path.get("impl") == "onehot" else "masked_gather"
     else:
         kernel = "densify_map" if path.get("device_densify") else "segmented_gather"
+        if path.get("engine") == "sharded":
+            kernel += "_shard"
     for k, a in enumerate(per_chunk):
         if blocks:
             want = (a["blocks_touched"], 2 * a["groups"])
@@ -679,8 +820,51 @@ def densify_map_bytes(packed, uid_slot, uid_col, src2d, *, n_items, n_events, n_
                + n_rows * w * 5)
 
 
+def _live_routes(n_loc, s_loc, live):
+    """(n_loc, s_loc) bool: the first ``live[z]`` routing entries of each
+    shard z (every entry when ``live`` is None)."""
+    if live is None:
+        return torch.ones((n_loc, s_loc), dtype=torch.bool)
+    return torch.arange(s_loc)[None, :] < torch.as_tensor(live)[:, None]
+
+
+def segmented_gather_shard_bytes(values, mask, rows, blks, src3d, live=None) -> int:
+    """Bytes one ``segmented_gather_shard`` call must move on this data:
+    ``segmented_gather_bytes`` over the shards' tables taken as one (shard
+    z's block t is row z * P + t), so a payload byte that several shards'
+    blocks name is read once; every shard's routing and outputs count.
+    With ``live`` (each shard's true routing length) only the live entries
+    count, as if no shard were padded to the longest."""
+    n, p, w = src3d.shape
+    glob = blks + torch.arange(n, dtype=blks.dtype, device=blks.device)[:, None] * p
+    keep = _live_routes(n, rows.shape[1], live).to(rows.device)
+    return segmented_gather_bytes(values, mask, rows[keep], glob[keep],
+                                  src3d.reshape(n * p, w))
+
+
+def densify_map_shard_bytes(packed, uid_slot, uid_col, src3d, *, n_items, n_events,
+                            n_rows, k, n_shards, shard_lo=0, live=None) -> int:
+    """Bytes one ``densify_map_shard`` call must move on this data:
+    ``densify_map_bytes`` of the same chunk with the launch's shards routed
+    as one table (shard z's block t is row z * P + t), so an item, a uid
+    entry or an event that several shards read counts once.  ``live`` as
+    for :func:`segmented_gather_shard_bytes`."""
+    n_loc, p, w = src3d.shape
+    pk = packed.cpu()
+    o = 2 * n_items + 3 * n_events
+    route = pk[o : o + 2 * n_shards * n_rows].view(2, n_shards, n_rows)
+    rows = route[0, shard_lo : shard_lo + n_loc]
+    blks = route[1, shard_lo : shard_lo + n_loc] + torch.arange(
+        n_loc, dtype=pk.dtype)[:, None] * p
+    keep = _live_routes(n_loc, n_rows, live)
+    flat = torch.cat([pk[:o], rows[keep], blks[keep]])
+    return densify_map_bytes(flat, uid_slot, uid_col, src3d.reshape(n_loc * p, w),
+                             n_items=n_items, n_events=n_events, n_rows=int(keep.sum()), k=k)
+
+
 def main_path_operands(app, chunk):
-    """The device operands ``app``'s engine builds for ``chunk``."""
+    """The device operands ``app``'s engine builds for ``chunk`` (the
+    sharded engine's: its per-shard routing)."""
     from repro_torch.etl.engines import ColumnarDense
     from repro_torch.core.dmm_torch import bucket_rows
 
@@ -688,6 +872,9 @@ def main_path_operands(app, chunk):
     plan, dev = dense.plan, app.device
     if isinstance(dense, ColumnarDense):
         return dense, plan, (torch.from_numpy(dense.packed).to(dev),)
+    if dense.rows_sh is not None:
+        return dense, plan, tuple(torch.from_numpy(a).to(dev) for a in (
+            dense.vals, dense.mask, dense.rows_sh, dense.blks_sh))
     s = dense.row_ids.size
     pad = bucket_rows(s) - s
     return dense, plan, tuple(torch.from_numpy(a).to(dev) for a in (
@@ -762,6 +949,80 @@ def measure_densify_map(app, chunk):
         "library_ms": None, "library_cold_ms": None,
         "operand_bytes": int(sum(x.nbytes for x in ops)),
         "bytes": densify_map_bytes(*ops, **sizes),
+    }
+
+
+def measure_segmented_gather_shard(app, chunk):
+    from repro_torch.kernels.ref import segmented_gather_shard_ref
+    from repro_torch.kernels.segmented_gather import segmented_gather_shard
+
+    dense, plan, (v, m, r, b) = main_path_operands(app, chunk)
+    (t,) = plan.src3d  # every shard on the one card: one stack
+    kv, km = segmented_gather_shard(v, m, r, b, t)
+    rv, rm = segmented_gather_shard_ref(v, m, r, b, t)
+    if not (_bits_equal(kv, rv) and _bits_equal(km, rm)):
+        raise AssertionError("segmented_gather_shard != plain at the main-path shape")
+    err = float((kv - rv).abs().max())
+
+    def yardstick(v, m, r, b, t):  # batched gather + where
+        src = t[torch.arange(t.shape[0], device=t.device)[:, None], b.long()]  # (n, S, W)
+        safe = src.clamp(min=0).long()
+        hit = (m[r].gather(2, safe) != 0) & (src >= 0)
+        return torch.where(hit, v[r].gather(2, safe), 0.0), hit
+
+    yv, ym = yardstick(v, m, r, b, t)
+    if not (_bits_equal(yv, rv) and torch.equal(ym.to(torch.int8), rm)):
+        raise AssertionError("yardstick != plain at the main-path shape")
+    ops = (v, m, r, b, t)
+    ms, eager, cold = hot_and_cold_ms(segmented_gather_shard, ops)
+    plain_ms, _, plain_cold = hot_and_cold_ms(segmented_gather_shard_ref, ops)
+    lib_ms, _, lib_cold = hot_and_cold_ms(yardstick, ops)
+    return {
+        "shape": {"shards": int(t.shape[0]), "S_loc": int(r.shape[1]),
+                  "S_true": int(dense.row_ids.size),
+                  "S_true_by_shard": [int(i.size) for i in dense.shard_sel],
+                  "W": int(t.shape[2]), "B": int(v.shape[0]), "N_in": int(v.shape[1]),
+                  "n_blocks_pad_loc": int(t.shape[1])},
+        "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
+        "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
+        "library_ms": lib_ms, "library_cold_ms": lib_cold,
+        "operand_bytes": int(sum(x.nbytes for x in ops)),
+        "bytes": segmented_gather_shard_bytes(*ops),
+        "live_bytes": segmented_gather_shard_bytes(
+            *ops, live=[int(i.size) for i in dense.shard_sel]),
+    }
+
+
+def measure_densify_map_shard(app, chunk):
+    from repro_torch.kernels.densify_map import densify_map_shard
+    from repro_torch.kernels.ref import densify_map_shard_ref
+
+    dense, plan, (p,) = main_path_operands(app, chunk)
+    sizes = dict(n_items=dense.n_items, n_events=dense.n_events,
+                 n_rows=dense.n_rows, k=dense.k, n_shards=dense.n_shards)
+    tabs = (plan.uid_slot_dev[0], plan.uid_col_dev[0], plan.src3d[0])
+    kv, km = densify_map_shard(p, *tabs, **sizes)
+    rv, rm = densify_map_shard_ref(p, *tabs, **sizes)
+    if not (_bits_equal(kv, rv) and _bits_equal(km, rm)):
+        raise AssertionError("densify_map_shard != plain at the main-path shape")
+    err = float((kv - rv).abs().max())
+    ops = (p, *tabs)
+    ms, eager, cold = hot_and_cold_ms(functools.partial(densify_map_shard, **sizes), ops)
+    plain_ms, _, plain_cold = hot_and_cold_ms(
+        functools.partial(densify_map_shard_ref, **sizes), ops)
+    return {
+        "shape": {"shards": dense.n_shards, "S_loc": dense.n_rows,
+                  "S_true": int(dense.row_ids.size),
+                  "S_true_by_shard": [int(i.size) for i in dense.shard_sel],
+                  "W": plan.width, "NI": dense.n_items, "B": dense.n_events,
+                  "K": dense.k, "packed_bytes": int(p.nbytes)},
+        "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
+        "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
+        "library_ms": None, "library_cold_ms": None,
+        "operand_bytes": int(sum(x.nbytes for x in ops)),
+        "bytes": densify_map_shard_bytes(*ops, **sizes),
+        "live_bytes": densify_map_shard_bytes(
+            *ops, **sizes, live=[int(i.size) for i in dense.shard_sel]),
     }
 
 
@@ -1495,9 +1756,13 @@ def main() -> int:
     n_oh = check_per_block(dev, "onehot_map")
     n_fa = check_flash_attention(dev)
     mc = check_moe_combine(dev)
+    n_sgs, n_dms = check_shard_kernels(dev)
     torch.cuda.synchronize()
     print(f"{elapsed()} kernels vs plain versions: segmented_gather {n_sg} cases, "
-          f"densify_map {n_dm} cases, masked_gather {n_mg} cases bit-exact; "
+          f"densify_map {n_dm} cases, masked_gather {n_mg} cases, "
+          f"segmented_gather_shard {n_sgs} cases and densify_map_shard {n_dms} cases "
+          f"(padded and empty shards; each also on a sub-range of its shards and "
+          f"against the base kernel shard by shard) bit-exact; "
           f"onehot_map {n_oh} cases, masks bit-exact, values within "
           f"atol={ONEHOT_ATOL}; flash_attention {n_fa} cases within "
           f"{FLASH_TOL[torch.float32]} (float32) / {FLASH_TOL[torch.bfloat16]} (bfloat16); "
@@ -1514,6 +1779,8 @@ def main() -> int:
         "device": {"device_densify": True},
         "blocks-gather": {"engine": "blocks"},
         "blocks-onehot": {"impl": "onehot"},
+        "sharded-host": {"engine": "sharded", "shards": SHARDS},
+        "sharded-device": {"engine": "sharded", "shards": SHARDS, "device_densify": True},
     }
     runs = {}
     for where, device in (("cuda", dev), ("cpu", "cpu")):
@@ -1551,6 +1818,8 @@ def main() -> int:
               f"({n_bits} rows not bit-identical)", flush=True)
     host_rows = runs["cuda/host"][0]
     compare_rows("cuda/device vs cuda/host", runs["cuda/device"][0], host_rows)
+    compare_rows("cuda/sharded-host vs cuda/host", runs["cuda/sharded-host"][0], host_rows)
+    compare_rows("cuda/sharded-device vs cuda/host", runs["cuda/sharded-device"][0], host_rows)
     compare_rows("cuda/blocks-gather vs cuda/host", runs["cuda/blocks-gather"][0], host_rows)
     n_bits = compare_rows("cuda/blocks-onehot vs cuda/host", runs["cuda/blocks-onehot"][0],
                           host_rows, ONEHOT_ATOL)
@@ -1566,13 +1835,18 @@ def main() -> int:
                           "src/repro/kernels/masked_gather.py:73", "cuda/blocks-gather"),
         "onehot_map": ("src/repro_torch/kernels/csrc/onehot_map.cu",
                        "src/repro/kernels/onehot_map.py:61", "cuda/blocks-onehot"),
+        "segmented_gather_shard": ("src/repro_torch/kernels/csrc/segmented_gather.cu",
+                                   "src/repro/kernels/segmented_gather.py:159",
+                                   "cuda/sharded-host"),
+        "densify_map_shard": ("src/repro_torch/kernels/csrc/densify_map.cu",
+                              "src/repro/kernels/densify_map.py:166", "cuda/sharded-device"),
     }
     for name, (_, _, run) in origin.items():
         if runs[run][2][name] < 1:
             raise AssertionError(f"{name}, a kernel of the main path, never launched")
-    print("main path: fused and per-block rows equal (blocks-gather bit-exact, "
-          f"blocks-onehot within atol={ONEHOT_ATOL}, {n_bits} rows not bit-identical); "
-          "every kernel launched", flush=True)
+    print("main path: fused, sharded and per-block rows equal (sharded and "
+          f"blocks-gather bit-exact, blocks-onehot within atol={ONEHOT_ATOL}, {n_bits} "
+          "rows not bit-identical); every kernel launched", flush=True)
 
     serving = serving_path(dev)
 
@@ -1586,13 +1860,19 @@ def main() -> int:
 
     # timing at the main path's shapes, on a chunk after the evolution
     probe = stream.chunks[EVOLVE_AT + 1]
-    for name in ("cuda/host", "cuda/device"):
+    for name in ("cuda/host", "cuda/device", "cuda/sharded-host", "cuda/sharded-device"):
         runs[name][3].reset_dedup()
     meas = {"segmented_gather": measure_segmented_gather(runs["cuda/host"][3], probe),
-            "densify_map": measure_densify_map(runs["cuda/device"][3], probe)}
+            "densify_map": measure_densify_map(runs["cuda/device"][3], probe),
+            "segmented_gather_shard": measure_segmented_gather_shard(
+                runs["cuda/sharded-host"][3], probe),
+            "densify_map_shard": measure_densify_map_shard(
+                runs["cuda/sharded-device"][3], probe)}
     for m in meas.values():
         m["bound_ms"] = m["bytes"] / PEAK_BYTES_PER_S * 1e3
         m["bound_by"] = "bytes"
+        if "live_bytes" in m:  # the shard kernels: the bound without routing padding
+            m["live_bound_ms"] = m["live_bytes"] / PEAK_BYTES_PER_S * 1e3
     peak, sms, mhz = fp32_peak_per_s()
     print(f"float32 CUDA-core peak: {sms} SMs x {FP32_LANES_PER_SM} lanes x 2 x "
           f"{mhz:.0f} MHz = {peak / 1e12:.3f} TFLOP/s", flush=True)

@@ -5,8 +5,9 @@ consume paths run: the per-block lowering (:func:`compile_block`,
 :func:`compile_dpm`), its device placement for the per-block engine
 (:func:`place_blocks`), the two per-block apply functions
 (:func:`apply_compacted`, the DMM gather, and :func:`apply_onehot`, the
-paper's matrix-operator baseline) and the fused block table
-(:func:`compile_fused`).
+paper's matrix-operator baseline), the fused block table
+(:func:`compile_fused`) and its partition over a mesh's shards
+(:func:`compile_fused_sharded`).
 
 The paper's final mapping function is a *set lookup*: for each dense set
 element ``(q, p)`` with value 1, move payload slot ``p`` to output slot
@@ -23,8 +24,9 @@ and the fused plan (:class:`FusedDMM`) stacks every block of a state into
     columns    (o, v) -> FusedColumn: the column super-set as global block
                ids plus the uid -> payload-slot lookup
 
-``src2d`` and the uid tables' device copies live on the plan's ``device``;
-everything else is host-side numpy.  A per-block plan placed with
+``src2d`` and the uid tables' device copies live on the plan's ``device``
+(a sharded plan's slices on their shards' devices); everything else is
+host-side numpy.  A per-block plan placed with
 :func:`place_blocks` keeps every block's ``src`` on the device too, as views
 of one buffer uploaded once per state.  The ``LANE`` / ``SUBLANE`` padding of
 the reference is kept as it is, so every table here equals the reference's
@@ -34,7 +36,7 @@ byte for byte; the CUDA kernels do not need it (they mask their own edges).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,6 +63,8 @@ __all__ = [
     "FusedDMM",
     "compile_fused",
     "global_uid_tables",
+    "ShardedFusedDMM",
+    "compile_fused_sharded",
 ]
 
 LANE = 128  # table row padding, kept from the reference for byte-equal tables
@@ -70,14 +74,19 @@ DeviceLike = Union[str, torch.device]
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
-    """``device`` as a :class:`torch.device`; raises when a CUDA device is
-    asked for and none exists (the port never falls back to the CPU)."""
+    """``device`` as a :class:`torch.device`, a CUDA device with its index
+    (so ``"cuda"`` and ``"cuda:0"`` compare equal); raises when a CUDA
+    device is asked for and none exists (the port never falls back to the
+    CPU)."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run the plain PyTorch versions"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain PyTorch versions"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -333,17 +342,10 @@ def global_uid_tables(
     )
 
 
-def compile_fused(
-    compiled: CompiledDMM,
-    registry: Registry,
-    lane: int = LANE,
-    *,
-    device: DeviceLike = "cuda",
-) -> FusedDMM:
-    """Flatten a :class:`CompiledDMM` into the fused block table and place
-    its device-side tables (``src2d``, ``uid_slot_dev``, ``uid_col_dev``) on
-    ``device``.  Built once per state by the plan manager."""
-    dev = resolve_device(device)
+def _fused_tables(compiled: CompiledDMM, registry: Registry, lane: int = LANE) -> Tuple:
+    """The host side of the fused block table, shared by the replicated and
+    the sharded plan: ``(table, routes, n_out, columns, n_in_pad, width,
+    n_blocks, uid_slot, uid_col, col_block_start, col_block_count)``."""
     routes: List[Tuple[int, int]] = []
     n_out: List[int] = []
     src_rows: List[np.ndarray] = []
@@ -393,19 +395,176 @@ def compile_fused(
     col_block_count = np.asarray(
         [c.block_ids.size for c in columns.values()], dtype=np.int32
     )
+    return (table, routes, np.asarray(n_out, dtype=np.int32), columns,
+            pad_to_lane(n_in_max, lane), width, n_blocks, uid_slot, uid_col,
+            col_block_start, col_block_count)
+
+
+def compile_fused(
+    compiled: CompiledDMM,
+    registry: Registry,
+    lane: int = LANE,
+    *,
+    device: DeviceLike = "cuda",
+) -> FusedDMM:
+    """Flatten a :class:`CompiledDMM` into the fused block table and place
+    its device-side tables (``src2d``, ``uid_slot_dev``, ``uid_col_dev``) on
+    ``device``.  Built once per state by the plan manager."""
+    dev = resolve_device(device)
+    (table, routes, n_out, columns, n_in_pad, width, n_blocks, uid_slot,
+     uid_col, cb_start, cb_count) = _fused_tables(compiled, registry, lane)
     return FusedDMM(  # metl: allow[plan-publish-single-site] the port's lowering primitive, the counterpart of repro.core.dmm_jax; only repro_torch.etl.plan.PlanManager calls compile_fused
         state=compiled.state,
-        n_in_pad=pad_to_lane(n_in_max, lane),
+        n_in_pad=n_in_pad,
         width=width,
         n_blocks=n_blocks,
         src2d=torch.from_numpy(table).to(dev),
         routes=routes,
-        n_out=np.asarray(n_out, dtype=np.int32),
+        n_out=n_out,
         columns=columns,
         uid_slot=uid_slot,
         uid_col=uid_col,
-        col_block_start=col_block_start,
-        col_block_count=col_block_count,
+        col_block_start=cb_start,
+        col_block_count=cb_count,
         uid_slot_dev=torch.from_numpy(uid_slot).to(dev),
         uid_col_dev=torch.from_numpy(uid_col).to(dev),
+    )
+
+
+@dataclasses.dataclass
+class ShardedFusedDMM:
+    """The fused block table partitioned over the mesh's shards.
+
+    Global block ``t`` (row ``t`` of the replicated table, in column order)
+    lives on shard ``t // blocks_per_shard`` at local row ``t %
+    blocks_per_shard``; the contiguous partition keeps emission order
+    identical to the replicated engine.  Pad rows of every shard are -1,
+    so stray routing never makes output.  ``src3d`` holds one int32 stack
+    of shape ``(hi - lo, n_blocks_pad_loc, W)`` per entry ``(device, lo,
+    hi)`` of ``groups``: the shards that share a device are one tensor
+    there (on one card, the whole table).  ``uid_slot_dev`` / ``uid_col_dev``
+    are the uid tables on each of those devices.  ``routes`` / ``n_out`` /
+    ``columns`` are host metadata in global order (per shard:
+    :meth:`shard_routes` / :meth:`shard_n_out`).
+    """
+
+    state: int
+    n_shards: int
+    blocks_per_shard: int
+    n_in_pad: int
+    width: int
+    n_blocks: int  # true global block count
+    src3d: Tuple[torch.Tensor, ...]  # per device group: (n_loc, n_blocks_pad_loc, W) int32
+    groups: Tuple[Tuple[torch.device, int, int], ...]  # (device, lo, hi) per stack
+    routes: List[Tuple[int, int]]  # global block t -> business entity (r, w)
+    n_out: np.ndarray  # int32 (n_blocks,) true output width per block
+    columns: Dict[Tuple[int, int], FusedColumn]
+    uid_slot: np.ndarray  # int32 (max_uid+1,): uid -> payload slot, -1 = none
+    uid_col: np.ndarray  # int32 (max_uid+1,): uid -> owning col_id, -1 = none
+    col_block_start: np.ndarray = None  # int32 (n_cols,): see FusedDMM
+    col_block_count: np.ndarray = None  # int32 (n_cols,)
+    uid_slot_dev: Tuple[torch.Tensor, ...] = ()  # one copy per device group
+    uid_col_dev: Tuple[torch.Tensor, ...] = ()
+
+    def column(self, o: int, v: int) -> Optional[FusedColumn]:
+        return self.columns.get((o, v))
+
+    @property
+    def n_blocks_pad_loc(self) -> int:
+        return int(self.src3d[0].shape[1])
+
+    @property
+    def table_bytes(self) -> int:
+        """Device-resident block-table bytes over all shards."""
+        return int(sum(t.nbytes for t in self.src3d))
+
+    @property
+    def table_bytes_per_shard(self) -> int:
+        """Device-resident block-table bytes held by ONE shard."""
+        return self.n_blocks_pad_loc * self.width * 4
+
+    def shard_slice(self, s: int) -> Tuple[int, int]:
+        """Global block id range [lo, hi) owned by shard ``s``."""
+        lo = s * self.blocks_per_shard
+        return lo, min(lo + self.blocks_per_shard, self.n_blocks)
+
+    def shard_routes(self, s: int) -> List[Tuple[int, int]]:
+        lo, hi = self.shard_slice(s)
+        return self.routes[lo:hi]
+
+    def shard_n_out(self, s: int) -> np.ndarray:
+        lo, hi = self.shard_slice(s)
+        return self.n_out[lo:hi]
+
+
+def compile_fused_sharded(
+    compiled: CompiledDMM,
+    registry: Registry,
+    *,
+    mesh: Optional[Any] = None,
+    n_shards: Optional[int] = None,
+    lane: int = LANE,
+    device: DeviceLike = "cuda",
+) -> ShardedFusedDMM:
+    """Partition the fused block table over ``n_shards`` (the mesh's
+    ``data`` size when a mesh is given) and place each shard's slice on its
+    device of ``mesh`` (:class:`repro_torch.launch.mesh.ETLMesh`).  Without a
+    mesh every shard goes to ``device``."""
+    if mesh is not None:
+        if n_shards is not None and n_shards != mesh.shape["data"]:
+            raise ValueError(f"n_shards={n_shards} != the mesh's {mesh.shape['data']} shards")
+        n_shards = mesh.shape["data"]
+    elif n_shards is None:
+        raise ValueError("need a mesh or an explicit n_shards")
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards} < 1")
+    return _assemble_sharded(
+        _fused_tables(compiled, registry, lane),
+        compiled.state,
+        mesh=mesh,
+        n_shards=n_shards,
+        device=device,
+    )
+
+
+def _assemble_sharded(
+    parts: Tuple,
+    state: int,
+    *,
+    mesh: Optional[Any],
+    n_shards: int,
+    device: DeviceLike = "cuda",
+) -> ShardedFusedDMM:
+    """Partition a host table bundle (:func:`_fused_tables`) over
+    ``n_shards`` contiguous block ranges, as the reference does, and place
+    one stack per device group."""
+    (table, routes, n_out, columns, n_in_pad, width, n_blocks, uid_slot,
+     uid_col, cb_start, cb_count) = parts
+    per = -(-max(n_blocks, 1) // n_shards)
+    per_pad = max(SUBLANE, -(-per // SUBLANE) * SUBLANE)
+    src3d_np = np.full((n_shards, per_pad, width), -1, dtype=np.int32)
+    for s in range(n_shards):
+        lo, hi = s * per, min((s + 1) * per, n_blocks)
+        if hi > lo:
+            src3d_np[s, : hi - lo] = table[lo:hi]
+    groups = mesh.groups if mesh is not None else ((resolve_device(device), 0, n_shards),)
+    host = torch.from_numpy(src3d_np)
+    return ShardedFusedDMM(  # metl: allow[plan-publish-single-site] the port's lowering primitive, the counterpart of repro.core.dmm_jax; only repro_torch.etl.plan.PlanManager calls compile_fused_sharded
+        state=state,
+        n_shards=n_shards,
+        blocks_per_shard=per,
+        n_in_pad=n_in_pad,
+        width=width,
+        n_blocks=n_blocks,
+        src3d=tuple(host[lo:hi].to(dev) for dev, lo, hi in groups),
+        groups=groups,
+        routes=routes,
+        n_out=n_out,
+        columns=columns,
+        uid_slot=uid_slot,
+        uid_col=uid_col,
+        col_block_start=cb_start,
+        col_block_count=cb_count,
+        uid_slot_dev=tuple(torch.from_numpy(uid_slot).to(dev) for dev, _, _ in groups),
+        uid_col_dev=tuple(torch.from_numpy(uid_col).to(dev) for dev, _, _ in groups),
     )

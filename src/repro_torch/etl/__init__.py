@@ -19,6 +19,7 @@ from .engines import (  # noqa: F401
     CanonicalRow,
     FusedEngine,
     MappingEngine,
+    ShardedEngine,
     TriagedChunk,
     densify_chunk_dicts,
     make_engine,

@@ -22,9 +22,12 @@ chunk's raw (uid, value) items packed into one int32 buffer and resolves,
 densifies and maps them in the one launch.  The :class:`BlocksEngine` is the
 paper's per-block path: one dispatch per compacted block of each (schema,
 version) group, through ``masked_gather`` (``impl="gather"``, the DMM) or
-``onehot_map`` (``impl="onehot"``, the matrix-operator baseline).  Engines
-are registered by name (:func:`register_engine`) and resolved by
-:func:`make_engine`.
+``onehot_map`` (``impl="onehot"``, the matrix-operator baseline).  The
+:class:`ShardedEngine` is the fused path with the block table partitioned
+over a mesh's shards (:mod:`repro_torch.launch.mesh`): one dispatch a chunk,
+one launch of ``segmented_gather_shard`` or ``densify_map_shard`` per device,
+rows emitted in the fused engine's order.  Engines are registered by name
+(:func:`register_engine`) and resolved by :func:`make_engine`.
 
 Each :class:`DenseChunk` / :class:`ColumnarDense` pins the plan it was
 densified against, so a state change between stages never mixes plans.
@@ -55,7 +58,14 @@ from ..core.dmm_torch import (
 )
 from ..core.registry import Registry
 from ..core.state import SystemState
-from ..kernels.ops import IMPLS, dmm_apply, dmm_apply_columnar, dmm_apply_fused
+from ..kernels.ops import (
+    IMPLS,
+    dmm_apply,
+    dmm_apply_columnar,
+    dmm_apply_columnar_sharded,
+    dmm_apply_fused,
+    dmm_apply_sharded,
+)
 from .events import CDCEvent, ColumnarChunk, columnarize
 from .plan import PlanEpoch, PlanManager
 
@@ -73,6 +83,7 @@ __all__ = [
     "register_engine",
     "make_engine",
     "FusedEngine",
+    "ShardedEngine",
     "BlockDense",
     "BlocksEngine",
 ]
@@ -190,6 +201,10 @@ class DenseChunk:
     row_ids: np.ndarray  # (S,) i32: event row per output row
     blk_ids: np.ndarray  # (S,) i32: global block per output row
     out_keys: np.ndarray  # (S,) i64: event key per output row (emission order)
+    # sharded extras (per-shard routing split, filled by ShardedEngine)
+    shard_sel: Optional[List[np.ndarray]] = None  # per shard: its global output rows
+    rows_sh: Optional[np.ndarray] = None  # (n_shards, S_loc) i32
+    blks_sh: Optional[np.ndarray] = None  # (n_shards, S_loc) i32, shard-local blocks
 
 
 @dataclasses.dataclass
@@ -198,22 +213,25 @@ class ColumnarDense:
     into one flat int32 buffer
 
         [ uids(NI) | val_bits(NI) | starts(B) | counts(B) | ev_col(B)
-          | rows(S) | blks(S) ]
+          | rows | blks ]
 
     (section sizes are the bucketed statics below), so the chunk crosses to
-    the device in one transfer.  ``row_ids`` / ``blk_ids`` / ``out_keys``
-    keep the host copy of the routing for emit.  Same plan pin as
-    :class:`DenseChunk`."""
+    the device in one transfer.  ``rows``/``blks`` are the (S,) routing, or
+    on the sharded path the flattened (n_shards, S_loc) pair.  ``row_ids``
+    / ``blk_ids`` / ``out_keys`` keep the host copy of the global routing
+    for emit.  Same plan pin as :class:`DenseChunk`."""
 
     plan: Any
     packed: np.ndarray  # flat int32 operand buffer (one transfer per chunk)
     n_items: int  # NI: bucketed item-column length
     n_events: int  # B: bucketed selected-event count
-    n_rows: int  # S: bucketed routing length
+    n_rows: int  # S: bucketed routing length (per shard when sharded)
     k: int  # bucketed max items per selected event
     row_ids: np.ndarray
     blk_ids: np.ndarray
     out_keys: np.ndarray
+    shard_sel: Optional[List[np.ndarray]] = None
+    n_shards: int = 1
 
 
 @dataclasses.dataclass
@@ -448,6 +466,7 @@ class MappingEngine:
     name: str = "base"
     plan_kind: str = "fused"  # the PlanManager kind this engine consumes
     impl: str = "gather"  # the mapping algorithm (only the blocks engine varies it)
+    n_shards: int = 1  # block-table shards (only the sharded engine has more)
 
     def __init__(
         self,
@@ -539,7 +558,7 @@ class MappingEngine:
             "engine": self.name,
             "impl": self.impl,
             "device": str(self.device),
-            "n_shards": 1,
+            "n_shards": self.n_shards,
             "device_densify": bool(getattr(self, "device_densify", False)),
             "dispatches": int(self.stats["dispatches"]),
             "transfers": int(self.stats["transfers"]),
@@ -569,6 +588,7 @@ def make_engine(
     *,
     impl: str = "gather",
     device: Optional[DeviceLike] = None,
+    mesh: Any = None,
     device_densify: bool = False,
     stats: Optional[collections.Counter] = None,
 ) -> MappingEngine:
@@ -577,18 +597,34 @@ def make_engine(
     Routing rules, as in the reference:
 
       * ``impl="onehot"`` only exists as a per-block kernel, so with
-        ``engine="fused"`` it routes to the ``blocks`` engine rather than
-        silently changing the benched path;
-      * ``device_densify=True`` is realised by the fused engine only, so it
-        raises with ``impl="onehot"`` or ``engine="blocks"``.
+        ``engine="fused"`` or ``"sharded"`` it routes to the ``blocks``
+        engine rather than silently changing the benched path;
+      * ``engine="sharded"`` needs more than one shard on ``mesh``
+        (:func:`repro_torch.launch.mesh.make_etl_mesh`); with one shard or
+        no mesh it is the fused engine;
+      * ``device_densify=True`` is realised by the fused and sharded engines
+        only, so it raises with ``impl="onehot"`` or ``engine="blocks"``.
 
     ``impl`` is ``"gather"`` or ``"onehot"``; anything else raises.
-    ``device`` defaults to ``"cuda"`` for a name and to the instance's own
-    device for an instance; a conflicting ``impl``, ``device`` or
-    ``device_densify`` raises instead of running a different path than
-    asked.
+    ``device`` defaults to the mesh's first device when a mesh is given,
+    else to ``"cuda"`` for a name and to the instance's own device for an
+    instance; a mesh on another device than ``device``, and a conflicting
+    ``impl``, ``device``, ``mesh`` or ``device_densify``, raise instead of
+    running a different path than asked.
     """
+    if mesh is not None:
+        if device is not None and resolve_device(device) != mesh.devices[0]:
+            raise ValueError(
+                f"device={device!r} conflicts with the mesh, whose first shard "
+                f"is on {mesh.devices[0]}"
+            )
+        device = mesh.devices[0]
     if isinstance(engine, MappingEngine):
+        if mesh is not None and getattr(engine, "mesh", None) is not mesh:
+            raise ValueError(
+                "mesh= conflicts with the engine instance; construct the "
+                "engine with its mesh instead"
+            )
         if impl != "gather" and impl != engine.impl:
             raise ValueError(
                 f"impl={impl!r} conflicts with engine instance impl="
@@ -612,18 +648,22 @@ def make_engine(
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r} (ported: {IMPLS})")
     dev = "cuda" if device is None else device
-    if impl == "onehot" and engine == "fused":
+    if impl == "onehot" and engine in ("fused", "sharded"):
         if device_densify:
             raise ValueError(
                 "device_densify=True has no onehot realisation (impl='onehot' "
                 "routes to the per-block engine)"
             )
         engine = "blocks"
+    if engine == "sharded":
+        if mesh is not None and mesh.shape["data"] > 1:
+            return ENGINES["sharded"](mesh=mesh, device_densify=device_densify, stats=stats)
+        engine = "fused"
     if engine == "fused":
         return ENGINES["fused"](device=dev, device_densify=device_densify, stats=stats)
     if device_densify:
         raise ValueError(
-            f"engine={engine!r} has no device-densify path (fused only)"
+            f"engine={engine!r} has no device-densify path (fused/sharded only)"
         )
     return ENGINES[engine](impl=impl, device=dev, stats=stats)
 
@@ -732,6 +772,156 @@ class FusedEngine(MappingEngine):
                 width=p.width,
                 table_bytes=table_bytes,
                 table_bytes_per_shard=table_bytes,
+                bytes_resident=self.lease.bytes_resident,
+            )
+        return d
+
+
+# -- the sharded engine --------------------------------------------------------
+
+
+@register_engine("sharded")
+class ShardedEngine(MappingEngine):
+    """The fused path with the block table sharded over a mesh's shards
+    (:class:`~repro_torch.launch.mesh.ETLMesh`, shard ``s`` on
+    ``mesh.devices[s]``).
+
+    ``densify`` splits the global (row, block) routing by owning shard (host
+    work); ``dispatch`` is one op call a chunk, which launches
+    ``segmented_gather_shard`` (host densify, 4 transfers) or
+    ``densify_map_shard`` (device densify, 1 transfer) once per device of the
+    mesh -- once a chunk when every shard is on one card; ``emit``, the one
+    sync point, is the all-gather: it reads every shard's rows back to the
+    host, puts them in global order and emits them as the fused engine does,
+    so the rows are bit-exact with it.  Chunks below ``min_device_events``
+    selected events take host densify, as in the reference.  The engine runs
+    on the mesh's first device.
+    """
+
+    plan_kind = "sharded"
+
+    def __init__(
+        self,
+        *,
+        mesh: Any,
+        device_densify: bool = False,
+        min_device_events: int = 32,
+        stats: Optional[collections.Counter] = None,
+        manager: Optional[PlanManager] = None,
+    ) -> None:
+        if mesh is None:
+            raise ValueError("engine='sharded' needs a mesh (make_etl_mesh)")
+        if manager is None:
+            manager = PlanManager(kind=self.plan_kind, mesh=mesh)
+        elif manager.mesh is not mesh:
+            raise ValueError("the manager builds for another mesh than the engine's")
+        super().__init__(device=mesh.devices[0], stats=stats, manager=manager)
+        self.mesh = mesh
+        self.n_shards = int(mesh.shape["data"])
+        self.device_densify = device_densify
+        self.min_device_events = min_device_events
+
+    def _shard_split(
+        self, row_ids: np.ndarray, blk_ids: np.ndarray
+    ) -> Tuple[List[np.ndarray], np.ndarray, np.ndarray]:
+        """Split the global (row, block) routing by owning shard; the
+        contiguous block partition makes ownership a divide, and each
+        shard's selection keeps global order for the scatter-back.  Pad
+        entries route to event row 0 through local block 0 and are never
+        emitted."""
+        sh = self.plan
+        per = sh.blocks_per_shard
+        owner = blk_ids // per
+        sel = [np.flatnonzero(owner == s) for s in range(sh.n_shards)]
+        s_pad = bucket_rows(max(idx.size for idx in sel))
+        rows_sh = np.zeros((sh.n_shards, s_pad), np.int32)
+        blks_sh = np.zeros((sh.n_shards, s_pad), np.int32)
+        for s, idx in enumerate(sel):
+            rows_sh[s, : idx.size] = row_ids[idx]
+            blks_sh[s, : idx.size] = blk_ids[idx] - s * per
+        return sel, rows_sh, blks_sh
+
+    def densify(self, groups: Groups) -> Any:
+        tri = as_triaged(groups)
+        if tri is None:
+            return None
+        layout = _chunk_layout(self.plan, tri, self.stats)
+        if layout is None:
+            return None
+        sel, rows_sh, blks_sh = self._shard_split(layout.row_ids, layout.blk_ids)
+        if not self.device_densify or layout.sel.size < self.min_device_events:
+            dense = _densify_host(self.plan, layout)
+            dense.shard_sel, dense.rows_sh, dense.blks_sh = sel, rows_sh, blks_sh
+            return dense
+        packed, ni, b, k = _pack_columnar(layout, rows_sh.ravel(), blks_sh.ravel())
+        return ColumnarDense(
+            plan=self.plan,
+            packed=packed,
+            n_items=ni,
+            n_events=b,
+            n_rows=rows_sh.shape[1],
+            k=k,
+            row_ids=layout.row_ids,
+            blk_ids=layout.blk_ids,
+            out_keys=layout.out_keys,
+            shard_sel=sel,
+            n_shards=self.n_shards,
+        )
+
+    def dispatch(self, dense) -> DispatchHandle:
+        sh = dense.plan
+        if isinstance(dense, ColumnarDense):
+            (packed,), staging = _to_device(self.device, dense.packed)
+            outputs = dmm_apply_columnar_sharded(
+                packed,
+                sh.uid_slot_dev,
+                sh.uid_col_dev,
+                sh.src3d,
+                mesh=self.mesh,
+                n_items=dense.n_items,
+                n_events=dense.n_events,
+                n_rows=dense.n_rows,
+                k=dense.k,
+                n_shards=dense.n_shards,
+            )
+            self.stats["transfers"] += 1  # the packed buffer is the chunk
+        else:
+            (jv, jm, jr, jb), staging = _to_device(
+                self.device, dense.vals, dense.mask, dense.rows_sh, dense.blks_sh
+            )
+            outputs = dmm_apply_sharded(jv, jm, jr, jb, sh.src3d, mesh=self.mesh)
+            self.stats["transfers"] += 4  # vals, mask, rows, blks
+        self.stats["dispatches"] += 1
+        return DispatchHandle(outputs=outputs, dense=dense, staging=staging)
+
+    def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
+        dense = handle.dense
+        # the all-gather: every shard's rows to the host, then each global
+        # output row i from its shard's slot (flat index shard * S_loc + k)
+        ov = handle.outputs[0].cpu().numpy()
+        om = handle.outputs[1].cpu().numpy()
+        handle.staging = ()  # the copies that read the staging buffers are done
+        n_sh, s_loc, w = ov.shape
+        flat = np.empty(dense.row_ids.size, np.int64)
+        for s, idx in enumerate(dense.shard_sel):
+            flat[idx] = s * s_loc + np.arange(idx.size)
+        return _emit_rows(
+            dense.plan, ov.reshape(n_sh * s_loc, w)[flat],
+            om.reshape(n_sh * s_loc, w)[flat], dense.blk_ids, dense.out_keys,
+            self.stats,
+        )
+
+    def info(self) -> Dict[str, Any]:
+        d = self._base_info()
+        if self.lease is not None:
+            p = self.lease.plan
+            d.update(
+                state=p.state,
+                n_blocks=p.n_blocks,
+                blocks_per_shard=p.blocks_per_shard,
+                width=p.width,
+                table_bytes=p.table_bytes,
+                table_bytes_per_shard=p.table_bytes_per_shard,
                 bytes_resident=self.lease.bytes_resident,
             )
         return d

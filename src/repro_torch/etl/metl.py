@@ -18,7 +18,7 @@ surface.
 from __future__ import annotations
 
 import collections
-from typing import Dict, Iterable, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 
@@ -39,6 +39,9 @@ class METLApp:
     picks the per-block mapping algorithm: ``"gather"`` (the compacted DMM)
     or ``"onehot"`` (the matrix-operator baseline, which routes
     ``engine="fused"`` to the per-block engine; see :func:`make_engine`).
+    ``engine="sharded"`` partitions the block table over ``mesh``
+    (:func:`repro_torch.launch.mesh.make_etl_mesh`; one shard or no mesh
+    runs the fused engine).
     """
 
     def __init__(
@@ -50,16 +53,19 @@ class METLApp:
         engine: Union[str, MappingEngine] = "fused",
         impl: str = "gather",
         device: Optional[DeviceLike] = None,
+        mesh: Any = None,
         device_densify: bool = False,
     ) -> None:
         self.coordinator = coordinator
         self.strict_state = strict_state
+        self.mesh = mesh
         self.stats = collections.Counter()
-        # a name builds a new engine on ``device`` ("cuda" unless given); an
-        # instance is adopted with its own device and shares the app's stats
+        # a name builds a new engine on ``device`` ("cuda" unless given, the
+        # mesh's first device with a mesh); an instance is adopted with its
+        # own device and shares the app's stats
         self.engine = make_engine(
-            engine, impl=impl, device=device, device_densify=device_densify,
-            stats=self.stats,
+            engine, impl=impl, device=device, mesh=mesh,
+            device_densify=device_densify, stats=self.stats,
         )
         self.device = self.engine.device
         # observability binding only: engine.info() reads the replication

@@ -1,17 +1,21 @@
 """Device densification fused with the mapping: one launch per packed chunk.
 
-Hopper counterpart of the Pallas kernel ``repro.kernels.densify_map`` AND of
-the resolve step that fed it (``repro.kernels.ops._resolve_items``): the
+Hopper counterpart of the Pallas kernels ``repro.kernels.densify_map``
+(``densify_map`` and its per-shard body ``densify_map_shard``) AND of the
+resolve step that fed them (``repro.kernels.ops._resolve_items``): the
 kernel (``csrc/densify_map.cu``) unpacks the chunk's single int32 buffer,
 resolves each item's uid against the plan's uid tables in its prologue, and
 maps every (event, block) pair through a compare-select over the event's
 items, so the device-densify path stays one launch per chunk and no dense
-payload exists anywhere.
+payload exists anywhere.  :func:`densify_map_shard` does the same for the
+shards of the sharded block table that one device holds, all in one launch,
+each shard routed by its own section of the packed routing.
 
-:func:`densify_map` picks by tensor device: on a CUDA tensor it launches the
-kernel (or raises), on a CPU tensor it runs the plain version
-:func:`repro_torch.kernels.ref.densify_map_packed_ref`.  ``launches`` counts
-kernel launches and nothing else.
+Each wrapper picks by tensor device: on a CUDA tensor it launches the kernel
+(or raises), on a CPU tensor it runs the plain version
+(:func:`repro_torch.kernels.ref.densify_map_packed_ref` /
+:func:`~repro_torch.kernels.ref.densify_map_shard_ref`).  ``launches`` and
+``shard_launches`` count each wrapper's kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -22,11 +26,12 @@ from typing import Tuple
 import torch
 
 from . import build
-from .ref import densify_map_packed_ref, route_offset
+from .ref import densify_map_packed_ref, densify_map_shard_ref, route_offset
 
-__all__ = ["densify_map", "launches"]
+__all__ = ["densify_map", "densify_map_shard", "launches", "shard_launches"]
 
 launches = 0  # kernel launches (CPU calls to the plain version not counted)
+shard_launches = 0  # the same, for densify_map_shard
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,9 +40,55 @@ _I = ctypes.c_int
 def _fn():
     fn = build.load("densify_map").metl_densify_map
     if fn.argtypes is None:
-        fn.argtypes = [_VP] * 6 + [_I] * 7 + [ctypes.c_float, _VP]
+        fn.argtypes = [_VP] * 6 + [_I] * 10 + [ctypes.c_float, _VP]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name, packed, uid_slot, uid_col, table, *, n_items, n_events, n_rows,
+            k, n_route, shard_lo, fill):
+    """Check the operands of wrapper ``name`` and map ``table``'s shards,
+    (n_loc, n_blocks, W), in one launch, routed by sections ``shard_lo`` ..
+    of the ``n_route`` shards' routing in ``packed``.  Returns the (n_loc,
+    n_rows, W) outputs and whether the kernel launched (not for an empty
+    output)."""
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {dev}")
+    build.check_operand("packed", packed, torch.int32, 1, dev)
+    build.check_operand("uid_slot", uid_slot, torch.int32, 1, dev)
+    build.check_operand("uid_col", uid_col, torch.int32, 1, dev)
+    build.check_operand("block table", table, torch.int32, 3, dev)
+    if uid_slot.shape != uid_col.shape:
+        raise ValueError(
+            f"uid_slot {tuple(uid_slot.shape)} != uid_col {tuple(uid_col.shape)}"
+        )
+    need = route_offset(n_items, n_events) + 2 * n_route * n_rows
+    if packed.numel() < need:
+        raise ValueError(f"packed holds {packed.numel()} int32, layout needs {need}")
+    if min(n_items, n_events, n_rows, k) < 0:
+        raise ValueError("section sizes must be non-negative")
+    n_loc, n_blocks, w = table.shape
+    if shard_lo < 0 or shard_lo + n_loc > n_route:
+        raise ValueError(f"shards [{shard_lo}, {shard_lo + n_loc}) outside the "
+                         f"routing's {n_route}")
+    out_v = torch.empty((n_loc, n_rows, w), dtype=torch.float32, device=dev)
+    out_m = torch.empty((n_loc, n_rows, w), dtype=torch.int8, device=dev)
+    if n_loc == 0 or n_rows == 0 or w == 0:
+        return out_v, out_m, False
+    if n_items == 0 or n_events == 0 or n_blocks == 0:
+        raise ValueError(f"{name} needs items, events and a non-empty table")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn()(
+            packed.data_ptr(), uid_slot.data_ptr(), uid_col.data_ptr(),
+            table.data_ptr(), out_v.data_ptr(), out_m.data_ptr(),
+            n_items, n_events, n_rows, k, uid_slot.numel(), w, n_blocks,
+            n_route, shard_lo, n_loc, float(fill), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out_v, out_m, True
 
 
 def densify_map(
@@ -67,38 +118,53 @@ def densify_map(
             n_events=n_events, n_rows=n_rows, k=k, fill=fill,
         )
     global launches
-    dev = packed.device
-    if dev.type != "cuda":
-        raise ValueError(f"no densify_map kernel for device {dev}")
-    build.check_operand("packed", packed, torch.int32, 1, dev)
-    build.check_operand("uid_slot", uid_slot, torch.int32, 1, dev)
-    build.check_operand("uid_col", uid_col, torch.int32, 1, dev)
-    build.check_operand("src2d", src2d, torch.int32, 2, dev)
-    if uid_slot.shape != uid_col.shape:
-        raise ValueError(
-            f"uid_slot {tuple(uid_slot.shape)} != uid_col {tuple(uid_col.shape)}"
+    if src2d.dim() != 2:
+        raise ValueError(f"src2d has {src2d.dim()} dims, expected 2")
+    out_v, out_m, launched = _launch(
+        "densify_map", packed, uid_slot, uid_col, src2d[None], n_items=n_items,
+        n_events=n_events, n_rows=n_rows, k=k, n_route=1, shard_lo=0, fill=fill,
+    )
+    launches += launched
+    return out_v[0], out_m[0]
+
+
+def densify_map_shard(
+    packed: torch.Tensor,
+    uid_slot: torch.Tensor,
+    uid_col: torch.Tensor,
+    src3d: torch.Tensor,
+    *,
+    n_items: int,
+    n_events: int,
+    n_rows: int,
+    k: int,
+    n_shards: int,
+    shard_lo: int = 0,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resolve, densify and map one packed chunk of the sharded path for the
+    shards ``[shard_lo, shard_lo + len(src3d))`` that one device holds, in
+    one launch.
+
+    ``packed`` is ``[uids(n_items) | val_bits(n_items) | starts(n_events) |
+    counts(n_events) | ev_col(n_events) | rows(n_shards, n_rows) |
+    blks(n_shards, n_rows)]``: all ``n_shards`` shards' routing, blocks
+    local to each shard; ``src3d`` is (n_loc, n_blocks_loc, W) int32, the
+    table slices of this device's shards.  Returns ((n_loc, n_rows, W)
+    float32 values, (n_loc, n_rows, W) int8 mask), not synchronised:
+    ``out[z]`` is :func:`densify_map` routed by shard ``shard_lo + z``
+    through ``src3d[z]``.
+    """
+    if packed.device.type == "cpu":
+        return densify_map_shard_ref(
+            packed, uid_slot, uid_col, src3d, n_items=n_items, n_events=n_events,
+            n_rows=n_rows, k=k, n_shards=n_shards, shard_lo=shard_lo, fill=fill,
         )
-    need = route_offset(n_items, n_events) + 2 * n_rows
-    if packed.numel() < need:
-        raise ValueError(f"packed holds {packed.numel()} int32, layout needs {need}")
-    if min(n_items, n_events, n_rows, k) < 0:
-        raise ValueError("section sizes must be non-negative")
-    n_blocks, w = src2d.shape
-    out_v = torch.empty((n_rows, w), dtype=torch.float32, device=dev)
-    out_m = torch.empty((n_rows, w), dtype=torch.int8, device=dev)
-    if n_rows == 0 or w == 0:
-        return out_v, out_m
-    if n_items == 0 or n_events == 0 or n_blocks == 0:
-        raise ValueError("densify_map needs items, events and a non-empty table")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn()(
-            packed.data_ptr(), uid_slot.data_ptr(), uid_col.data_ptr(),
-            src2d.data_ptr(), out_v.data_ptr(), out_m.data_ptr(),
-            n_items, n_events, n_rows, k, uid_slot.numel(), w, n_blocks,
-            float(fill), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"densify_map launch failed: CUDA error {err}")
-    launches += 1
+    global shard_launches
+    out_v, out_m, launched = _launch(
+        "densify_map_shard", packed, uid_slot, uid_col, src3d, n_items=n_items,
+        n_events=n_events, n_rows=n_rows, k=k, n_route=n_shards, shard_lo=shard_lo,
+        fill=fill,
+    )
+    shard_launches += launched
     return out_v, out_m

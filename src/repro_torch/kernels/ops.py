@@ -15,18 +15,19 @@ sync point.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Sequence, Tuple, Union
 
 import torch
 
-from .densify_map import densify_map
+from .densify_map import densify_map, densify_map_shard
 from .flash_attention import flash_attention
 from .masked_gather import masked_gather
 from .moe_combine import moe_combine as _moe_combine_kernel
 from .onehot_map import onehot_map
-from .segmented_gather import segmented_gather
+from .segmented_gather import segmented_gather, segmented_gather_shard
 
 __all__ = ["IMPLS", "dmm_apply", "dmm_apply_fused", "dmm_apply_columnar",
+           "dmm_apply_sharded", "dmm_apply_columnar_sharded",
            "dispatch_count", "attention", "moe_combine"]
 
 # Device-dispatch accounting: one per dmm_apply* call (the model ops are no
@@ -85,14 +86,91 @@ def dmm_apply_fused(
     return segmented_gather(values, mask, rows, blks, src2d, fill=fill)
 
 
+# The sharded ops run on an ETLMesh (repro_torch.launch.mesh): shard s on
+# mesh.devices[s].  The block table arrives as one stack per device group
+# (ShardedFusedDMM.src3d), or as one tensor when every shard is on one
+# device.  Each group's shards are mapped by ONE launch on its device, on
+# the chunk's operands copied there (a no-op on the operands' own device);
+# the groups' outputs are gathered onto the operands' device with
+# asynchronous peer copies, so the op returns one stacked (n_shards, S_loc,
+# W) pair and never synchronises.
+
+
+def _stacks(src3d: Union[torch.Tensor, Sequence[torch.Tensor]], mesh: Any):
+    """``(device, lo, hi, table stack)`` per device group of ``mesh``."""
+    parts = (src3d,) if isinstance(src3d, torch.Tensor) else tuple(src3d)
+    groups = mesh.groups
+    if len(parts) != len(groups):
+        raise ValueError(f"{len(parts)} table stacks for the mesh's {len(groups)} devices")
+    for (dev, lo, hi), t in zip(groups, parts):
+        if t.device != dev or t.shape[0] != hi - lo:
+            raise ValueError(f"table stack {tuple(t.shape)} on {t.device}, the mesh "
+                             f"puts shards [{lo}, {hi}) on {dev}")
+    return [(dev, lo, hi, t) for (dev, lo, hi), t in zip(groups, parts)]
+
+
+def _per_device(table, stacks) -> Tuple[torch.Tensor, ...]:
+    """A table needed on every device group: one tensor (one group) or one
+    per group, each on its group's device."""
+    parts = (table,) if isinstance(table, torch.Tensor) else tuple(table)
+    if len(parts) != len(stacks) or any(p.device != st[0] for p, st in zip(parts, stacks)):
+        raise ValueError("the uid tables must lie one on each device of the mesh")
+    return parts
+
+
+def _gather(outs, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device groups' (values, mask) stacks as one pair on ``device``."""
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat([o[i].to(device, non_blocking=True) for o in outs])
+                 for i in range(2))
+
+
+def dmm_apply_sharded(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    rows: torch.Tensor,
+    blks: torch.Tensor,
+    src3d: Union[torch.Tensor, Sequence[torch.Tensor]],
+    *,
+    mesh: Any,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sharded fused mapping of a host-densified chunk: each shard maps its
+    own routing through its own slice of the block table, over the shared
+    payload (:func:`~repro_torch.kernels.segmented_gather.
+    segmented_gather_shard`, one launch per device).
+
+    ``rows``/``blks`` are (n_shards, S_loc) int32 with shard-local block ids
+    (:meth:`repro_torch.etl.engines.ShardedEngine._shard_split`).  Returns
+    the stacked ((n_shards, S_loc, W) values, int8 mask) on ``values``'s
+    device; rows past a shard's true routing length are padding the caller
+    drops.  One dispatch per call, however many shards.
+    """
+    global dispatch_count
+    dispatch_count += 1
+    home = values.device
+    outs = [
+        segmented_gather_shard(
+            values.to(dev, non_blocking=True), mask.to(dev, non_blocking=True),
+            rows[lo:hi].to(dev, non_blocking=True), blks[lo:hi].to(dev, non_blocking=True),
+            t, fill=fill,
+        )
+        for dev, lo, hi, t in _stacks(src3d, mesh)
+    ]
+    return _gather(outs, home)
+
+
 # The packed layout of one device-densify chunk (built by
 # repro_torch.etl.engines._pack_columnar):
 #
 #     [ uids(NI) | val_bits(NI) | starts(B) | counts(B) | ev_col(B)
-#       | rows(S) | blks(S) ]
+#       | rows | blks ]
 #
-# Values travel as int32 bit patterns, so the chunk is one int32 buffer and
-# one host->device transfer.
+# where rows/blks are (S,) for the replicated table, or the (n_shards, S_loc)
+# pair flattened (all shards' rows, then all shards' blks) for the sharded
+# one.  Values travel as int32 bit patterns, so the chunk is one int32 buffer
+# and one host->device transfer.
 
 
 def dmm_apply_columnar(
@@ -121,6 +199,48 @@ def dmm_apply_columnar(
         packed, uid_slot, uid_col, src2d, n_items=n_items, n_events=n_events,
         n_rows=n_rows, k=k, fill=fill,
     )
+
+
+def dmm_apply_columnar_sharded(
+    packed: torch.Tensor,
+    uid_slot: Union[torch.Tensor, Sequence[torch.Tensor]],
+    uid_col: Union[torch.Tensor, Sequence[torch.Tensor]],
+    src3d: Union[torch.Tensor, Sequence[torch.Tensor]],
+    *,
+    mesh: Any,
+    n_items: int,
+    n_events: int,
+    n_rows: int,
+    k: int,
+    n_shards: int,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resolve, densify and map a packed chunk of the sharded path in ONE
+    dispatch (:func:`~repro_torch.kernels.densify_map.densify_map_shard`,
+    one launch per device; each shard resolves the replicated items itself).
+
+    ``n_rows`` is S_loc, the routing length of one shard; ``uid_slot`` /
+    ``uid_col`` are the plan's uid tables, one per device group like
+    ``src3d`` (or one tensor when every shard is on one device).  Returns
+    the stacked ((n_shards, S_loc, W) values, int8 mask) on ``packed``'s
+    device.
+    """
+    global dispatch_count
+    dispatch_count += 1
+    if n_shards != mesh.shape["data"]:
+        raise ValueError(f"n_shards={n_shards} != the mesh's {mesh.shape['data']} shards")
+    home = packed.device
+    stacks = _stacks(src3d, mesh)
+    slots, cols = _per_device(uid_slot, stacks), _per_device(uid_col, stacks)
+    outs = [
+        densify_map_shard(
+            packed.to(dev, non_blocking=True), sl, cl, t, n_items=n_items,
+            n_events=n_events, n_rows=n_rows, k=k, n_shards=n_shards, shard_lo=lo,
+            fill=fill,
+        )
+        for (dev, lo, _, t), sl, cl in zip(stacks, slots, cols)
+    ]
+    return _gather(outs, home)
 
 
 def moe_combine(expert_out: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:

@@ -29,10 +29,12 @@ __all__ = [
     "masked_gather_ref",
     "onehot_map_ref",
     "segmented_gather_ref",
+    "segmented_gather_shard_ref",
     "densify_map_ref",
     "resolve_items_ref",
     "route_offset",
     "densify_map_packed_ref",
+    "densify_map_shard_ref",
     "attention_ref",
     "moe_combine_ref",
 ]
@@ -115,6 +117,33 @@ def segmented_gather_ref(
     out_m = torch.gather(m_rows, 1, safe) & valid
     out_v = torch.where(out_m, out_v, fill)
     return out_v, out_m.to(torch.int8)
+
+
+def segmented_gather_shard_ref(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    rows: torch.Tensor,
+    blks: torch.Tensor,
+    src3d: torch.Tensor,
+    *,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sharded fused mapping, shard by shard: shard ``z`` maps its
+    routing ``rows[z]`` / ``blks[z]`` (n_shards, S_loc) through its own
+    table slice ``src3d[z]`` with :func:`segmented_gather_ref`, over the
+    shared payload.  Returns (out_values (n_shards, S_loc, W), out_mask
+    (n_shards, S_loc, W) int8)."""
+    outs = [segmented_gather_ref(values, mask, r, b, t, fill=fill)
+            for r, b, t in zip(rows, blks, src3d)]
+    return _stack_shards(outs, rows.shape[1], src3d.shape[2], values.dtype, values.device)
+
+
+def _stack_shards(outs, s, w, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard (values, mask) pairs stacked on a leading shard axis."""
+    if not outs:
+        return (torch.empty((0, s, w), dtype=dtype, device=device),
+                torch.empty((0, s, w), dtype=torch.int8, device=device))
+    return torch.stack([v for v, _ in outs]), torch.stack([m for _, m in outs])
 
 
 def densify_map_ref(
@@ -225,6 +254,37 @@ def densify_map_packed_ref(
     rows = packed[o : o + n_rows]
     blks = packed[o + n_rows : o + 2 * n_rows]
     return densify_map_ref(slot2d, x2d, rows, blks, src2d, fill=fill)
+
+
+def densify_map_shard_ref(
+    packed: torch.Tensor,
+    uid_slot: torch.Tensor,
+    uid_col: torch.Tensor,
+    src3d: torch.Tensor,
+    *,
+    n_items: int,
+    n_events: int,
+    n_rows: int,
+    k: int,
+    n_shards: int,
+    shard_lo: int = 0,
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``densify_map_shard``: resolve once
+    (:func:`resolve_items_ref`, as the reference resolves replicated), then
+    :func:`densify_map_ref` shard by shard.  ``packed``'s routing is the
+    flattened (n_shards, n_rows) pair, all rows then all blks; ``src3d``
+    holds the table slices of shards ``[shard_lo, shard_lo + len(src3d))``.
+    Returns (out_values (len(src3d), n_rows, W), out_mask int8)."""
+    slot2d, x2d = resolve_items_ref(
+        packed, uid_slot, uid_col, n_items=n_items, n_events=n_events, k=k
+    )
+    o = route_offset(n_items, n_events)
+    route = packed[o : o + 2 * n_shards * n_rows].view(2, n_shards, n_rows)
+    outs = [densify_map_ref(slot2d, x2d, route[0, shard_lo + z], route[1, shard_lo + z],
+                            t, fill=fill)
+            for z, t in enumerate(src3d)]
+    return _stack_shards(outs, n_rows, src3d.shape[2], x2d.dtype, packed.device)
 
 
 def moe_combine_ref(expert_out: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:

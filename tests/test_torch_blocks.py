@@ -382,7 +382,11 @@ def test_make_engine_routing_rules():
     with pytest.raises(ValueError, match="unknown impl"):
         make_engine("blocks", impl="ref", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
-        make_engine("sharded", device="cpu")
+        make_engine("nope", device="cpu")
+    # without a mesh of more than one shard, engine="sharded" is the fused engine
+    assert isinstance(make_engine("sharded", device="cpu"), FusedEngine)
+    sharded_onehot = make_engine("sharded", impl="onehot", device="cpu")
+    assert isinstance(sharded_onehot, BlocksEngine) and sharded_onehot.impl == "onehot"
 
 
 def test_make_engine_refuses_conflicting_instance_and_manager():
@@ -397,6 +401,8 @@ def test_make_engine_refuses_conflicting_instance_and_manager():
     with pytest.raises(ValueError, match="consumes plan kind 'fused'"):
         FusedEngine(device="cpu", manager=PlanManager(kind="blocks", device="cpu"))
     with pytest.raises(ValueError, match="unknown plan kind"):
+        PlanManager(kind="nope", device="cpu")
+    with pytest.raises(ValueError, match="needs a mesh"):
         PlanManager(kind="sharded", device="cpu")
     shared = PlanManager(kind="blocks", device="cpu")
     eng = BlocksEngine(device="cpu", manager=shared)

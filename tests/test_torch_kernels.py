@@ -27,19 +27,23 @@ from repro.etl.engines import _pack_columnar as r_pack_columnar
 from repro.etl.events import columnarize as r_columnarize
 from repro.kernels import ref as jref
 from repro.kernels.densify_map import densify_map as pallas_densify_map
+from repro.kernels.densify_map import densify_map_shard as pallas_densify_map_shard
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro.kernels.moe_combine import moe_combine as pallas_moe_combine
 from repro.kernels.ops import _resolve_items as r_resolve_items
 from repro.kernels.segmented_gather import segmented_gather as pallas_segmented_gather
+from repro.kernels.segmented_gather import segmented_gather_shard as pallas_segmented_gather_shard
 
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.densify_map import densify_map as t_densify_map
+from repro_torch.kernels.densify_map import densify_map_shard as t_densify_map_shard
 from repro_torch.kernels.flash_attention import flash_attention as t_flash_attention
 from repro_torch.kernels.masked_gather import masked_gather as t_masked_gather
 from repro_torch.kernels.moe_combine import moe_combine as t_moe_combine
 from repro_torch.kernels.onehot_map import onehot_map as t_onehot_map
 from repro_torch.kernels.segmented_gather import segmented_gather as t_segmented_gather
+from repro_torch.kernels.segmented_gather import segmented_gather_shard as t_segmented_gather_shard
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -301,6 +305,89 @@ def test_densify_map_kernel_matches_plain(hopper, which):
     torch.cuda.synchronize()
     _assert_exact(kv.cpu().numpy(), rv.cpu().numpy())
     _assert_exact(km.cpu().numpy(), rm.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the shard kernels: segmented_gather_shard and densify_map_shard
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", range(len(smoke.SHARD_GATHER_CASES)))
+def test_segmented_gather_shard_ref_matches_reference(case):
+    """Shard by shard against the reference's per-shard body, called as
+    shard_map calls it (a leading shard axis of 1), Pallas in interpret
+    mode; padded and empty shards included."""
+    arrays = smoke.random_sharded_gather(np.random.default_rng(3000 + case),
+                                         *smoke.SHARD_GATHER_CASES[case])
+    vals, mask, rows, blks, src3d = arrays
+    import repro_torch.kernels.segmented_gather as sg
+
+    before = sg.shard_launches
+    tv, tm = t_segmented_gather_shard(*map(_t, arrays), fill=0.25)
+    assert sg.shard_launches == before  # the plain version is no kernel launch
+    assert tv.shape == (rows.shape[0], rows.shape[1], src3d.shape[2])
+    for z in range(rows.shape[0]):
+        pv, pm = pallas_segmented_gather_shard(
+            *map(jnp.asarray, (vals, mask, rows[z : z + 1], blks[z : z + 1],
+                               src3d[z : z + 1])), fill=0.25, interpret=True)
+        _assert_exact(tv[z : z + 1].numpy(), pv)
+        _assert_exact(tm[z : z + 1].numpy(), pm)
+
+
+@pytest.mark.parametrize("case", range(len(smoke.SHARD_DENSIFY_CASES)))
+def test_densify_map_shard_ref_matches_reference(case):
+    """Against the reference's replicated resolve and its per-shard body,
+    shard by shard; and a launch's sub-range of shards (``shard_lo``) equals
+    those shards of the whole."""
+    packed, slot, col, src3d, sizes = smoke.random_sharded_packed(
+        np.random.default_rng(4000 + case), *smoke.SHARD_DENSIFY_CASES[case])
+    n, s_loc = sizes["n_shards"], sizes["n_rows"]
+    import repro_torch.kernels.densify_map as dm
+
+    before = dm.shard_launches
+    args = [_t(a) for a in (packed, slot, col, src3d)]
+    tv, tm = t_densify_map_shard(*args, fill=0.25, **sizes)
+    assert dm.shard_launches == before
+    sv, sm = t_densify_map_shard(*args[:3], args[3][n - 1 :], shard_lo=n - 1, fill=0.25,
+                                 **sizes)
+    _assert_exact(sv.numpy(), tv[n - 1 :].numpy())
+    _assert_exact(sm.numpy(), tm[n - 1 :].numpy())
+    slot2d, x2d = r_resolve_items(jnp.asarray(packed), jnp.asarray(slot), jnp.asarray(col),
+                                  n_items=sizes["n_items"], n_events=sizes["n_events"],
+                                  k=sizes["k"])
+    o = 2 * sizes["n_items"] + 3 * sizes["n_events"]
+    route = packed[o : o + 2 * n * s_loc].reshape(2, n, s_loc)
+    for z in range(n):
+        pv, pm = pallas_densify_map_shard(
+            slot2d, x2d, jnp.asarray(route[0, z : z + 1]), jnp.asarray(route[1, z : z + 1]),
+            jnp.asarray(src3d[z : z + 1]), fill=0.25, interpret=True)
+        _assert_exact(tv[z : z + 1].numpy(), pv)
+        _assert_exact(tm[z : z + 1].numpy(), pm)
+
+
+def test_shard_wrappers_refuse_other_devices():
+    vals = torch.zeros((8, 10), dtype=torch.float32, device="meta")
+    mask = torch.zeros((8, 10), dtype=torch.int8, device="meta")
+    route = torch.zeros((2, 16), dtype=torch.int32, device="meta")
+    src3d = torch.zeros((2, 8, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no segmented_gather_shard kernel"):
+        t_segmented_gather_shard(vals, mask, route, route, src3d)
+    packed = torch.zeros(128, dtype=torch.int32, device="meta")
+    tab = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no densify_map_shard kernel"):
+        t_densify_map_shard(packed, tab, tab, src3d, n_items=8, n_events=8, n_rows=16,
+                            k=1, n_shards=2)
+
+
+@pytest.mark.gpu
+def test_shard_kernels_match_plain(hopper):
+    """Both shard kernels bit for bit against their plain versions over
+    ``chip_smoke``'s random cases, also on a sub-range of shards and
+    against the base kernel shard by shard (``check_shard_kernels``)."""
+    n_sg, n_dm = smoke.check_shard_kernels(hopper)
+    torch.cuda.synchronize()
+    assert n_sg == 2 * len(smoke.SHARD_GATHER_CASES)
+    assert n_dm == 2 * len(smoke.SHARD_DENSIFY_CASES)
 
 
 # ---------------------------------------------------------------------------

@@ -195,7 +195,10 @@ def test_engine_instance_keeps_its_device():
         METLApp(coordinator_from_snapshot(snap), engine=FusedEngine(device="cpu"),
                 device="meta")
     with pytest.raises(ValueError, match="unknown engine"):
-        METLApp(coordinator_from_snapshot(snap), engine="sharded", device="cpu")
+        METLApp(coordinator_from_snapshot(snap), engine="nope", device="cpu")
+    # engine="sharded" without a mesh is the fused engine, as in the reference
+    fallback = METLApp(coordinator_from_snapshot(snap), engine="sharded", device="cpu")
+    assert isinstance(fallback.engine, FusedEngine)
     assert isinstance(app.stats, collections.Counter)
 
 

@@ -99,6 +99,91 @@ def test_densify_map_bytes_count_only_reached_items(smoke, case):
     assert smoke.densify_map_bytes(*ops, **sizes) == want
 
 
+def _walk_segmented_gather_shard(vals, mask, rows, blks, src3d, live=None):
+    """Distinct bytes read by one thread per output (z, s, q) of a shard
+    launch (each shard reads its own routing and table slice, all of them
+    the shared payload), plus the outputs; with ``live``, of the first
+    ``live[z]`` routing entries of each shard z only."""
+    read = set()
+    n, s_n = rows.shape
+    w = src3d.shape[2]
+    live = [s_n] * n if live is None else live
+    for z in range(n):
+        for s in range(live[z]):
+            read |= {("rows", (z, s), 4), ("blks", (z, s), 4)}
+            r, t = int(rows[z, s]), int(blks[z, s])
+            for q in range(w):
+                read.add(("src3d", (z, t, q), 4))
+                p = int(src3d[z, t, q])
+                if p >= 0:
+                    read.add(("mask", (r, p), 1))
+                    if mask[r, p] != 0:
+                        read.add(("vals", (r, p), 4))
+    return sum(b for *_, b in read) + sum(live) * w * 5
+
+
+@pytest.mark.parametrize("live", [False, True])
+@pytest.mark.parametrize("case", range(3))
+def test_segmented_gather_shard_bytes_match_the_kernels_reads(smoke, case, live):
+    shape = smoke.SHARD_GATHER_CASES[case]
+    arrays = smoke.random_sharded_gather(np.random.default_rng(case), *shape)
+    lens = list(shape[-1]) if live else None
+    want = _walk_segmented_gather_shard(*arrays, live=lens)
+    got = smoke.segmented_gather_shard_bytes(*map(torch.from_numpy, arrays), live=lens)
+    assert got == want
+
+
+def _walk_densify_map_shard(packed, uid_slot, uid_col, src3d, *, n_items, n_events,
+                            n_rows, k, n_shards, shard_lo=0, live=None):
+    """Distinct bytes read by a ``densify_map_shard`` launch over
+    ``src3d``'s shards: each shard's routing and table slice, and the items,
+    uid entries and events its rows reach (shared by the shards); with
+    ``live``, of the first ``live[z]`` routing entries of each shard z."""
+    read = set()
+    o = 2 * n_items + 3 * n_events
+    w = src3d.shape[2]
+    live = [n_rows] * src3d.shape[0] if live is None else live
+    for z in range(src3d.shape[0]):
+        ro = o + (shard_lo + z) * n_rows
+        bo = o + (n_shards + shard_lo + z) * n_rows
+        for s in range(live[z]):
+            read |= {ro + s, bo + s}
+            r = min(max(int(packed[ro + s]), 0), n_events - 1)
+            t = int(packed[bo + s])
+            read |= {("src3d", z, t, q) for q in range(w)}
+            base = 2 * n_items
+            read |= {base + r, base + n_events + r, base + 2 * n_events + r}
+            start, count, col = (int(packed[base + i * n_events + r]) for i in range(3))
+            for j in range(min(k, count)):
+                ix = min(max(start + j, 0), n_items - 1)
+                read.add(ix)
+                uid = int(packed[ix])
+                if 0 <= uid < uid_slot.size:
+                    read.add(("slot", uid))
+                    if uid_slot[uid] >= 0:
+                        read.add(("col", uid))
+                        if uid_col[uid] == col:
+                            read.add(n_items + ix)
+    return 4 * len(read) + sum(live) * w * 5
+
+
+@pytest.mark.parametrize("live", [False, True])
+@pytest.mark.parametrize("case", [0, 2, 4])
+@pytest.mark.parametrize("shard_lo", [0, 1])
+def test_densify_map_shard_bytes_match_the_kernels_reads(smoke, case, shard_lo, live):
+    shape = smoke.SHARD_DENSIFY_CASES[case]
+    packed, slot, col, src3d, sizes = smoke.random_sharded_packed(
+        np.random.default_rng(case), *shape)
+    src3d = src3d[shard_lo:]
+    lens = list(shape[-1][shard_lo:]) if live else None
+    want = _walk_densify_map_shard(packed, slot, col, src3d, shard_lo=shard_lo, live=lens,
+                                   **sizes)
+    got = smoke.densify_map_shard_bytes(
+        *map(torch.from_numpy, (packed, slot, col, src3d)), shard_lo=shard_lo, live=lens,
+        **sizes)
+    assert got == want
+
+
 def _walk_per_block(vals, mask, src, *, reads_all):
     """Distinct bytes read by ``masked_gather``'s threads (one per output
     column: src[q], then mask[b, src[q]] and, on a hit, the value) or by
