@@ -14,7 +14,9 @@ failure raises and the script exits non-zero):
 2. build the six CUDA libraries from ``src/repro_torch/kernels/csrc`` into
    ``build/`` (one ``nvcc`` per source, started together; eight kernels:
    ``segmented_gather.cu`` and ``densify_map.cu`` also hold the sharded
-   engine's ``segmented_gather_shard`` and ``densify_map_shard``) and print their
+   engine's ``segmented_gather_shard`` and ``densify_map_shard``; the
+   per-block libraries also hold the engine's chunk launchers), and the
+   empty kernel of ``launch_floor.cu``, and print their
    ``ptxas`` register and spill lines, and the count of ``HGMMA`` (tensor-
    core ``wgmma``) instructions in the ``flash_attention`` library's SASS
    (``cuobjdump -sass``; 0 fails);
@@ -52,9 +54,11 @@ failure raises and the script exits non-zero):
    per-block engine with ``engine="blocks"`` (``masked_gather``) and with
    ``impl="onehot"`` (``onehot_map``) -- with one ``SchemaEvolved`` applied
    at chunk 32; check each chunk's accounting (fused and sharded: one
-   dispatch, 4 or 1 transfers; per-block: one dispatch per block its groups
-   touch, 2 transfers per group; on the card one launch of the path's
-   kernel per dispatch, the sharded paths' of its shard kernel); then
+   dispatch, 4 or 1 transfers; per-block: one call into the kernel
+   library's launcher a chunk, one dispatch per block its groups touch, 2
+   transfers per group, as the launcher reports them; on the card one
+   launch of the path's kernel per dispatch, the sharded paths' of its
+   shard kernel); then
    compare every row and every stats counter with the same stream through
    ``device="cpu"`` apps (the plain versions), and the sharded and
    per-block rows with the fused rows;
@@ -75,18 +79,26 @@ failure raises and the script exits non-zero):
    equal ``Server`` tokens; then prefill tokens/s, decode ms per step and
    tokens/s at batch 8, and from ``torch.profiler`` the device busy share of
    a prefill and ``flash_attention``'s share of its device time;
+   the consume stage split of every path under ``torch.profiler`` (the
+   ``stages`` lines), and for the per-block paths, without the profiler,
+   host microseconds per dispatched block through the launcher and through
+   the op-level route (per group ``pin_memory`` and ``.to``, per block
+   ``ops.dmm_apply``) (``per-block host``);
 6. time each kernel at the main path's shapes beside its plain version and
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
    line with all eight; ``flash_attention`` also with its TFLOP/s and its
    share of the bound; ``moe_combine`` also at the dbrx group and with a
-   fully dense combine, each beside ``torch.matmul``.
+   fully dense combine, each beside ``torch.matmul``; time an empty kernel
+   the same way (the ``launch floor`` line) and state each kernel's time as
+   a multiple of it (``floor_multiple`` in its ``timing`` line).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import math
@@ -544,9 +556,9 @@ class DensifyLog:
 
     def take(self):
         """(groups, blocks touched) over the chunks densified since the
-        last call."""
-        out = (sum(len(d.groups) for d in self.dense),
-               sum(len(d.plan.column(*g[0])) for d in self.dense for g in d.groups))
+        last call, from each chunk's (schema, version) columns and the plan."""
+        out = (sum(len(d.columns) for d in self.dense),
+               sum(len(d.plan.column(*ov)) for d in self.dense for ov in d.columns))
         self.dense.clear()
         return out
 
@@ -1034,9 +1046,10 @@ def block_groups(app, chunk):
     dense = app.engine.densify(app.triage(chunk))
     dev = app.device
     out = []
-    for ov, _keys, vals, mask in dense.groups:
+    for g, ov in enumerate(dense.columns):
         blocks = dense.plan.column(*ov)
         if blocks:
+            vals, mask = dense.payload(g)
             out.append((vals.shape[0], torch.from_numpy(vals).to(dev),
                         torch.from_numpy(mask).to(dev), blocks[0].src_dev))
     out.sort(key=lambda g: g[0])
@@ -1116,6 +1129,79 @@ def measure_per_block(name, group, fp32_peak):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
     }
+
+
+def launch_floor() -> dict:
+    """Device time per launch of an empty kernel (``csrc/launch_floor.cu``,
+    built with the kernels' flags and bound with ctypes as they are), by
+    :func:`time_ms`: what any launch costs the card."""
+    from repro_torch.kernels import build
+
+    fn = build.load("launch_floor").metl_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def empty():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    ms, eager = time_ms(empty, iters=200)
+    return {"ms": ms, "eager_ms": eager}
+
+
+def per_block_host(app, chunks) -> dict:
+    """Host microseconds per dispatched block over ``chunks`` (no profiler),
+    two routes in one run.  The launcher: the engine's own stages, dispatch
+    time over its dispatches.  The op-level route, as the engine dispatched
+    before it had the launcher: per group ``pin_memory`` and ``.to`` of values
+    and mask, per block ``ops.dmm_apply``; timed as one eager loop."""
+    from repro_torch.kernels import ops
+
+    eng, dev = app.engine, app.engine.device
+    impl = eng.impl
+    pc = time.perf_counter
+    stages = dict.fromkeys(("triage", "densify", "dispatch", "emit"), 0.0)
+    d0, t0_copies = app.stats["dispatches"], app.stats["transfers"]
+    app.reset_dedup()
+    torch.cuda.synchronize()
+    t_wall = pc()
+    for chunk in chunks:
+        t0 = pc()
+        tri = app.triage(chunk)
+        t1 = pc()
+        dense = eng.densify(tri)
+        t2 = pc()
+        handle = eng.dispatch(dense)
+        t3 = pc()
+        eng.emit(handle)
+        t4 = pc()
+        for name, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[name] += dt
+    wall = pc() - t_wall
+    n_disp = app.stats["dispatches"] - d0
+    out = {"events": sum(len(c) for c in chunks), "dispatches": n_disp,
+           "transfers": app.stats["transfers"] - t0_copies, "wall_s": wall,
+           "stages_s": stages, "launcher_us_per_block": stages["dispatch"] * 1e6 / n_disp}
+
+    # the op-level route: per group pin_memory and .to, per block ops.dmm_apply
+    total, n = 0.0, 0
+    app.reset_dedup()
+    for chunk in chunks:
+        dense = eng.densify(app.triage(chunk))
+        # fresh pageable arrays per group, as that route's densify made them
+        payloads = [[a.copy() for a in dense.payload(g)]
+                    for g in range(len(dense.columns))]
+        torch.cuda.synchronize()
+        t_loop = pc()
+        for ov, (vals, mask) in zip(dense.columns, payloads):
+            jv, jm = (torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+                      for a in (vals, mask))
+            for block in dense.plan.column(*ov):
+                ops.dmm_apply(jv, jm, block.src_dev, impl=impl)
+                n += 1
+        total += pc() - t_loop
+        torch.cuda.synchronize()
+    out["op_level_us_per_block"] = total * 1e6 / n
+    return out
 
 
 # -- phase 3 (model kernels) ---------------------------------------------------
@@ -1738,7 +1824,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    secs = build.build()
+    secs = build.build(build.KERNELS + ("launch_floor",))
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}), flush=True)
     for name in build.KERNELS:
@@ -1848,10 +1934,16 @@ def main() -> int:
           f"blocks-gather bit-exact, blocks-onehot within atol={ONEHOT_ATOL}, {n_bits} "
           "rows not bit-identical); every kernel launched", flush=True)
 
+    # where the consume time goes, on chunks after the evolution; first the
+    # per-block host cost of a dispatch, before the serving path and the
+    # profiler have run in this process
+    later = [stream.chunks[k] for k in range(EVOLVE_AT + 1, CHUNKS)]
+    for pname in ("blocks-gather", "blocks-onehot"):
+        print(f"{elapsed()} per-block host cuda/{pname}: " + json.dumps(
+            per_block_host(runs[f"cuda/{pname}"][3], later[:BLOCK_STAGE_CHUNKS])), flush=True)
+
     serving = serving_path(dev)
 
-    # where the consume time goes, on chunks after the evolution
-    later = [stream.chunks[k] for k in range(EVOLVE_AT + 1, CHUNKS)]
     for pname in paths:
         name = f"cuda/{pname}"
         chunks = later[:BLOCK_STAGE_CHUNKS] if pname.startswith("blocks") else later
@@ -1890,6 +1982,10 @@ def main() -> int:
         print(f"{elapsed()} timing {name} largest group: " + json.dumps(big), flush=True)
     meas["flash_attention"] = measure_flash_attention()
     meas["moe_combine"] = measure_moe_combine(peak)
+    floor = launch_floor()
+    print(f"launch floor: {json.dumps(floor)} (an empty kernel, graph-replayed)", flush=True)
+    for m in meas.values():
+        m["floor_multiple"] = m["ms"] / floor["ms"]
     torch.cuda.synchronize()
     print("serving: " + json.dumps(serving), flush=True)
     origin["flash_attention"] = ("src/repro_torch/kernels/csrc/flash_attention.cu",

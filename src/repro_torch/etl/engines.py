@@ -29,12 +29,17 @@ one launch of ``segmented_gather_shard`` or ``densify_map_shard`` per device,
 rows emitted in the fused engine's order.  Engines are registered by name
 (:func:`register_engine`) and resolved by :func:`make_engine`.
 
-Each :class:`DenseChunk` / :class:`ColumnarDense` pins the plan it was
-densified against, so a state change between stages never mixes plans.
-Host->device copies go through :func:`_to_device` only, next to the
-``stats["transfers"]`` accounting; its pinned staging buffers ride on the
-:class:`DispatchHandle` until ``emit``, so none is reused while its
-asynchronous copy may still be reading it.
+Each :class:`DenseChunk` / :class:`ColumnarDense` / :class:`BlockDense`
+pins the plan it was densified against, so a state change between stages
+never mixes plans.  The fused and sharded engines copy host->device through
+:func:`_to_device` only, next to the ``stats["transfers"]`` accounting; its
+pinned staging buffers ride on the :class:`DispatchHandle` until ``emit``,
+so none is reused while its asynchronous copy may still be reading it.  The
+per-block engine densifies into one of two pinned host arenas and issues a
+chunk's copies and launches in one call
+(:func:`~repro_torch.kernels.ops.dmm_apply_blocks`), counting the transfers
+and dispatches that call reports; an arena is written again only after the
+event recorded behind its copies has completed.
 
 ``info()`` is the public observability surface.
 """
@@ -58,9 +63,10 @@ from ..core.dmm_torch import (
 )
 from ..core.registry import Registry
 from ..core.state import SystemState
+from ..kernels.blocks import BlockChunk
 from ..kernels.ops import (
     IMPLS,
-    dmm_apply,
+    dmm_apply_blocks,
     dmm_apply_columnar,
     dmm_apply_columnar_sharded,
     dmm_apply_fused,
@@ -930,15 +936,151 @@ class ShardedEngine(MappingEngine):
 # -- the per-block engine ------------------------------------------------------
 
 
+_ARENA_MIN = 1 << 16  # bytes of a host arena when first allocated
+
+
+class _HostArenas:
+    """The per-block engine's host arenas: two, taken in turn by ``densify``.
+
+    A chunk's copies read its arena asynchronously, so ``dispatch`` records
+    a CUDA event after issuing them (:meth:`release`) and :meth:`take` waits
+    on the event of the slot it hands out before the arena is overwritten:
+    whether or not the chunk was emitted.  A chunk densified into a slot that
+    was taken again before it was dispatched cannot be dispatched
+    (:meth:`check`).  Arenas grow by doubling and never shrink; on a CUDA
+    device they are pinned."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.pin = device.type == "cuda"
+        self.bufs: List[Optional[torch.Tensor]] = [None, None]
+        self.events: List[Optional[torch.cuda.Event]] = [None, None]
+        self.turns = [0, 0]
+        self.next = 0
+
+    def take(self, n_bytes: int) -> Tuple[int, int, torch.Tensor]:
+        """``(slot, turn, arena)`` of at least ``n_bytes``."""
+        i, self.next = self.next, self.next ^ 1
+        if self.events[i] is not None:
+            self.events[i].synchronize()  # the copies that read it have run
+            self.events[i] = None
+        buf = self.bufs[i]
+        size = _ARENA_MIN if buf is None else buf.numel()
+        while size < n_bytes:
+            size *= 2
+        if buf is None or size > buf.numel():
+            buf = self.bufs[i] = torch.empty(size, dtype=torch.uint8, pin_memory=self.pin)
+        self.turns[i] += 1
+        return i, self.turns[i], buf
+
+    def check(self, slot: int, turn: int) -> None:
+        if self.turns[slot] != turn:
+            raise RuntimeError("this chunk's host arena was taken by a later densify "
+                               "before the chunk was dispatched")
+
+    def release(self, slot: int) -> None:
+        """Mark the copies just issued from ``slot``'s arena (CUDA only)."""
+        if self.pin:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self.events[slot] = ev
+
+
+@dataclasses.dataclass
+class _BlockTable:
+    """A placed per-block plan as arrays, blocks in ``src_flat`` order: each
+    column's contiguous block range, and per block its index vector's offset
+    in ``src_flat``, its padded and true output widths and its route."""
+
+    col_range: Dict[Tuple[int, int], Tuple[int, int]]  # (o, v) -> (first block, count)
+    src_off: np.ndarray  # int64 (n_blocks,)
+    n_out_pad: np.ndarray  # int64 (n_blocks,)
+    n_out: List[int]
+    routes: List[Tuple[int, int]]
+
+    @classmethod
+    def of(cls, plan: CompiledDMM) -> "_BlockTable":
+        blocks = [b for col in plan.by_column.values() for b in col]
+        base = plan.src_flat.storage_offset()
+        col_range, first = {}, 0
+        for ov, col in plan.by_column.items():
+            col_range[ov] = (first, len(col))
+            first += len(col)
+        return cls(
+            col_range=col_range,
+            src_off=np.asarray([b.src_dev.storage_offset() - base for b in blocks],
+                               dtype=np.int64),
+            n_out_pad=np.asarray([b.n_out_pad for b in blocks], dtype=np.int64),
+            n_out=[b.n_out for b in blocks],
+            routes=[(b.key[2], b.key[3]) for b in blocks],
+        )
+
+
+class _ColumnSlots:
+    """uid -> payload slot of every (schema, version) column seen: each
+    column's :func:`~repro_torch.core.dmm_torch.uid_lookup_table`, laid end
+    to end in ``flat`` (column id c's from ``base[c]``, ``size[c]`` long),
+    so a chunk's items resolve in one bounds-checked gather."""
+
+    def __init__(self, registry: Registry, table: _BlockTable) -> None:
+        self.registry = registry
+        self.table = table
+        self.ids: Dict[Tuple[int, int], int] = {}
+        # per column id: (N_in, LUT base, LUT size, first block, block count)
+        self.rows: List[Tuple[int, int, int, int, int]] = []
+        self.flat = np.empty(0, dtype=np.int32)
+        self.columns(list(table.col_range))
+
+    def columns(self, ovs) -> np.ndarray:
+        """Column ids of ``ovs``, registering those not seen yet."""
+        new = [ov for ov in dict.fromkeys(ovs) if ov not in self.ids]
+        if new:
+            luts, base = [self.flat], self.flat.size
+            for ov in new:
+                uids = self.registry.domain.get(*ov).uids
+                luts.append(uid_lookup_table(uids))
+                self.ids[ov] = len(self.rows)
+                self.rows.append((len(uids), base, luts[-1].size,
+                                  *self.table.col_range.get(ov, (0, 0))))
+                base += luts[-1].size
+            self.flat = np.concatenate(luts)
+            (self.n_in, self.base, self.size, self.block_first,
+             self.block_count) = np.asarray(self.rows, dtype=np.int64).reshape(-1, 5).T.copy()
+        return np.fromiter((self.ids[ov] for ov in ovs), dtype=np.int64, count=len(ovs))
+
+    def lookup(self, cids: np.ndarray, uids: np.ndarray) -> np.ndarray:
+        """Payload slot of each (column id, uid), -1 where the column does
+        not list the uid."""
+        valid = (uids >= 0) & (uids < self.size[cids])
+        slots = self.flat[np.where(valid, self.base[cids] + uids, 0)] if self.flat.size else -1
+        return np.where(valid, slots, -1)
+
+
 @dataclasses.dataclass
 class BlockDense:
-    """Per-column dense payloads for the per-block engine: one (keys, vals,
-    mask) triple per (schema, version) group, mapped block by block in
-    dispatch (``keys`` carries the event key per dense row), pinned to the
-    placed per-block plan it was densified against."""
+    """One chunk densified for the per-block engine, pinned to the placed
+    per-block plan it was densified against: its payloads in a host arena
+    and its descriptors (``chunk``, a
+    :class:`~repro_torch.kernels.blocks.BlockChunk`); the (schema, version)
+    column of each group; the event key of each dense row, group by group
+    (``keys``, group g's rows from ``key_start[g]``); the global plan id of
+    each block (its route and true width in ``table``); and the arena slot
+    and turn it was densified into."""
 
     plan: CompiledDMM
-    groups: List[Tuple[Tuple[int, int], np.ndarray, np.ndarray, np.ndarray]]
+    chunk: BlockChunk
+    columns: List[Tuple[int, int]]
+    keys: np.ndarray  # int64 (rows,)
+    key_start: np.ndarray  # int64 (G,)
+    block_ids: np.ndarray  # int64 (K,)
+    table: _BlockTable
+    slot: int
+    turn: int
+
+    def payload(self, g: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Group ``g``'s (B, N_in) values and mask: views of the host arena,
+        valid until the arena is taken again."""
+        return self.chunk.payload(g)
 
 
 @register_engine("blocks")
@@ -947,11 +1089,15 @@ class BlocksEngine(MappingEngine):
     paper's per-block mapping, kept for the A/B against the fused engine
     and as the only realisation of ``impl="onehot"``.
 
-    Densification is the same columnar numpy scatter as the fused engine
-    (shared :func:`_event_items` / :func:`_uid_slots`), per column at the
-    column's true width.  Per group, dispatch makes 2 transfers (values,
-    mask) and one :func:`~repro_torch.kernels.ops.dmm_apply` per block,
-    against block index vectors that the plan keeps resident on the device.
+    ``densify`` scatters every group's payload, at the column's true width,
+    into one host arena (16-byte aligned, zeroed first) and describes the
+    chunk's groups and blocks in two int64 tables, all vectorised over the
+    chunk (shared :func:`_event_items`).  ``dispatch`` is one
+    :func:`~repro_torch.kernels.ops.dmm_apply_blocks` call: per group 2
+    transfers (values, mask), per block one dispatch against the block
+    index vectors the plan keeps resident on the device, counted from what
+    the launcher reports.  ``emit`` reads the two output arenas back with
+    one copy each.  Host arenas are reused in turn (:class:`_HostArenas`).
     """
 
     plan_kind = "blocks"
@@ -968,86 +1114,91 @@ class BlocksEngine(MappingEngine):
             raise ValueError(f"unknown impl {impl!r} (ported: {IMPLS})")
         super().__init__(device=device, stats=stats, manager=manager)
         self.impl = impl
-        self._registry: Optional[Registry] = None
-        self._luts: Dict[Tuple[int, int], np.ndarray] = {}
+        self._cols: Optional[_ColumnSlots] = None
         self._uid_col_global: Optional[np.ndarray] = None
+        self._arenas = _HostArenas(self.device)
 
     def compile(self, snapshot: SystemState, registry: Registry) -> Any:
         plan = super().compile(snapshot, registry)
-        self._registry = registry
-        self._luts = {}  # uid -> slot tables are per registry state
+        # uid -> slot tables are per registry state
+        self._cols = _ColumnSlots(registry, _BlockTable.of(plan))
         # plan-global uid -> owning-column table, so stats["unknown_uid"] is
         # counted as the fused engine counts it
         self._uid_col_global = global_uid_tables(self.lease.compiled, registry)[1]
         return plan
 
-    def _column_lut(self, o: int, v: int) -> np.ndarray:
-        lut = self._luts.get((o, v))
-        if lut is None:
-            lut = uid_lookup_table(self._registry.domain.get(o, v).uids)
-            self._luts[(o, v)] = lut
-        return lut
-
     def densify(self, groups) -> Optional[BlockDense]:
         tri = as_triaged(groups)
         if tri is None:
             return None
-        chunk = tri.chunk
+        chunk, cols = tri.chunk, self._cols
+        if chunk.vals.dtype != np.float32:
+            raise TypeError(f"the per-block engine takes a float32 payload, not "
+                            f"{chunk.vals.dtype}")
         _count_unknown_uids(self._uid_col_global, chunk, tri.by_column, self.stats)
-        out = []
-        for (o, v), idx in tri.by_column.items():
-            idx = np.asarray(idx, dtype=np.int64)
-            n_in = len(self._registry.domain.get(o, v).uids)
-            vals = np.zeros((idx.size, n_in), np.float32)
-            mask = np.zeros((idx.size, n_in), np.int8)
-            ev_rows, item_idx = _event_items(chunk, idx)
-            if item_idx.size:
-                slots = _uid_slots(self._column_lut(o, v), chunk.uids[item_idx])
-                keep = slots >= 0
-                if keep.any():
-                    vals[ev_rows[keep], slots[keep]] = chunk.vals[item_idx[keep]]
-                    mask[ev_rows[keep], slots[keep]] = 1
-            out.append(((o, v), chunk.keys[idx], vals, mask))
-        return BlockDense(plan=self.plan, groups=out)
+        columns = list(tri.by_column)
+        idxs = [np.asarray(i, dtype=np.int64) for i in tri.by_column.values()]
+        cid = cols.columns(columns)
+        rows = np.fromiter((i.size for i in idxs), dtype=np.int64, count=len(idxs))
+        n_in = cols.n_in[cid]
+        # each group's blocks: the column's contiguous range of the plan
+        block_ids, bgroup = _segmented_arange(cols.block_first[cid], cols.block_count[cid])
+        table = cols.table
+        groups, blocks, n_bytes, n_out = BlockChunk.layout(
+            rows, n_in, bgroup, table.src_off[block_ids], table.n_out_pad[block_ids])
+        slot, turn, host = self._arenas.take(n_bytes)
+        host[:n_bytes].zero_()
+        descr = BlockChunk(host, groups, blocks, n_bytes, n_out)
+        sel = np.concatenate(idxs)
+        key_start = _excl_cumsum(rows)
+        ev_rows, item_idx = _event_items(chunk, sel)
+        if item_idx.size:
+            g = np.repeat(np.arange(rows.size, dtype=np.int64), rows)[ev_rows]
+            slots = cols.lookup(cid[g], chunk.uids[item_idx])
+            keep = slots >= 0
+            if keep.any():
+                g = g[keep]
+                elem = (ev_rows[keep] - key_start[g]) * n_in[g] + slots[keep]
+                descr.scatter(g, elem, chunk.vals[item_idx[keep]])
+        return BlockDense(plan=self.plan, chunk=descr, columns=columns,
+                          keys=chunk.keys[sel], key_start=key_start,
+                          block_ids=block_ids, table=table, slot=slot, turn=turn)
 
     def dispatch(self, dense: BlockDense) -> DispatchHandle:
-        outputs = []
-        staging: Tuple[torch.Tensor, ...] = ()
-        for (o, v), keys, vals, mask in dense.groups:
-            (jv, jm), st = _to_device(self.device, vals, mask)
-            staging += st
-            self.stats["transfers"] += 2  # per-group vals + mask
-            for block in dense.plan.column(o, v):
-                ov, om = dmm_apply(jv, jm, block.src_dev, impl=self.impl)
-                self.stats["dispatches"] += 1
-                outputs.append((block, keys, ov, om))
-        return DispatchHandle(outputs=outputs, dense=dense, staging=staging)
+        self._arenas.check(dense.slot, dense.turn)
+        out_v, out_m, copies, launches = dmm_apply_blocks(
+            dense.chunk, dense.plan.src_flat, impl=self.impl)
+        self._arenas.release(dense.slot)
+        # as the reference counts: 2 per group (vals + mask), 1 per block
+        self.stats["transfers"] += copies
+        if launches:
+            self.stats["dispatches"] += launches
+        return DispatchHandle(outputs=(out_v, out_m), dense=dense)
 
     def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
         rows: List[CanonicalRow] = []
-        outs = handle.outputs
-        if not outs:
-            handle.staging = ()
+        dense = handle.dense
+        blocks = dense.chunk.blocks
+        if not blocks.size:
             return rows
-        # one readback per output kind: every block's outputs, flattened
-        # into one buffer on the device first
-        ov_all = torch.cat([ov.reshape(-1) for _, _, ov, _ in outs]).cpu().numpy()
-        om_all = torch.cat([om.reshape(-1) for _, _, _, om in outs]).cpu().numpy()
-        handle.staging = ()  # the copies that read the staging buffers are done
-        off = 0
-        for block, keys, ov, _ in outs:
-            n = ov.numel()
-            v = ov_all[off : off + n].reshape(ov.shape)
-            m = om_all[off : off + n].reshape(ov.shape)
-            off += n
+        # one readback per output kind, into memory this chunk owns
+        ov_all, om_all = (t.cpu().numpy() for t in handle.outputs)
+        n_rows = dense.chunk.groups[:, 2].tolist()
+        key_start = dense.key_start.tolist()
+        table = dense.table
+        for (g, _, n_pad, off), bid in zip(blocks.tolist(), dense.block_ids.tolist()):
+            b = n_rows[g]
+            v = ov_all[off : off + b * n_pad].reshape(b, n_pad)
+            m = om_all[off : off + b * n_pad].reshape(b, n_pad)
+            keys = dense.keys[key_start[g] : key_start[g] + b]
             live = np.flatnonzero(m.any(axis=1))  # only non-empty outgoing messages
             # counted per row in the reference, so a counter appears only once hit
-            for stat, count in (("mapped", live.size), ("empty", keys.size - live.size)):
+            for stat, count in (("mapped", live.size), ("empty", b - live.size)):
                 if count:
                     self.stats[stat] += int(count)
-            route, no = (block.key[2], block.key[3]), block.n_out
-            for b, key in zip(live.tolist(), keys[live].tolist()):
-                rows.append((route, v[b, :no], m[b, :no], key))
+            route, no = table.routes[bid], table.n_out[bid]
+            for r, key in zip(live.tolist(), keys[live].tolist()):
+                rows.append((route, v[r, :no], m[r, :no], key))
         return rows
 
     def info(self) -> Dict[str, Any]:

@@ -17,11 +17,16 @@
 // and the sign of a zero result depends on the order of the sum, so values
 // agree with the plain version within a tolerance and masks bit for bit.
 //
-// What bounds it on an H100: at the per-block engine's shapes (N_in about 10,
-// N_out = 128) bytes and launch; its 4 * B * N_in * N_out floating-point
-// operations take less time than the bytes at the card's float32 rate.  The
-// operations grow with N_in * N_out while the bytes grow with N_in + N_out,
-// which is the paper's point: at wide versions the contraction is the bound.
+// What bounds it on an H100: at the per-block engine's shapes the launch.
+// At the median group (B 1, N_in 9, N_out 128) a call moves ~1.2 KB and does
+// 4,608 float32 operations, both far under a microsecond, against the ~1 us
+// an empty kernel takes (chip_smoke.py's `launch floor` line, graph-replayed:
+// 0.8-1.3 us on an H100 80GB HBM3 at 700 W) and ~2.4 us for a call; so
+// shared-memory tiling beyond the staging below, TMA and wgmma buy nothing
+// there, and what a chunk can save is the host's cost of issuing its
+// launches (metl_onehot_map_blocks below).  The operations grow with
+// N_in * N_out while the bytes grow with N_in + N_out, which is the paper's
+// point: at wide versions the contraction is the bound.
 //
 // Design: one thread block per (tile of kTileB event rows, tile of kTileQ
 // output columns).  The row tile's values and mask are staged in shared
@@ -37,6 +42,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "blocks.cuh"
 
 namespace {
 
@@ -151,4 +158,29 @@ extern "C" int metl_onehot_map(const void* values, const void* mask,
     return launch<uint16_t>(values, mask, src, out_v, out_m, n_rows, n_in,
                             n_out, fill, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C entry point of the per-block engine's chunk (blocks.cuh): every group's
+// two copies, host arena -> device arena, and one launch of onehot_map_kernel
+// per block, on `stream`.  float32 payloads only; src_flat is the plan's flat
+// int32 index table, out_v/out_m the chunk's float32/int8 output arenas.  A
+// group with N_in 0 maps to fill, as metl_onehot_map does.  Returns the first
+// error (0 on success); *n_copies and *n_launches count what was issued.
+extern "C" int metl_onehot_map_blocks(
+    const void* host, void* dev, const int64_t* groups, int64_t n_groups,
+    const int64_t* blocks, int64_t n_blocks, const void* src_flat, void* out_v,
+    void* out_m, float fill, void* stream, int64_t* n_copies,
+    int64_t* n_launches) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* src = static_cast<const int32_t*>(src_flat);
+  float* ov = static_cast<float*>(out_v);
+  int8_t* om = static_cast<int8_t*>(out_m);
+  return launch_chunk(
+      static_cast<const uint8_t*>(host), static_cast<uint8_t*>(dev), groups,
+      n_groups, blocks, n_blocks, s, n_copies, n_launches,
+      [&](const float* values, const int8_t* mask, int64_t src_off,
+          int64_t out_off, int rows, int n_in, int n_out) {
+        return launch<float>(values, mask, src + src_off, ov + out_off,
+                             om + out_off, rows, n_in, n_out, fill, s);
+      });
 }

@@ -8,7 +8,10 @@ per-block engine launches it once per block of each (schema, version) group.
 :func:`masked_gather` picks by tensor device: on a CUDA tensor it launches
 the kernel (or raises), on a CPU tensor it runs the plain version
 :func:`repro_torch.kernels.ref.masked_gather_ref`.  ``launches`` counts
-kernel launches and nothing else.
+kernel launches and nothing else.  :func:`masked_gather_blocks` maps a
+whole per-block chunk (:class:`~repro_torch.kernels.blocks.BlockChunk`) in
+one call: the library's launcher issues every group's copies and every
+block's launch of the same kernel.
 """
 
 from __future__ import annotations
@@ -19,9 +22,10 @@ from typing import Tuple
 import torch
 
 from . import build
+from .blocks import BlockChunk, apply_blocks
 from .ref import masked_gather_ref
 
-__all__ = ["masked_gather", "launches", "value_operands"]
+__all__ = ["masked_gather", "masked_gather_blocks", "launches", "value_operands"]
 
 launches = 0  # kernel launches (CPU calls to the plain version not counted)
 
@@ -92,3 +96,17 @@ def masked_gather(
         raise RuntimeError(f"masked_gather launch failed: CUDA error {err}")
     launches += 1
     return out_v, out_m
+
+
+def masked_gather_blocks(
+    chunk: BlockChunk, src_flat: torch.Tensor, *, fill: float = 0.0
+) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """Every block of a per-block chunk through :func:`masked_gather`'s
+    kernel, on ``src_flat``'s device (the plain version on the CPU); see
+    :func:`repro_torch.kernels.blocks.apply_blocks`.  Returns ``(out_v,
+    out_m, copies, launches)``; ``launches`` counts the launcher's launches."""
+    global launches
+    out = apply_blocks("masked_gather", masked_gather_ref, chunk, src_flat, fill=fill)
+    if src_flat.device.type == "cuda":
+        launches += out[3]
+    return out

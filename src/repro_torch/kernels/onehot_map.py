@@ -11,7 +11,9 @@ compacted gather (:mod:`repro_torch.kernels.masked_gather`).
 :func:`onehot_map` picks by tensor device: on a CUDA tensor it launches the
 kernel (or raises), on a CPU tensor it runs the plain version
 :func:`repro_torch.kernels.ref.onehot_map_ref`.  ``launches`` counts kernel
-launches and nothing else.
+launches and nothing else.  :func:`onehot_map_blocks` maps a whole
+per-block chunk in one call, as
+:func:`~repro_torch.kernels.masked_gather.masked_gather_blocks` does.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ from typing import Tuple
 import torch
 
 from . import build
+from .blocks import BlockChunk, apply_blocks
 from .masked_gather import value_operands
 from .ref import onehot_map_ref
 
-__all__ = ["onehot_map", "launches"]
+__all__ = ["onehot_map", "onehot_map_blocks", "launches"]
 
 launches = 0  # kernel launches (CPU calls to the plain version not counted)
 
@@ -71,3 +74,15 @@ def onehot_map(
         raise RuntimeError(f"onehot_map launch failed: CUDA error {err}")
     launches += 1
     return out_v, out_m
+
+
+def onehot_map_blocks(
+    chunk: BlockChunk, src_flat: torch.Tensor, *, fill: float = 0.0
+) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """Every block of a per-block chunk through :func:`onehot_map`'s kernel,
+    as :func:`~repro_torch.kernels.masked_gather.masked_gather_blocks`."""
+    global launches
+    out = apply_blocks("onehot_map", onehot_map_ref, chunk, src_flat, fill=fill)
+    if src_flat.device.type == "cuda":
+        launches += out[3]
+    return out

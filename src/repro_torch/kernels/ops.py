@@ -19,23 +19,26 @@ from typing import Any, Sequence, Tuple, Union
 
 import torch
 
+from .blocks import BlockChunk
 from .densify_map import densify_map, densify_map_shard
 from .flash_attention import flash_attention
-from .masked_gather import masked_gather
+from .masked_gather import masked_gather, masked_gather_blocks
 from .moe_combine import moe_combine as _moe_combine_kernel
-from .onehot_map import onehot_map
+from .onehot_map import onehot_map, onehot_map_blocks
 from .segmented_gather import segmented_gather, segmented_gather_shard
 
-__all__ = ["IMPLS", "dmm_apply", "dmm_apply_fused", "dmm_apply_columnar",
-           "dmm_apply_sharded", "dmm_apply_columnar_sharded",
+__all__ = ["IMPLS", "dmm_apply", "dmm_apply_blocks", "dmm_apply_fused",
+           "dmm_apply_columnar", "dmm_apply_sharded", "dmm_apply_columnar_sharded",
            "dispatch_count", "attention", "moe_combine"]
 
-# Device-dispatch accounting: one per dmm_apply* call (the model ops are no
-# mapping dispatches and do not count).  The fused-engine contract (one
-# dispatch per consume chunk, not one per block) is asserted against it.
+# Device-dispatch accounting: one per dmm_apply* call, and one per block that
+# dmm_apply_blocks maps (the model ops are no mapping dispatches and do not
+# count).  The fused-engine contract (one dispatch per consume chunk, not
+# one per block) is asserted against it.
 dispatch_count = 0
 
 _PER_BLOCK = {"gather": masked_gather, "onehot": onehot_map}
+_PER_CHUNK = {"gather": masked_gather_blocks, "onehot": onehot_map_blocks}
 IMPLS = tuple(_PER_BLOCK)  # the per-block algorithms dmm_apply takes
 
 
@@ -63,6 +66,30 @@ def dmm_apply(
         raise ValueError(f"unknown impl {impl!r} (per-block: {sorted(_PER_BLOCK)})")
     dispatch_count += 1
     return fn(values, mask, src, fill=fill)
+
+
+def dmm_apply_blocks(
+    chunk: BlockChunk,
+    src_flat: torch.Tensor,
+    *,
+    impl: str = "gather",
+    fill: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """Apply every compacted block of a per-block chunk in one call: per
+    group two copies of its payload, per block one :func:`dmm_apply` worth
+    of work (:mod:`repro_torch.kernels.blocks` has the layout).
+
+    On a CUDA device the kernel library's launcher issues them all; on the
+    CPU the plain version walks the same descriptors.  Returns ``(out_v,
+    out_m, copies, launches)``, the output arenas not synchronised, and adds
+    one dispatch per block mapped to ``dispatch_count``."""
+    global dispatch_count
+    fn = _PER_CHUNK.get(impl)
+    if fn is None:
+        raise ValueError(f"unknown impl {impl!r} (per-block: {sorted(_PER_CHUNK)})")
+    out = fn(chunk, src_flat, fill=fill)
+    dispatch_count += out[3]
+    return out
 
 
 def dmm_apply_fused(

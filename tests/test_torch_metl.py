@@ -90,7 +90,8 @@ def _assert_rows_equal(got, want):
         np.testing.assert_array_equal(x[2], y[2])
 
 
-def _run_stream(r_app, t_app, chunk_size, n_chunks=6, evolve_at=3):
+def _run_stream(r_app, t_app, chunk_size, n_chunks=6, evolve_at=3,
+                assert_rows=_assert_rows_equal):
     r_coord, t_coord = r_app.coordinator, t_app.coordinator
     src = REventSource(r_coord.registry, seed=5, p_duplicate=0.1, p_stale=0.05)
     evolution = churn_schedule(r_coord.registry, steps=1, first_chunk=evolve_at, seed=2)
@@ -113,7 +114,7 @@ def _run_stream(r_app, t_app, chunk_size, n_chunks=6, evolve_at=3):
             events += _odd_events(r_coord.registry, rng, 10**7 + 100 * k)
         r_rows = r_app.consume(events)
         t_rows = t_app.consume(_port_events(events))
-        _assert_rows_equal(t_rows, r_rows)
+        assert_rows(t_rows, r_rows)
         n_rows += len(r_rows)
     return n_rows
 
