@@ -45,7 +45,13 @@ failure raises and the script exits non-zero):
    repeat call bit-identical); ``segmented_gather_shard`` and
    ``densify_map_shard`` bit for bit over random cases with 2-8 shards,
    padded and empty ones (``SHARD_*_CASES``), each also on a sub-range of
-   its shards and, shard by shard, against its base kernel;
+   its shards and, shard by shard, against its base kernel; and
+   ``densify_map`` / ``densify_map_shard`` bit for bit on the edges of their
+   warp-per-row body (``DENSIFY_EDGE_CASES``: K 1 to 64, widths 3, 127, 130
+   and 384, 1-8 shards and a sub-range, a table 4 bytes off alignment),
+   each case also through ``densify_map_chunk`` (the engines' route: copy
+   from a pinned arena and launch in one C call, which must report 1 copy
+   and 1 launch);
 4. consume 64 chunks of 512 events of the paper-scale scenario (128 schemas
    x 10 versions x 10 attributes, 40 business entities of 25 attributes)
    through ``METLApp`` on the card six ways -- the fused engine with host
@@ -83,7 +89,12 @@ failure raises and the script exits non-zero):
    ``stages`` lines), and for the per-block paths, without the profiler,
    host microseconds per dispatched block through the launcher and through
    the op-level route (per group ``pin_memory`` and ``.to``, per block
-   ``ops.dmm_apply``) (``per-block host``);
+   ``ops.dmm_apply``) (``per-block host``); for the device-densify paths,
+   without the profiler, host microseconds per chunk of dispatch and emit
+   through the engine's route (pinned arena, one C call, one readback) and
+   through the op-level route (``pin_memory``, ``.to``,
+   ``ops.dmm_apply_columnar*``, two ``.cpu()``), in turns chunk by chunk
+   (``device-densify host``);
 6. time each kernel at the main path's shapes beside its plain version and
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
@@ -91,7 +102,10 @@ failure raises and the script exits non-zero):
    share of the bound; ``moe_combine`` also at the dbrx group and with a
    fully dense combine, each beside ``torch.matmul``; time an empty kernel
    the same way (the ``launch floor`` line) and state each kernel's time as
-   a multiple of it (``floor_multiple`` in its ``timing`` line).
+   a multiple of it (``floor_multiple`` in its ``timing`` line); time
+   ``densify_map`` and ``densify_map_shard`` also on an 8,192-event chunk
+   after the evolution (the ``timing ... 8192`` lines, bit for bit against
+   the plain version there too).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -117,6 +131,7 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 FP32_LANES_PER_SM = 128  # Hopper: 128 float32 FMA units per SM (each FMA is 2 operations)
 CHUNKS, CHUNK_EVENTS, EVOLVE_AT = 64, 512, 32
+BIG_CHUNK_EVENTS = 8192  # the device-densify kernels' second timing shape
 ONEHOT_ATOL = 1e-5  # float32 sum order; tests/test_kernels.py holds the Pallas kernel so
 # the per-block stage split runs under the profiler, whose cost grows with
 # the ~1,200 device operations a per-block chunk makes: fewer chunks there
@@ -249,10 +264,10 @@ def check_segmented_gather(device: torch.device) -> int:
     return n
 
 
-def _random_packed(rng, *, n_events, k_max, k, n_uid, n_cols, n_rows, n_blocks):
+def _random_packed(rng, *, n_events, k_max, k, n_uid, n_cols, n_rows, n_blocks, w=128):
     """A packed device-densify chunk with every drop case: duplicate slots in
     one event, unknown uids (table holes), out-of-range and negative uids,
-    uids of another column, and CSR padding."""
+    uids of another column, and CSR padding; and a (n_blocks, w) table."""
     uid_slot = rng.integers(0, 40, size=n_uid).astype(np.int32)
     uid_col = rng.integers(0, n_cols, size=n_uid).astype(np.int32)
     holes = rng.random(n_uid) < 0.1
@@ -278,7 +293,7 @@ def _random_packed(rng, *, n_events, k_max, k, n_uid, n_cols, n_rows, n_blocks):
     items_u[: len(uids)] = uids
     items_v = np.zeros(ni, np.float32)
     items_v[: len(vals)] = vals
-    src2d = rng.integers(-1, 40, size=(n_blocks, 128)).astype(np.int32)
+    src2d = rng.integers(-1, 40, size=(n_blocks, w)).astype(np.int32)
     rows = rng.integers(0, n_events, size=n_rows).astype(np.int32)
     blks = rng.integers(0, n_blocks, size=n_rows).astype(np.int32)
     packed = np.concatenate([
@@ -327,6 +342,78 @@ def check_densify_map(device: torch.device) -> int:
     if float(kv[0, 5]) != float(k - 1) or int(km[0, 5]) != 1 or int(km.sum()) != 1:
         raise AssertionError("densify_map: the last writer did not win")
     return n + 1
+
+
+# the edges of densify_map's warp-per-row body: K across its 32-item tile
+# (1 to 64), widths with no multiple of 4 (scalar accesses) and 384 (three
+# passes of a warp), 1-8 shards
+DENSIFY_EDGE_CASES = [  # (events, most items, K, uid-table size, rows a shard, W, shards)
+    (40, 64, 64, 300, 100, 128, 1), (12, 1, 1, 20, 30, 128, 1),
+    (30, 40, 64, 200, 77, 384, 1), (50, 33, 64, 100, 64, 127, 1),
+    (20, 12, 16, 60, 70, 130, 1), (9, 5, 8, 30, 9, 3, 1),
+    (60, 48, 64, 250, 40, 384, 3), (64, 20, 32, 120, 64, 130, 8),
+    (25, 64, 64, 90, 16, 127, 2), (100, 7, 8, 150, 128, 128, 5),
+]
+
+
+def random_edge_packed(rng, n_events, k_max, k, n_uid, n_rows, w, n_shards):
+    """A :data:`DENSIFY_EDGE_CASES` case: ``_random_packed``'s chunk routed
+    over ``n_shards`` shards of ``n_rows`` rows each, and a table stack
+    (n_shards, 16, w)."""
+    packed, slot, col, src2d, sizes = _random_packed(
+        rng, n_events=n_events, k_max=k_max, k=k, n_uid=n_uid, n_cols=5,
+        n_rows=n_shards * n_rows, n_blocks=16, w=w)
+    src3d = np.concatenate(
+        [src2d[None], rng.integers(-1, 40, size=(n_shards - 1, 16, w)).astype(np.int32)])
+    return packed, slot, col, src3d, dict(sizes, n_rows=n_rows)
+
+
+def check_densify_edges(device: torch.device) -> int:
+    """``densify_map`` (one shard) or ``densify_map_shard`` (all shards, and
+    the upper half from ``shard_lo``), and ``densify_map_chunk`` from a
+    pinned arena, bit for bit against the plain version over
+    :data:`DENSIFY_EDGE_CASES` with ``fill`` 0 and 0.25, also on a table
+    whose rows are not 16-byte aligned; every chunk call reports 1 copy
+    and 1 launch.  Returns the number of cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.densify_map import (densify_map, densify_map_chunk,
+                                                 densify_map_shard, split_outputs)
+
+    n_cases = 0
+    for i, (*case, n) in enumerate(DENSIFY_EDGE_CASES):
+        packed, slot, col, src3d, sizes = random_edge_packed(
+            np.random.default_rng(5000 + i), *case, n)
+        p, sl, cl, t = (torch.from_numpy(a).to(device) for a in (packed, slot, col, src3d))
+        skew = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:].view(t.shape)
+        skew.copy_(t)  # 4 bytes past an aligned address
+        host = torch.from_numpy(packed.view(np.uint8).copy()).pin_memory()
+        lo = n // 2
+        for fill in (0.0, 0.25):
+            rv, rm = ref.densify_map_shard_ref(p, sl, cl, t, n_shards=n, fill=fill, **sizes)
+            for table in (t, skew):
+                if n == 1:
+                    kv, km = densify_map(p, sl, cl, table[0], fill=fill, **sizes)
+                    kv, km = kv[None], km[None]
+                else:
+                    kv, km = densify_map_shard(p, sl, cl, table, n_shards=n, fill=fill,
+                                               **sizes)
+                    sv, sm = densify_map_shard(p, sl, cl, table[lo:], n_shards=n,
+                                               shard_lo=lo, fill=fill, **sizes)
+                    if not (_bits_equal(sv, rv[lo:]) and _bits_equal(sm, rm[lo:])):
+                        raise AssertionError(f"densify_map_shard != plain on shards "
+                                             f"[{lo}, {n}) of edge case {i} fill={fill}")
+                raw, copies, launched = densify_map_chunk(host, sl, cl, table, n_route=n,
+                                                          fill=fill, **sizes)
+                cv, cm = split_outputs(raw, n, sizes["n_rows"], t.shape[2])
+                if (copies, launched) != (1, 1):
+                    raise AssertionError(f"densify_map_chunk issued {copies} copies and "
+                                         f"{launched} launches at edge case {i}")
+                if not all(_bits_equal(a, b) for a, b in ((kv, rv), (km, rm), (cv, rv),
+                                                          (cm, rm))):
+                    raise AssertionError(f"densify_map != plain at edge case {i} "
+                                         f"fill={fill}")
+            n_cases += 1
+    return n_cases
 
 
 # sharded kernels' random cases: shards' live routing lengths (0: an empty
@@ -1204,6 +1291,57 @@ def per_block_host(app, chunks) -> dict:
     return out
 
 
+def device_densify_host(app, chunks) -> dict:
+    """Host microseconds per chunk of device densify's ``dispatch`` and
+    ``emit`` over ``chunks`` (no profiler), two routes in one run, in turns
+    chunk by chunk (engine first on even chunks, op-level first on odd
+    ones).  The engine's: one ``ops.dmm_apply_packed`` call from the pinned
+    arena (copy and launch in one C call), emit's one readback.  The
+    op-level route it replaced: ``_to_device`` (``pin_memory`` and ``.to``
+    of a fresh packed array), ``ops.dmm_apply_columnar`` /
+    ``dmm_apply_columnar_sharded``, and emit's two ``.cpu()`` readbacks
+    before the same row emission.  Each chunk is re-triaged after a dedup
+    reset; the op-level route's rows are counted in a throwaway counter."""
+    import collections
+
+    from repro_torch.etl.engines import DispatchHandle, _to_device
+    from repro_torch.kernels import ops
+
+    eng, pc = app.engine, time.perf_counter
+    stats = eng.stats
+    times = {f"{route}_{stage}": 0.0 for route in ("engine", "op_level")
+             for stage in ("dispatch", "emit")}
+
+    def op_level(dense):
+        (p,), staging = _to_device(eng.device, dense.packed.copy())
+        plan, sizes = dense.plan, dict(n_items=dense.n_items, n_events=dense.n_events,
+                                       n_rows=dense.n_rows, k=dense.k)
+        if dense.n_shards == 1:
+            out = ops.dmm_apply_columnar(p, plan.uid_slot_dev, plan.uid_col_dev, plan.src2d,
+                                         **sizes)
+        else:
+            out = ops.dmm_apply_columnar_sharded(
+                p, plan.uid_slot_dev, plan.uid_col_dev, plan.src3d, mesh=eng.mesh,
+                n_shards=dense.n_shards, **sizes)
+        return DispatchHandle(outputs=out, dense=dense, staging=staging)
+
+    for i, chunk in enumerate(chunks):
+        for route in (("engine", "op_level") if i % 2 == 0 else ("op_level", "engine")):
+            app.reset_dedup()
+            dense = eng.densify(app.triage(chunk))
+            eng.stats = stats if route == "engine" else collections.Counter()
+            torch.cuda.synchronize()
+            t0 = pc()
+            handle = eng.dispatch(dense) if route == "engine" else op_level(dense)
+            t1 = pc()
+            eng.emit(handle)
+            t2 = pc()
+            times[f"{route}_dispatch"] += t1 - t0
+            times[f"{route}_emit"] += t2 - t1
+    eng.stats = stats
+    return {"chunks": len(chunks), **{f"{k}_us": t * 1e6 / len(chunks) for k, t in times.items()}}
+
+
 # -- phase 3 (model kernels) ---------------------------------------------------
 
 # (N, S, T, hd, n_rep, causal): tests/test_kernels_flash.py's shapes, then the
@@ -1813,6 +1951,7 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch under {REPO}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.etl.events import EventSource
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
@@ -1843,9 +1982,13 @@ def main() -> int:
     n_fa = check_flash_attention(dev)
     mc = check_moe_combine(dev)
     n_sgs, n_dms = check_shard_kernels(dev)
+    n_edge = check_densify_edges(dev)
     torch.cuda.synchronize()
     print(f"{elapsed()} kernels vs plain versions: segmented_gather {n_sg} cases, "
-          f"densify_map {n_dm} cases, masked_gather {n_mg} cases, "
+          f"densify_map {n_dm} cases, densify_map and densify_map_shard {n_edge} edge "
+          f"cases (K 1-64, W 3, 127, 130, 384, 1-8 shards, a misaligned table; each "
+          f"also through densify_map_chunk from a pinned arena, 1 copy and 1 launch), "
+          f"masked_gather {n_mg} cases, "
           f"segmented_gather_shard {n_sgs} cases and densify_map_shard {n_dms} cases "
           f"(padded and empty shards; each also on a sub-range of its shards and "
           f"against the base kernel shard by shard) bit-exact; "
@@ -1941,6 +2084,9 @@ def main() -> int:
     for pname in ("blocks-gather", "blocks-onehot"):
         print(f"{elapsed()} per-block host cuda/{pname}: " + json.dumps(
             per_block_host(runs[f"cuda/{pname}"][3], later[:BLOCK_STAGE_CHUNKS])), flush=True)
+    for pname in ("device", "sharded-device"):
+        print(f"{elapsed()} device-densify host cuda/{pname}: " + json.dumps(
+            device_densify_host(runs[f"cuda/{pname}"][3], later)), flush=True)
 
     serving = serving_path(dev)
 
@@ -1960,7 +2106,17 @@ def main() -> int:
                 runs["cuda/sharded-host"][3], probe),
             "densify_map_shard": measure_densify_map_shard(
                 runs["cuda/sharded-device"][3], probe)}
-    for m in meas.values():
+    # the device-densify kernels at a large chunk too, where the body and not
+    # the launch sets their time
+    big_chunk = EventSource(runs["cuda/device"][3].coordinator.registry,
+                            seed=1).slice_columnar((EVOLVE_AT + 1) * CHUNK_EVENTS,
+                                                   BIG_CHUNK_EVENTS)
+    for name in ("cuda/device", "cuda/sharded-device"):
+        runs[name][3].reset_dedup()
+    meas_big = {"densify_map": measure_densify_map(runs["cuda/device"][3], big_chunk),
+                "densify_map_shard": measure_densify_map_shard(
+                    runs["cuda/sharded-device"][3], big_chunk)}
+    for m in (*meas.values(), *meas_big.values()):
         m["bound_ms"] = m["bytes"] / PEAK_BYTES_PER_S * 1e3
         m["bound_by"] = "bytes"
         if "live_bytes" in m:  # the shard kernels: the bound without routing padding
@@ -1984,8 +2140,10 @@ def main() -> int:
     meas["moe_combine"] = measure_moe_combine(peak)
     floor = launch_floor()
     print(f"launch floor: {json.dumps(floor)} (an empty kernel, graph-replayed)", flush=True)
-    for m in meas.values():
+    for m in (*meas.values(), *meas_big.values()):
         m["floor_multiple"] = m["ms"] / floor["ms"]
+    for name, m in meas_big.items():
+        print(f"timing {name} {BIG_CHUNK_EVENTS}: " + json.dumps(m), flush=True)
     torch.cuda.synchronize()
     print("serving: " + json.dumps(serving), flush=True)
     origin["flash_attention"] = ("src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -31,15 +31,18 @@ rows emitted in the fused engine's order.  Engines are registered by name
 
 Each :class:`DenseChunk` / :class:`ColumnarDense` / :class:`BlockDense`
 pins the plan it was densified against, so a state change between stages
-never mixes plans.  The fused and sharded engines copy host->device through
+never mixes plans.  Host densify copies host->device through
 :func:`_to_device` only, next to the ``stats["transfers"]`` accounting; its
 pinned staging buffers ride on the :class:`DispatchHandle` until ``emit``,
-so none is reused while its asynchronous copy may still be reading it.  The
-per-block engine densifies into one of two pinned host arenas and issues a
-chunk's copies and launches in one call
-(:func:`~repro_torch.kernels.ops.dmm_apply_blocks`), counting the transfers
+so none is reused while its asynchronous copy may still be reading it.
+Device densify and the per-block engine densify into one of two pinned host
+arenas (:class:`_HostArenas`) and issue a chunk's copies and launches in one
+call (:func:`~repro_torch.kernels.ops.dmm_apply_packed`,
+:func:`~repro_torch.kernels.ops.dmm_apply_blocks`), counting the transfers
 and dispatches that call reports; an arena is written again only after the
-event recorded behind its copies has completed.
+event recorded behind its copies has completed.  Device densify's emit reads
+the chunk's one output allocation back with one copy into a pinned buffer
+(:class:`_ReadBack`).
 
 ``info()`` is the public observability surface.
 """
@@ -64,12 +67,13 @@ from ..core.dmm_torch import (
 from ..core.registry import Registry
 from ..core.state import SystemState
 from ..kernels.blocks import BlockChunk
+from ..kernels.densify_map import split_outputs
 from ..kernels.ops import (
     IMPLS,
+    ChunkOutput,
     dmm_apply_blocks,
-    dmm_apply_columnar,
-    dmm_apply_columnar_sharded,
     dmm_apply_fused,
+    dmm_apply_packed,
     dmm_apply_sharded,
 )
 from .events import CDCEvent, ColumnarChunk, columnarize
@@ -223,9 +227,12 @@ class ColumnarDense:
 
     (section sizes are the bucketed statics below), so the chunk crosses to
     the device in one transfer.  ``rows``/``blks`` are the (S,) routing, or
-    on the sharded path the flattened (n_shards, S_loc) pair.  ``row_ids``
-    / ``blk_ids`` / ``out_keys`` keep the host copy of the global routing
-    for emit.  Same plan pin as :class:`DenseChunk`."""
+    on the sharded path the flattened (n_shards, S_loc) pair.  The buffer
+    lies at the start of a host arena (``host``, pinned for a CUDA device;
+    ``slot`` and ``turn`` of :class:`_HostArenas`): ``packed`` is a view of
+    it, valid until the arena is taken again.  ``row_ids`` / ``blk_ids`` /
+    ``out_keys`` keep the host copy of the global routing for emit.  Same
+    plan pin as :class:`DenseChunk`."""
 
     plan: Any
     packed: np.ndarray  # flat int32 operand buffer (one transfer per chunk)
@@ -236,6 +243,9 @@ class ColumnarDense:
     row_ids: np.ndarray
     blk_ids: np.ndarray
     out_keys: np.ndarray
+    host: torch.Tensor  # the uint8 arena ``packed`` lies in
+    slot: int
+    turn: int
     shard_sel: Optional[List[np.ndarray]] = None
     n_shards: int = 1
 
@@ -352,11 +362,14 @@ def _to_device(
 
 
 def _pack_columnar(
-    layout: _ChunkLayout, rows_flat: np.ndarray, blks_flat: np.ndarray
-) -> Tuple[np.ndarray, int, int, int]:
+    plan: Any, layout: _ChunkLayout, rows_flat: np.ndarray, blks_flat: np.ndarray,
+    arenas: "_HostArenas", **routing: Any,
+) -> ColumnarDense:
     """Pack one chunk's device-densify operands into ONE flat int32 buffer
-    (the :class:`ColumnarDense` layout), byte-identical to the reference's.
-    Returns ``(packed, n_items, n_events, k)`` with the bucketed sizes."""
+    (the :class:`ColumnarDense` layout), byte-identical to the reference's,
+    written straight into a host arena taken from ``arenas``.  ``routing``
+    holds the routing fields of the :class:`ColumnarDense` (``n_rows``, and
+    ``shard_sel`` / ``n_shards`` on the sharded path)."""
     chunk, sel = layout.chunk, layout.sel
     offs = chunk.event_offsets
     starts = offs[sel].astype(np.int32)
@@ -367,7 +380,9 @@ def _pack_columnar(
     ni = chunk.n_items
     ni_pad = bucket_rows(ni)
     ev_col = np.repeat(layout.col_ids, layout.ev_counts)
-    p = np.empty(2 * ni_pad + 3 * b_pad + rows_flat.size + blks_flat.size, np.int32)
+    n = 2 * ni_pad + 3 * b_pad + rows_flat.size + blks_flat.size
+    slot, turn, host = arenas.take(4 * n)
+    p = host.numpy()[: 4 * n].view(np.int32)
     # a uid beyond int32 would wrap on the cast and could alias a real uid;
     # it is unknown by definition, so it becomes the -1 sentinel
     uids = chunk.uids
@@ -383,7 +398,11 @@ def _pack_columnar(
     p[o : o + rows_flat.size] = rows_flat
     o += rows_flat.size
     p[o : o + blks_flat.size] = blks_flat
-    return p, ni_pad, b_pad, k
+    return ColumnarDense(
+        plan=plan, packed=p, n_items=ni_pad, n_events=b_pad, k=k,
+        row_ids=layout.row_ids, blk_ids=layout.blk_ids, out_keys=layout.out_keys,
+        host=host, slot=slot, turn=turn, **routing,
+    )
 
 
 def densify_chunk_dicts(plan: Any, groups: Groups) -> Optional[DenseChunk]:
@@ -697,6 +716,8 @@ class FusedEngine(MappingEngine):
         super().__init__(device=device, stats=stats, manager=manager)
         self.device_densify = device_densify
         self.min_device_events = min_device_events
+        self._arenas = _HostArenas(self.device)
+        self._readback = _ReadBack()
 
     def densify(self, groups: Groups) -> Any:
         tri = as_triaged(groups)
@@ -713,55 +734,37 @@ class FusedEngine(MappingEngine):
         blks = np.zeros(s_pad, np.int32)
         rows[:s] = layout.row_ids
         blks[:s] = layout.blk_ids
-        packed, ni, b, k = _pack_columnar(layout, rows, blks)
-        return ColumnarDense(
-            plan=self.plan,
-            packed=packed,
-            n_items=ni,
-            n_events=b,
-            n_rows=s_pad,
-            k=k,
-            row_ids=layout.row_ids,
-            blk_ids=layout.blk_ids,
-            out_keys=layout.out_keys,
-        )
+        return _pack_columnar(self.plan, layout, rows, blks, self._arenas, n_rows=s_pad)
 
     def dispatch(self, dense) -> DispatchHandle:
         fused = dense.plan
         if isinstance(dense, ColumnarDense):
-            (packed,), staging = _to_device(self.device, dense.packed)
-            outputs = dmm_apply_columnar(
-                packed,
-                fused.uid_slot_dev,
-                fused.uid_col_dev,
-                fused.src2d,
-                n_items=dense.n_items,
-                n_events=dense.n_events,
-                n_rows=dense.n_rows,
-                k=dense.k,
-            )
-            self.stats["transfers"] += 1  # the packed buffer is the chunk
-        else:
-            s = dense.row_ids.size
-            s_pad = bucket_rows(s)
-            (jv, jm, jr, jb), staging = _to_device(
-                self.device,
-                dense.vals,
-                dense.mask,
-                np.pad(dense.row_ids, (0, s_pad - s)),
-                np.pad(dense.blk_ids, (0, s_pad - s)),
-            )
-            outputs = dmm_apply_fused(jv, jm, jr, jb, fused.src2d)
-            self.stats["transfers"] += 4  # vals, mask, rows, blks
+            return _dispatch_columnar(self._arenas, self.stats, dense, fused.uid_slot_dev,
+                                      fused.uid_col_dev, fused.src2d)
+        s = dense.row_ids.size
+        s_pad = bucket_rows(s)
+        (jv, jm, jr, jb), staging = _to_device(
+            self.device,
+            dense.vals,
+            dense.mask,
+            np.pad(dense.row_ids, (0, s_pad - s)),
+            np.pad(dense.blk_ids, (0, s_pad - s)),
+        )
+        outputs = dmm_apply_fused(jv, jm, jr, jb, fused.src2d)
+        self.stats["transfers"] += 4  # vals, mask, rows, blks
         self.stats["dispatches"] += 1
         return DispatchHandle(outputs=outputs, dense=dense, staging=staging)
 
     def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
         dense = handle.dense
         s = dense.row_ids.size
-        ov = handle.outputs[0][:s].cpu().numpy()
-        om = handle.outputs[1][:s].cpu().numpy()
-        handle.staging = ()  # the copies that read the staging buffers are done
+        if isinstance(handle.outputs, ChunkOutput):
+            vals, mask = self._readback.read(handle.outputs)
+            ov, om = vals[0, :s].copy(), mask[0, :s].copy()  # rows own their memory
+        else:
+            ov = handle.outputs[0][:s].cpu().numpy()
+            om = handle.outputs[1][:s].cpu().numpy()
+            handle.staging = ()  # the copies that read the staging buffers are done
         return _emit_rows(
             dense.plan, ov, om, dense.blk_ids, dense.out_keys, self.stats
         )
@@ -826,6 +829,8 @@ class ShardedEngine(MappingEngine):
         self.n_shards = int(mesh.shape["data"])
         self.device_densify = device_densify
         self.min_device_events = min_device_events
+        self._arenas = _HostArenas(self.device)
+        self._readback = _ReadBack()
 
     def _shard_split(
         self, row_ids: np.ndarray, blk_ids: np.ndarray
@@ -859,54 +864,35 @@ class ShardedEngine(MappingEngine):
             dense = _densify_host(self.plan, layout)
             dense.shard_sel, dense.rows_sh, dense.blks_sh = sel, rows_sh, blks_sh
             return dense
-        packed, ni, b, k = _pack_columnar(layout, rows_sh.ravel(), blks_sh.ravel())
-        return ColumnarDense(
-            plan=self.plan,
-            packed=packed,
-            n_items=ni,
-            n_events=b,
-            n_rows=rows_sh.shape[1],
-            k=k,
-            row_ids=layout.row_ids,
-            blk_ids=layout.blk_ids,
-            out_keys=layout.out_keys,
-            shard_sel=sel,
-            n_shards=self.n_shards,
-        )
+        return _pack_columnar(self.plan, layout, rows_sh.ravel(), blks_sh.ravel(),
+                              self._arenas, n_rows=rows_sh.shape[1], shard_sel=sel,
+                              n_shards=self.n_shards)
 
     def dispatch(self, dense) -> DispatchHandle:
         sh = dense.plan
         if isinstance(dense, ColumnarDense):
-            (packed,), staging = _to_device(self.device, dense.packed)
-            outputs = dmm_apply_columnar_sharded(
-                packed,
-                sh.uid_slot_dev,
-                sh.uid_col_dev,
-                sh.src3d,
-                mesh=self.mesh,
-                n_items=dense.n_items,
-                n_events=dense.n_events,
-                n_rows=dense.n_rows,
-                k=dense.k,
-                n_shards=dense.n_shards,
-            )
-            self.stats["transfers"] += 1  # the packed buffer is the chunk
-        else:
-            (jv, jm, jr, jb), staging = _to_device(
-                self.device, dense.vals, dense.mask, dense.rows_sh, dense.blks_sh
-            )
-            outputs = dmm_apply_sharded(jv, jm, jr, jb, sh.src3d, mesh=self.mesh)
-            self.stats["transfers"] += 4  # vals, mask, rows, blks
+            return _dispatch_columnar(self._arenas, self.stats, dense, sh.uid_slot_dev,
+                                      sh.uid_col_dev, sh.src3d, mesh=self.mesh,
+                                      n_shards=dense.n_shards)
+        (jv, jm, jr, jb), staging = _to_device(
+            self.device, dense.vals, dense.mask, dense.rows_sh, dense.blks_sh
+        )
+        outputs = dmm_apply_sharded(jv, jm, jr, jb, sh.src3d, mesh=self.mesh)
+        self.stats["transfers"] += 4  # vals, mask, rows, blks
         self.stats["dispatches"] += 1
         return DispatchHandle(outputs=outputs, dense=dense, staging=staging)
 
     def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
         dense = handle.dense
         # the all-gather: every shard's rows to the host, then each global
-        # output row i from its shard's slot (flat index shard * S_loc + k)
-        ov = handle.outputs[0].cpu().numpy()
-        om = handle.outputs[1].cpu().numpy()
-        handle.staging = ()  # the copies that read the staging buffers are done
+        # output row i from its shard's slot (flat index shard * S_loc + k);
+        # the fancy index below copies, so the rows own their memory
+        if isinstance(handle.outputs, ChunkOutput):
+            ov, om = self._readback.read(handle.outputs)
+        else:
+            ov = handle.outputs[0].cpu().numpy()
+            om = handle.outputs[1].cpu().numpy()
+            handle.staging = ()  # the copies that read the staging buffers are done
         n_sh, s_loc, w = ov.shape
         flat = np.empty(dense.row_ids.size, np.int64)
         for s, idx in enumerate(dense.shard_sel):
@@ -939,8 +925,20 @@ class ShardedEngine(MappingEngine):
 _ARENA_MIN = 1 << 16  # bytes of a host arena when first allocated
 
 
+def _grown(buf: Optional[torch.Tensor], n_bytes: int, pin: bool) -> torch.Tensor:
+    """``buf``, or a new buffer twice as large (repeatedly) when it holds
+    fewer than ``n_bytes``."""
+    size = _ARENA_MIN if buf is None else buf.numel()
+    while size < n_bytes:
+        size *= 2
+    if buf is None or size > buf.numel():
+        buf = torch.empty(size, dtype=torch.uint8, pin_memory=pin)
+    return buf
+
+
 class _HostArenas:
-    """The per-block engine's host arenas: two, taken in turn by ``densify``.
+    """An engine's host arenas: two, taken in turn by ``densify`` (the
+    per-block engine's and device densify's).
 
     A chunk's copies read its arena asynchronously, so ``dispatch`` records
     a CUDA event after issuing them (:meth:`release`) and :meth:`take` waits
@@ -964,12 +962,7 @@ class _HostArenas:
         if self.events[i] is not None:
             self.events[i].synchronize()  # the copies that read it have run
             self.events[i] = None
-        buf = self.bufs[i]
-        size = _ARENA_MIN if buf is None else buf.numel()
-        while size < n_bytes:
-            size *= 2
-        if buf is None or size > buf.numel():
-            buf = self.bufs[i] = torch.empty(size, dtype=torch.uint8, pin_memory=self.pin)
+        buf = self.bufs[i] = _grown(self.bufs[i], n_bytes, self.pin)
         self.turns[i] += 1
         return i, self.turns[i], buf
 
@@ -984,6 +977,47 @@ class _HostArenas:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
             self.events[slot] = ev
+
+
+class _ReadBack:
+    """Device densify's emit: a chunk's outputs back to the host with one
+    copy into a pinned buffer and one wait.  The buffer grows by doubling
+    and is rewritten by the next emit, so the caller copies what it keeps.
+    On the CPU the outputs are read where they lie."""
+
+    def __init__(self) -> None:
+        self.buf: Optional[torch.Tensor] = None
+
+    def read(self, out: ChunkOutput) -> Tuple[np.ndarray, np.ndarray]:
+        """The chunk's (n_shards, S, W) values and mask as numpy arrays."""
+        n = 5 * out.shape[0] * out.shape[1] * out.shape[2]
+        raw = out.buf[:n]
+        if raw.device.type != "cpu":
+            self.buf = _grown(self.buf, n, True)
+            host = self.buf[:n]
+            host.copy_(raw)  # one copy, then a wait for it (and so for the kernel)
+            raw = host
+        return split_outputs(raw.numpy(), *out.shape)
+
+
+def _dispatch_columnar(arenas: _HostArenas, stats: collections.Counter,
+                       dense: ColumnarDense, uid_slot, uid_col, table,
+                       **sharded: Any) -> DispatchHandle:
+    """Device densify's dispatch, for the fused and the sharded engine: one
+    :func:`~repro_torch.kernels.ops.dmm_apply_packed` call from the chunk's
+    host arena, then the event that frees the arena; ``stats`` counts the
+    copies and dispatches the call reports."""
+    arenas.check(dense.slot, dense.turn)
+    try:
+        out = dmm_apply_packed(
+            dense.host, uid_slot, uid_col, table, n_items=dense.n_items,
+            n_events=dense.n_events, n_rows=dense.n_rows, k=dense.k, **sharded,
+        )
+    finally:
+        arenas.release(dense.slot)
+    stats["transfers"] += out.copies
+    stats["dispatches"] += out.dispatches
+    return DispatchHandle(outputs=out, dense=dense)
 
 
 @dataclasses.dataclass

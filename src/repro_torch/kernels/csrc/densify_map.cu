@@ -20,27 +20,38 @@
 // it is CSR padding (j >= counts[r]), its uid lies outside [0, len(uid_slot)),
 // its slot is -1, or its owning column uid_col[uid] is not ev_col[r].
 //
-// What bounds it on an H100: bytes, and at the main path's shapes the launch.
-// There is no arithmetic; per chunk the kernel reads the packed buffer (tens of
-// KB), the touched rows of the block table and a few uid-table entries per
-// item, and writes S * W * 5 bytes: well under a megabyte, a fraction of a
-// microsecond at 3.35 TB/s.
+// What bounds it on an H100: at the usual 512-event chunk the launch and a
+// chain of dependent loads, not bytes.  There is no arithmetic; per chunk the
+// kernel reads the packed buffer (tens of KB), the touched rows of the block
+// table and a few uid-table entries per item, and writes S * W * 5 bytes:
+// 0.6 MB, 0.18 us at 3.35 TB/s, at 512 events (S 512, W 128), and 6.5 MB,
+// 1.9 us, at 8,192.  Each output row waits on the loads that pick its data:
+// rows/blks, then the event's starts/counts/ev_col, then each item's uid,
+// then its uid_slot/uid_col entries -- four round trips to L2 or memory.
 //
-// Design: one thread owns one output element (z, s, q); the shard is the
-// grid's y axis, so all the shards a device holds are mapped by ONE launch.  A
-// thread block covers kRowsPerBlock output rows of one shard with kThreadsQ
-// threads along q (coalesced table reads and output writes).  The sharded path
-// re-runs the resolve in every shard's rows rather than resolving once per
-// device first: the items are replicated, the work per row is the same, and
-// the results are bit-identical.  The resolve is fused into a prologue: for a
-// tile of kItemTile items, each thread of a row resolves one item (the reference's
-// clip-mode takes become explicit clamps, so no index can fault) into shared
-// memory, once per row and not once per output element.  Then every thread of
-// the row compares its table entry against the tile's slots in ascending item
-// order and overwrites on a match, which keeps last-writer-wins without a
-// scatter or atomics.  Values travel and are stored as bit patterns, so the
-// output is bit-identical to the plain version.  The kernel allocates nothing
-// and launches on the caller's stream.
+// Design: one warp owns one output row (z, s) and covers it 4 * 32 = 128
+// columns at a time, lane l the four columns 4l .. 4l + 3: one 16-byte load of
+// the block-table row, one 16-byte store of values and one 4-byte store of the
+// mask a lane (scalar accesses where W % 4 != 0 or an address is not aligned).
+// The table row needs only blks[s], so it is loaded before the item chain
+// starts and arrives while the chain runs.  Lane j resolves item j of the
+// event into registers, its value loaded beside its uid (both need only the
+// item's index); the reference's clip-mode takes become explicit clamps, so no
+// index can fault.  Then every lane compares its four table entries against
+// items 0 .. count-1 in ascending order, each broadcast from its lane with
+// __shfl_sync, and overwrites on a match: last-writer-wins without a scatter,
+// atomics, shared memory or a barrier.  Events with more than 32 items are
+// resolved 32 at a time.  The shard is the grid's y axis, so all the shards a
+// device holds are mapped by ONE launch; every shard re-runs the resolve in
+// its own rows (the items are replicated and the results bit-identical).
+// Values travel and are stored as bit patterns, so the output is
+// bit-identical to the plain version.  TMA, wgmma and cp.async are not used:
+// the body has no arithmetic for a tensor core, and each row's operands are a
+// few hundred bytes picked by data, so there is no tile to stage.
+//
+// metl_densify_map_chunk is the engines' route: from one C call it copies the
+// chunk's packed bytes from a pinned host arena to the device and launches the
+// kernel, on the caller's stream.  The kernel allocates nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,15 +60,82 @@
 
 namespace {
 
-constexpr int kThreadsQ = 128;      // threads along the output width
-constexpr int kRowsPerBlock = 4;    // output rows per thread block
-constexpr int kItemTile = kThreadsQ;  // items resolved per prologue pass
+constexpr int kWarp = 32;
+constexpr int kRowsPerBlock = 4;  // warps, one output row each, per block
+constexpr int kSpan = 4 * kWarp;  // output columns a warp covers per pass
+constexpr int kNoSlot = -2;       // a dropped item; no table entry equals it
+constexpr unsigned kAllLanes = 0xffffffffu;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-__global__ void __launch_bounds__(kThreadsQ * kRowsPerBlock)
+__device__ __forceinline__ bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// the four table entries of columns q .. q + 3, each < 0 as -1 (no column
+// past the width names a slot)
+__device__ __forceinline__ void load_table(const int32_t* __restrict__ row,
+                                           int q, int width, int p[4]) {
+  if (q + 3 < width && aligned(row + q, 16)) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(row + q));
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+    p[3] = v.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = q + i < width ? __ldg(row + q + i) : -1;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = max(p[i], -1);
+}
+
+// item j of an event whose items start at `start`, of which the first n
+// count: its payload slot (kNoSlot when dropped) and value bits
+__device__ __forceinline__ void resolve(
+    int j, int n, int start, int col, const int32_t* __restrict__ uids,
+    const int32_t* __restrict__ val_bits, const int32_t* __restrict__ uid_slot,
+    const int32_t* __restrict__ uid_col, int n_items, int n_uid, int& slot,
+    int32_t& bits) {
+  slot = kNoSlot;
+  bits = 0;
+  if (j >= n) return;
+  // int32 sum with wrap-around, then the clip: the reference's arithmetic
+  const int ix = clampi(
+      static_cast<int>(static_cast<uint32_t>(start) + static_cast<uint32_t>(j)),
+      0, n_items - 1);
+  const int uid = __ldg(uids + ix);
+  const int32_t v = __ldg(val_bits + ix);  // needs only ix, as the uid does
+  if (uid < 0 || uid >= n_uid) return;
+  const int sl = __ldg(uid_slot + uid);
+  const int c = __ldg(uid_col + uid);
+  if (sl >= 0 && c == col) {
+    slot = sl;
+    bits = v;
+  }
+}
+
+__device__ __forceinline__ void store(int32_t* __restrict__ ov,
+                                      int8_t* __restrict__ om, int q,
+                                      int width, const int32_t acc[4],
+                                      uint32_t hit) {
+  if (q + 3 < width && aligned(ov + q, 16) && aligned(om + q, 4)) {
+    *reinterpret_cast<int4*>(ov + q) = make_int4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<uint32_t*>(om + q) = hit;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (q + i < width) {
+        ov[q + i] = acc[i];
+        om[q + i] = static_cast<int8_t>((hit >> (8 * i)) & 1);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 densify_map_kernel(const int32_t* __restrict__ packed,
                    const int32_t* __restrict__ uid_slot,
                    const int32_t* __restrict__ uid_col,
@@ -67,13 +145,9 @@ densify_map_kernel(const int32_t* __restrict__ packed,
                    int n_items, int n_events, int n_rows, int k, int n_uid,
                    int width, int n_blocks, int n_route, int shard_lo,
                    int32_t fill_bits) {
-  __shared__ int32_t sh_slot[kRowsPerBlock][kItemTile];
-  __shared__ int32_t sh_bits[kRowsPerBlock][kItemTile];
-
-  const int ty = threadIdx.y;
-  const int tx = threadIdx.x;
-  const int s = blockIdx.x * kRowsPerBlock + ty;
-  const bool live = s < n_rows;
+  const int s = blockIdx.x * kRowsPerBlock + threadIdx.y;
+  if (s >= n_rows) return;  // the whole warp: its row is past the routing
+  const int lane = threadIdx.x;
   const int64_t z = blockIdx.y;  // local shard
 
   const int32_t* uids = packed;
@@ -84,66 +158,81 @@ densify_map_kernel(const int32_t* __restrict__ packed,
   const int32_t* route = ev_col + n_events;
   const int32_t* rows = route + (shard_lo + z) * n_rows;
   const int32_t* blks = route + (n_route + shard_lo + z) * n_rows;
-  const int32_t* src2d = src3d + z * n_blocks * width;
-  out_bits += z * n_rows * width;
-  out_m += z * n_rows * width;
 
-  int t = 0, start = 0, count = 0, col = -1;
-  if (live) {
-    const int r = clampi(__ldg(rows + s), 0, n_events - 1);
-    t = clampi(__ldg(blks + s), 0, n_blocks - 1);
-    start = __ldg(starts + r);
-    count = __ldg(counts + r);
-    col = __ldg(ev_col + r);
-  }
-  const int32_t* src_row = src2d + static_cast<int64_t>(t) * width;
+  const int r = clampi(__ldg(rows + s), 0, n_events - 1);
+  const int t = clampi(__ldg(blks + s), 0, n_blocks - 1);
+  const int32_t* src_row = src3d + (z * n_blocks + t) * width;
+  int p[4];
+  load_table(src_row, 4 * lane, width, p);  // in flight while items resolve
+  const int start = __ldg(starts + r);
+  const int n = min(__ldg(counts + r), k);
+  const int col = __ldg(ev_col + r);
 
-  // every loop bound below is uniform across the block, so the barriers are
-  // reached by all threads, including those of rows past n_rows
-  for (int q0 = 0; q0 < width; q0 += kThreadsQ) {
-    const int q = q0 + tx;
-    const int p = (live && q < width) ? __ldg(src_row + q) : -1;
-    int32_t acc = fill_bits;
-    int8_t hit = 0;
-    for (int j0 = 0; j0 < k; j0 += kItemTile) {
-      // prologue: resolve item j0 + tx of this row's event
-      const int j = j0 + tx;
-      int32_t slot = -1, bits = 0;
-      if (live && j < k && j < count) {
-        // int32 sum with wrap-around, then the clip: the reference's
-        // arithmetic exactly
-        const int ix = clampi(
-            static_cast<int>(static_cast<uint32_t>(start) +
-                             static_cast<uint32_t>(j)),
-            0, n_items - 1);
-        const int uid = __ldg(uids + ix);
-        if (uid >= 0 && uid < n_uid) {
-          const int sl = __ldg(uid_slot + uid);
-          if (sl >= 0 && __ldg(uid_col + uid) == col) {
-            slot = sl;
-            bits = __ldg(val_bits + ix);
-          }
-        }
+  int slot;
+  int32_t bits;
+  resolve(lane, n, start, col, uids, val_bits, uid_slot, uid_col, n_items,
+          n_uid, slot, bits);
+  int resolved = 0;  // the first item the lanes hold
+
+  const int64_t o = (z * n_rows + s) * width;
+  for (int q0 = 0; q0 < width; q0 += kSpan) {
+    const int q = q0 + 4 * lane;
+    if (q0 > 0) load_table(src_row, q, width, p);
+    int32_t acc[4] = {fill_bits, fill_bits, fill_bits, fill_bits};
+    uint32_t hit = 0;  // byte i: column q + i was hit
+    // n and every bound below are the same across the warp: each shuffle
+    // has all 32 lanes
+    for (int j0 = 0; j0 < n; j0 += kWarp) {
+      if (j0 != resolved) {
+        resolve(j0 + lane, n, start, col, uids, val_bits, uid_slot, uid_col,
+                n_items, n_uid, slot, bits);
+        resolved = j0;
       }
-      __syncthreads();  // the previous tile's compare loop is done
-      sh_slot[ty][tx] = slot;
-      sh_bits[ty][tx] = bits;
-      __syncthreads();
-      const int tile = min(kItemTile, k - j0);
-      if (p >= 0) {
-        for (int jj = 0; jj < tile; ++jj) {
-          if (sh_slot[ty][jj] == p) {  // ascending jj: last writer wins
-            acc = sh_bits[ty][jj];
-            hit = 1;
+      const int tile = min(kWarp, n - j0);
+      for (int jj = 0; jj < tile; ++jj) {  // ascending: the last writer wins
+        const int sj = __shfl_sync(kAllLanes, slot, jj);
+        const int32_t bj = __shfl_sync(kAllLanes, bits, jj);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (p[i] == sj) {
+            acc[i] = bj;
+            hit |= 1u << (8 * i);
           }
         }
       }
     }
-    if (live && q < width) {
-      out_bits[static_cast<int64_t>(s) * width + q] = acc;
-      out_m[static_cast<int64_t>(s) * width + q] = hit;
-    }
+    store(out_bits + o, out_m + o, q, width, acc, hit);
   }
+}
+
+// Launch the kernel over shards [shard_lo, shard_lo + n_shards); returns
+// cudaGetLastError() after the launch (0 on success, and 0 with nothing
+// launched for an empty output).
+int launch(const void* packed, const void* uid_slot, const void* uid_col,
+           const void* src3d, void* out_v, void* out_m, int n_items,
+           int n_events, int n_rows, int k, int n_uid, int width, int n_blocks,
+           int n_route, int shard_lo, int n_shards, float fill,
+           cudaStream_t stream, bool* launched) {
+  *launched = false;
+  if (n_shards <= 0 || n_rows <= 0 || width <= 0) return 0;
+  if (n_items <= 0 || n_events <= 0 || n_blocks <= 0 || k < 0 || n_uid < 0 ||
+      n_shards > 65535 || shard_lo < 0 || shard_lo + n_shards > n_route)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int32_t fill_bits;
+  static_assert(sizeof(fill_bits) == sizeof(fill), "float is 32 bits");
+  std::memcpy(&fill_bits, &fill, sizeof(fill));
+  const dim3 block(kWarp, kRowsPerBlock);
+  const dim3 grid((n_rows + kRowsPerBlock - 1) / kRowsPerBlock, n_shards);
+  densify_map_kernel<<<grid, block, 0, stream>>>(
+      static_cast<const int32_t*>(packed),
+      static_cast<const int32_t*>(uid_slot),
+      static_cast<const int32_t*>(uid_col),
+      static_cast<const int32_t*>(src3d), static_cast<int32_t*>(out_v),
+      static_cast<int8_t*>(out_m), n_items, n_events, n_rows, k, n_uid, width,
+      n_blocks, n_route, shard_lo, fill_bits);
+  const int err = static_cast<int>(cudaGetLastError());
+  *launched = err == 0;
+  return err;
 }
 
 }  // namespace
@@ -163,21 +252,88 @@ extern "C" int metl_densify_map(const void* packed, const void* uid_slot,
                                 int width, int n_blocks, int n_route,
                                 int shard_lo, int n_shards, float fill,
                                 void* stream) {
-  if (n_shards <= 0 || n_rows <= 0 || width <= 0) return 0;
-  if (n_items <= 0 || n_events <= 0 || n_blocks <= 0 || k < 0 || n_uid < 0 ||
-      n_shards > 65535 || shard_lo < 0 || shard_lo + n_shards > n_route)
+  bool launched;
+  return launch(packed, uid_slot, uid_col, src3d, out_v, out_m, n_items,
+                n_events, n_rows, k, n_uid, width, n_blocks, n_route, shard_lo,
+                n_shards, fill, static_cast<cudaStream_t>(stream), &launched);
+}
+
+// The engines' route, for one device-densify chunk on the card of index
+// p[kDevice] (made current for the call, and the previous one restored):
+//
+// metl_densify_map_chunk copies the p[kBytes] bytes of the packed chunk from
+// `host`, which must be pinned, to dev_buf + p[kPackedAt] with one
+// cudaMemcpyAsync, then launches the kernel on them as metl_densify_map
+// does, writing the (n_shards, n_rows, width) values at dev_buf and the mask
+// right after them, both on `stream`; it checks cudaGetLastError() after each
+// and stops at the first error.  The sizes are p[kItems] .. p[kFillBits] (the
+// fill value as its float32 bit pattern); p[kCopies] and p[kLaunches] return
+// how many copies and launches were issued (an empty output launches
+// nothing).  Returns 0, a CUDA error, or kNotPinned.
+namespace {
+
+enum Param {
+  kDevice, kBytes, kPackedAt, kItems, kEvents, kRows, kK, kUid, kWidth,
+  kBlocks, kRoute, kShardLo, kShards, kFillBits, kCopies, kLaunches
+};
+constexpr int kNotPinned = -1;
+
+// makes `device` current until it goes out of scope
+struct DeviceGuard {
+  int prev = -1;
+  bool changed = false;
+  int err = 0;
+  explicit DeviceGuard(int device) {
+    err = static_cast<int>(cudaGetDevice(&prev));
+    if (err == 0 && prev != device) {
+      err = static_cast<int>(cudaSetDevice(device));
+      changed = err == 0;
+    }
+  }
+  ~DeviceGuard() {
+    if (changed) cudaSetDevice(prev);
+  }
+};
+
+}  // namespace
+
+extern "C" int metl_densify_map_chunk(const void* host, void* dev_buf,
+                                      const void* uid_slot, const void* uid_col,
+                                      const void* src3d, void* stream,
+                                      int64_t* p) {
+  p[kCopies] = 0;
+  p[kLaunches] = 0;
+  cudaPointerAttributes attr;
+  if (cudaPointerGetAttributes(&attr, host) != cudaSuccess ||
+      attr.type != cudaMemoryTypeHost) {
+    cudaGetLastError();  // a pageable pointer is no error of the context
+    return kNotPinned;
+  }
+  DeviceGuard guard(static_cast<int>(p[kDevice]));
+  if (guard.err != 0) return guard.err;
+  if (p[kBytes] < 0 || p[kPackedAt] < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int32_t fill_bits;
-  static_assert(sizeof(fill_bits) == sizeof(fill), "float is 32 bits");
-  std::memcpy(&fill_bits, &fill, sizeof(fill));
-  const dim3 block(kThreadsQ, kRowsPerBlock);
-  const dim3 grid((n_rows + kRowsPerBlock - 1) / kRowsPerBlock, n_shards);
-  densify_map_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(packed),
-      static_cast<const int32_t*>(uid_slot),
-      static_cast<const int32_t*>(uid_col),
-      static_cast<const int32_t*>(src3d), static_cast<int32_t*>(out_v),
-      static_cast<int8_t*>(out_m), n_items, n_events, n_rows, k, n_uid, width,
-      n_blocks, n_route, shard_lo, fill_bits);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* packed = static_cast<uint8_t*>(dev_buf) + p[kPackedAt];
+  int err = static_cast<int>(cudaMemcpyAsync(
+      packed, host, static_cast<size_t>(p[kBytes]), cudaMemcpyHostToDevice, s));
+  if (err == 0) err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  ++p[kCopies];
+  const int n_shards = static_cast<int>(p[kShards]);
+  const int n_rows = static_cast<int>(p[kRows]);
+  const int width = static_cast<int>(p[kWidth]);
+  const int64_t n_out = static_cast<int64_t>(n_shards) * n_rows * width;
+  float fill;
+  const int32_t fill_bits = static_cast<int32_t>(p[kFillBits]);
+  std::memcpy(&fill, &fill_bits, sizeof(fill));
+  bool launched;
+  err = launch(packed, uid_slot, uid_col, src3d, dev_buf,
+               static_cast<uint8_t*>(dev_buf) + 4 * n_out,
+               static_cast<int>(p[kItems]), static_cast<int>(p[kEvents]), n_rows,
+               static_cast<int>(p[kK]), static_cast<int>(p[kUid]), width,
+               static_cast<int>(p[kBlocks]), static_cast<int>(p[kRoute]),
+               static_cast<int>(p[kShardLo]), n_shards, fill, s, &launched);
+  p[kLaunches] += launched;
+  return err;
 }

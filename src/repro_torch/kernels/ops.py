@@ -15,21 +15,23 @@ sync point.
 
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple, Union
+from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .blocks import BlockChunk
-from .densify_map import densify_map, densify_map_shard
+from .densify_map import densify_map, densify_map_chunk, densify_map_shard, split_outputs
 from .flash_attention import flash_attention
 from .masked_gather import masked_gather, masked_gather_blocks
 from .moe_combine import moe_combine as _moe_combine_kernel
 from .onehot_map import onehot_map, onehot_map_blocks
+from .ref import route_offset
 from .segmented_gather import segmented_gather, segmented_gather_shard
 
 __all__ = ["IMPLS", "dmm_apply", "dmm_apply_blocks", "dmm_apply_fused",
            "dmm_apply_columnar", "dmm_apply_sharded", "dmm_apply_columnar_sharded",
-           "dispatch_count", "attention", "moe_combine"]
+           "ChunkOutput", "dmm_apply_packed", "dispatch_count", "attention",
+           "moe_combine"]
 
 # Device-dispatch accounting: one per dmm_apply* call, and one per block that
 # dmm_apply_blocks maps (the model ops are no mapping dispatches and do not
@@ -228,6 +230,25 @@ def dmm_apply_columnar(
     )
 
 
+def _columnar_sharded(packed, uid_slot, uid_col, src3d, *, mesh, n_items, n_events,
+                      n_rows, k, n_shards, fill):
+    """:func:`dmm_apply_columnar_sharded`'s work, not counted."""
+    if n_shards != mesh.shape["data"]:
+        raise ValueError(f"n_shards={n_shards} != the mesh's {mesh.shape['data']} shards")
+    home = packed.device
+    stacks = _stacks(src3d, mesh)
+    slots, cols = _per_device(uid_slot, stacks), _per_device(uid_col, stacks)
+    outs = [
+        densify_map_shard(
+            packed.to(dev, non_blocking=True), sl, cl, t, n_items=n_items,
+            n_events=n_events, n_rows=n_rows, k=k, n_shards=n_shards, shard_lo=lo,
+            fill=fill,
+        )
+        for (dev, lo, _, t), sl, cl in zip(stacks, slots, cols)
+    ]
+    return _gather(outs, home)
+
+
 def dmm_apply_columnar_sharded(
     packed: torch.Tensor,
     uid_slot: Union[torch.Tensor, Sequence[torch.Tensor]],
@@ -254,20 +275,96 @@ def dmm_apply_columnar_sharded(
     """
     global dispatch_count
     dispatch_count += 1
+    return _columnar_sharded(packed, uid_slot, uid_col, src3d, mesh=mesh, n_items=n_items,
+                             n_events=n_events, n_rows=n_rows, k=k, n_shards=n_shards,
+                             fill=fill)
+
+
+class ChunkOutput(NamedTuple):
+    """What :func:`dmm_apply_packed` returns: the device allocation ``buf``
+    that starts with the chunk's ``shape`` = (n_shards, S, W) outputs, not
+    synchronised (all float32 values, then all int8 masks; views ``values``
+    and ``mask``), and the host->device ``copies`` and the ``dispatches``
+    that produced them."""
+
+    buf: torch.Tensor
+    shape: Tuple[int, int, int]
+    copies: int
+    dispatches: int
+
+    @property
+    def values(self) -> torch.Tensor:
+        return split_outputs(self.buf, *self.shape)[0]
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return split_outputs(self.buf, *self.shape)[1]
+
+
+def dmm_apply_packed(
+    host: torch.Tensor,
+    uid_slot: Union[torch.Tensor, Sequence[torch.Tensor]],
+    uid_col: Union[torch.Tensor, Sequence[torch.Tensor]],
+    table: Union[torch.Tensor, Sequence[torch.Tensor]],
+    *,
+    n_items: int,
+    n_events: int,
+    n_rows: int,
+    k: int,
+    mesh: Optional[Any] = None,
+    n_shards: int = 1,
+    fill: float = 0.0,
+) -> ChunkOutput:
+    """Resolve, densify and map a packed chunk that lies in a host arena in
+    ONE dispatch: the engines' device-densify route.
+
+    ``host`` is a uint8 arena holding the chunk in the packed layout above,
+    pinned when the tables are on a CUDA device.  Without ``mesh``,
+    ``table`` is the replicated (n_blocks, W) block table and the routing
+    is (S,); with one, it is the sharded table (one stack per device group,
+    :func:`dmm_apply_columnar_sharded`) and the routing (``n_shards``,
+    S_loc).  When every shard lies on one device (the replicated table
+    always does), one call
+    (:func:`~repro_torch.kernels.densify_map.densify_map_chunk`) copies the
+    chunk to that device and launches the kernel, and its reported copies
+    and launches are returned (on the CPU the plain version runs on a copy
+    of the arena).  A mesh over several cards takes the per-device route
+    of :func:`dmm_apply_columnar_sharded`, fed by one copy from the arena:
+    1 copy and 1 dispatch, one launch per card.  Adds the dispatches to
+    ``dispatch_count``.  The caller keeps ``host`` unchanged until the copy
+    has run (an event recorded after this call)."""
+    global dispatch_count
+    sizes = dict(n_items=n_items, n_events=n_events, n_rows=n_rows, k=k)
+    if mesh is None:
+        if n_shards != 1:
+            raise ValueError(f"n_shards={n_shards} without a mesh")
+        buf, copies, dispatches = densify_map_chunk(host, uid_slot, uid_col, table,
+                                                    fill=fill, **sizes)
+        dispatch_count += dispatches
+        return ChunkOutput(buf, (1, n_rows, table.shape[-1]), copies, dispatches)
     if n_shards != mesh.shape["data"]:
         raise ValueError(f"n_shards={n_shards} != the mesh's {mesh.shape['data']} shards")
-    home = packed.device
-    stacks = _stacks(src3d, mesh)
-    slots, cols = _per_device(uid_slot, stacks), _per_device(uid_col, stacks)
-    outs = [
-        densify_map_shard(
-            packed.to(dev, non_blocking=True), sl, cl, t, n_items=n_items,
-            n_events=n_events, n_rows=n_rows, k=k, n_shards=n_shards, shard_lo=lo,
-            fill=fill,
-        )
-        for (dev, lo, _, t), sl, cl in zip(stacks, slots, cols)
-    ]
-    return _gather(outs, home)
+    stacks = _stacks(table, mesh)
+    w = stacks[0][3].shape[2]
+    if len(stacks) == 1:
+        (_, lo, _, t), = stacks
+        (sl,), (cl,) = _per_device(uid_slot, stacks), _per_device(uid_col, stacks)
+        buf, copies, dispatches = densify_map_chunk(
+            host, sl, cl, t, n_route=n_shards, shard_lo=lo, fill=fill, **sizes)
+    else:
+        home = stacks[0][0]
+        if not host.is_pinned():
+            raise ValueError("a CUDA dispatch needs a pinned host arena")
+        n_bytes = 4 * (route_offset(n_items, n_events) + 2 * n_shards * n_rows)
+        packed = host[:n_bytes].view(torch.int32).to(home, non_blocking=True)
+        v, m = _columnar_sharded(packed, uid_slot, uid_col, table, mesh=mesh,
+                                 n_shards=n_shards, fill=fill, **sizes)
+        buf = torch.empty(5 * v.numel(), dtype=torch.uint8, device=home)
+        for dst, src in zip(split_outputs(buf, *v.shape), (v, m)):
+            dst.copy_(src, non_blocking=True)
+        copies, dispatches = 1, 1
+    dispatch_count += dispatches
+    return ChunkOutput(buf, (n_shards, n_rows, w), copies, dispatches)
 
 
 def moe_combine(expert_out: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
