@@ -51,7 +51,14 @@ failure raises and the script exits non-zero):
    and 384, 1-8 shards and a sub-range, a table 4 bytes off alignment),
    each case also through ``densify_map_chunk`` (the engines' route: copy
    from a pinned arena and launch in one C call, which must report 1 copy
-   and 1 launch);
+   and 1 launch); ``segmented_gather`` / ``segmented_gather_shard`` bit for
+   bit on the edges of their warp-per-row body (``GATHER_EDGE_CASES``:
+   widths 3, 127, 130, 256 and 384, one payload column, operands off
+   alignment, out-of-range routing and table entries held against the
+   plain version on the clamped ones, NaN and inf payloads, a shard with no
+   live rows), each case also through ``segmented_gather_chunk`` (four
+   copies from a pinned arena and the launch in one C call, which must
+   report 4 copies and 1 launch);
 4. consume 64 chunks of 512 events of the paper-scale scenario (128 schemas
    x 10 versions x 10 attributes, 40 business entities of 25 attributes)
    through ``METLApp`` on the card six ways -- the fused engine with host
@@ -67,7 +74,8 @@ failure raises and the script exits non-zero):
    shard kernel); then
    compare every row and every stats counter with the same stream through
    ``device="cpu"`` apps (the plain versions), and the sharded and
-   per-block rows with the fused rows;
+   per-block rows with the fused rows (the fused and sharded paths' counts
+   are the ones the chunk's one C call reports);
 5. serve olmo-1b at full width (16 layers, d_model 2048, random weights
    from a seeded ``torch.Generator``): (a) the prefill ``forward`` with
    ``attn_impl="pallas"`` over a (2, 2048) prompt batch, 16 launches of
@@ -94,7 +102,11 @@ failure raises and the script exits non-zero):
    through the engine's route (pinned arena, one C call, one readback) and
    through the op-level route (``pin_memory``, ``.to``,
    ``ops.dmm_apply_columnar*``, two ``.cpu()``), in turns chunk by chunk
-   (``device-densify host``);
+   (``device-densify host``); the same for the host-densify paths, whose
+   engine route is a pinned arena, one C call for four copies and the
+   launch and one readback, and whose op-level route is ``np.pad``,
+   ``pin_memory`` and ``.to`` of four arrays, ``ops.dmm_apply_fused`` /
+   ``dmm_apply_sharded`` and two ``.cpu()`` (``host-densify host``);
 6. time each kernel at the main path's shapes beside its plain version and
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
@@ -103,9 +115,9 @@ failure raises and the script exits non-zero):
    fully dense combine, each beside ``torch.matmul``; time an empty kernel
    the same way (the ``launch floor`` line) and state each kernel's time as
    a multiple of it (``floor_multiple`` in its ``timing`` line); time
-   ``densify_map`` and ``densify_map_shard`` also on an 8,192-event chunk
-   after the evolution (the ``timing ... 8192`` lines, bit for bit against
-   the plain version there too).
+   ``segmented_gather``, ``densify_map`` and their shard kernels also on an
+   8,192-event chunk after the evolution (the ``timing ... 8192`` lines,
+   bit for bit against the plain version there too).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -131,7 +143,7 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 FP32_LANES_PER_SM = 128  # Hopper: 128 float32 FMA units per SM (each FMA is 2 operations)
 CHUNKS, CHUNK_EVENTS, EVOLVE_AT = 64, 512, 32
-BIG_CHUNK_EVENTS = 8192  # the device-densify kernels' second timing shape
+BIG_CHUNK_EVENTS = 8192  # the fused and sharded kernels' second timing shape
 ONEHOT_ATOL = 1e-5  # float32 sum order; tests/test_kernels.py holds the Pallas kernel so
 # the per-block stage split runs under the profiler, whose cost grows with
 # the ~1,200 device operations a per-block chunk makes: fewer chunks there
@@ -412,6 +424,111 @@ def check_densify_edges(device: torch.device) -> int:
                                                           (cm, rm))):
                     raise AssertionError(f"densify_map != plain at edge case {i} "
                                          f"fill={fill}")
+            n_cases += 1
+    return n_cases
+
+
+# the edges of segmented_gather's warp-per-row body, each with fill 0 and
+# 0.25: widths with no multiple of 4 (scalar accesses) and above 128 (passes
+# of a warp), one payload column, operands off 16-byte alignment, routing
+# and table entries out of range (clamped), NaN and inf payloads, a shard
+# with no live rows
+GATHER_EDGE_CASES = [  # (B, N_in, W, blocks a shard, rows a shard, shards, edge)
+    (8, 64, 3, 4, 16, 1, "width"), (37, 300, 127, 8, 40, 1, "width"),
+    (16, 200, 130, 8, 33, 2, "width"), (20, 500, 384, 6, 25, 1, "width"),
+    (9, 1, 128, 4, 20, 1, "one column"), (30, 100, 128, 8, 64, 3, "misaligned"),
+    (24, 90, 128, 8, 50, 1, "out of range"), (24, 90, 130, 8, 50, 4, "out of range"),
+    (40, 128, 128, 8, 64, 4, "non-finite"), (12, 64, 256, 8, 32, 4, "empty shard"),
+]
+# payload bit patterns the body must move untouched: quiet and signalling
+# NaNs with payloads, both infinities, -0.0, the smallest subnormal
+NONFINITE_BITS = np.array([0x7FC00001, 0xFFC12345, 0x7F800001, 0x7F800000, 0xFF800000,
+                           0x80000000, 0x00000001], dtype=np.uint32).view(np.int32)
+
+
+def random_edge_gather(rng, b, n_in, w, n_blocks, s, n, edge):
+    """A :data:`GATHER_EDGE_CASES` case: values (b, n_in) float32, mask int8,
+    rows and blks (n, s) int32 and src3d (n, n_blocks, w) int32, with the
+    case's edge planted; and the routing and table the plain version maps
+    to the same result (out-of-range entries clamped into the shard's
+    slice, as the kernel clamps them)."""
+    vals = rng.normal(size=(b, n_in)).astype(np.float32)
+    if edge == "non-finite":
+        hit = rng.random((b, n_in)) < 0.3
+        vals.view(np.int32)[hit] = rng.choice(NONFINITE_BITS, size=int(hit.sum()))
+    mask = (rng.random((b, n_in)) < 0.7).astype(np.int8)
+    src3d = np.where(rng.random((n, n_blocks, w)) < 0.3, -1,
+                     rng.integers(0, n_in, size=(n, n_blocks, w))).astype(np.int32)
+    rows = rng.integers(0, b, size=(n, s)).astype(np.int32)
+    blks = rng.integers(0, n_blocks, size=(n, s)).astype(np.int32)
+    if edge == "empty shard":
+        rows[1], blks[1], src3d[1] = 0, 0, -1
+    clamped = rows, blks, src3d
+    if edge == "out of range":
+        for arr, lo, hi, bad in ((rows, 0, b, (-5, b, b + 100)),
+                                 (blks, 0, n_blocks, (-1, n_blocks, n_blocks + 3)),
+                                 (src3d, -1, n_in, (n_in, n_in + 50, -7))):
+            at = rng.random(arr.shape) < 0.1
+            arr[at] = rng.choice(bad, size=int(at.sum()))
+        clamped = (np.clip(rows, 0, b - 1), np.clip(blks, 0, n_blocks - 1),
+                   np.clip(src3d, -1, n_in - 1))
+    return (vals, mask, rows, blks, src3d), clamped
+
+
+def _skewed(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to an address one element past an aligned one."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def check_gather_edges(device: torch.device) -> int:
+    """``segmented_gather`` (one shard) or ``segmented_gather_shard`` (all
+    shards, and the upper half of them), and ``segmented_gather_chunk`` from
+    a pinned arena, bit for bit against the plain version over
+    :data:`GATHER_EDGE_CASES` with ``fill`` 0 and 0.25; every chunk call
+    reports 4 copies and 1 launch.  Returns the number of cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.densify_map import split_outputs
+    from repro_torch.kernels.segmented_gather import (arena_layout, arena_views,
+                                                      segmented_gather,
+                                                      segmented_gather_chunk,
+                                                      segmented_gather_shard)
+
+    n_cases = 0
+    for i, (b, n_in, w, n_blocks, s, n, edge) in enumerate(GATHER_EDGE_CASES):
+        arrays, clamped = random_edge_gather(np.random.default_rng(6000 + i), b, n_in, w,
+                                             n_blocks, s, n, edge)
+        v, m, r, bl, t = (torch.from_numpy(a).to(device) for a in arrays)
+        cr, cb, ct = (torch.from_numpy(a).to(device) for a in clamped)
+        if edge == "misaligned":
+            v, m, r, bl, t = (_skewed(x) for x in (v, m, r, bl, t))
+        _, n_bytes = arena_layout(b, n_in, n, s)
+        host = torch.zeros(n_bytes, dtype=torch.uint8).pin_memory()
+        for view, a in zip(arena_views(host, b, n_in, n, s), arrays[:4]):
+            view.copy_(torch.from_numpy(a))
+        lo = n // 2
+        for fill in (0.0, 0.25):
+            rv, rm = ref.segmented_gather_shard_ref(v, m, cr, cb, ct, fill=fill)
+            if n == 1:
+                kv, km = segmented_gather(v, m, r[0], bl[0], t[0], fill=fill)
+                kv, km = kv[None], km[None]
+            else:
+                kv, km = segmented_gather_shard(v, m, r, bl, t, fill=fill)
+                sv, sm = segmented_gather_shard(v, m, r[lo:], bl[lo:], t[lo:], fill=fill)
+                if not (_bits_equal(sv, rv[lo:]) and _bits_equal(sm, rm[lo:])):
+                    raise AssertionError(f"segmented_gather_shard != plain on shards "
+                                         f"[{lo}, {n}) of edge case {i} ({edge}) fill={fill}")
+            raw, copies, launched = segmented_gather_chunk(
+                host, t if n > 1 else t[0], n_events=b, n_in=n_in, n_rows=s, n_route=n,
+                fill=fill)
+            cv, cm = split_outputs(raw, n, s, w)
+            if (copies, launched) != (4, 1):
+                raise AssertionError(f"segmented_gather_chunk issued {copies} copies and "
+                                     f"{launched} launches at edge case {i}")
+            if not all(_bits_equal(x, y) for x, y in ((kv, rv), (km, rm), (cv, rv),
+                                                      (cm, rm))):
+                raise AssertionError(f"segmented_gather != plain at edge case {i} ({edge}) "
+                                     f"fill={fill}")
             n_cases += 1
     return n_cases
 
@@ -965,20 +1082,15 @@ def main_path_operands(app, chunk):
     """The device operands ``app``'s engine builds for ``chunk`` (the
     sharded engine's: its per-shard routing)."""
     from repro_torch.etl.engines import ColumnarDense
-    from repro_torch.core.dmm_torch import bucket_rows
 
     dense = app.engine.densify(app.triage(chunk))
     plan, dev = dense.plan, app.device
     if isinstance(dense, ColumnarDense):
         return dense, plan, (torch.from_numpy(dense.packed).to(dev),)
-    if dense.rows_sh is not None:
-        return dense, plan, tuple(torch.from_numpy(a).to(dev) for a in (
-            dense.vals, dense.mask, dense.rows_sh, dense.blks_sh))
-    s = dense.row_ids.size
-    pad = bucket_rows(s) - s
+    route = (dense.rows, dense.blks) if dense.shard_sel is not None else (
+        dense.rows[0], dense.blks[0])
     return dense, plan, tuple(torch.from_numpy(a).to(dev) for a in (
-        dense.vals, dense.mask, np.pad(dense.row_ids, (0, pad)),
-        np.pad(dense.blk_ids, (0, pad))))
+        dense.vals, dense.mask, *route))
 
 
 def measure_segmented_gather(app, chunk):
@@ -1291,50 +1403,107 @@ def per_block_host(app, chunks) -> dict:
     return out
 
 
-def device_densify_host(app, chunks) -> dict:
-    """Host microseconds per chunk of device densify's ``dispatch`` and
-    ``emit`` over ``chunks`` (no profiler), two routes in one run, in turns
-    chunk by chunk (engine first on even chunks, op-level first on odd
-    ones).  The engine's: one ``ops.dmm_apply_packed`` call from the pinned
-    arena (copy and launch in one C call), emit's one readback.  The
-    op-level route it replaced: ``_to_device`` (``pin_memory`` and ``.to``
-    of a fresh packed array), ``ops.dmm_apply_columnar`` /
-    ``dmm_apply_columnar_sharded``, and emit's two ``.cpu()`` readbacks
-    before the same row emission.  Each chunk is re-triaged after a dedup
-    reset; the op-level route's rows are counted in a throwaway counter."""
+def _to_device(device, *arrays):
+    """The engines' host->device copy site before the arenas: each array
+    copied into fresh pinned memory and sent with ``non_blocking=True``.
+    Returns the device tensors and the pinned buffers, which live until the
+    chunk is emitted."""
+    staging = tuple(torch.from_numpy(a).pin_memory() for a in arrays)
+    return tuple(h.to(device, non_blocking=True) for h in staging), staging
+
+
+def _op_level_emit(eng, dense, outputs):
+    """Emit as the engines did before the one readback: a pageable
+    ``.cpu()`` of the values and one of the mask, then the row emission."""
+    from repro_torch.etl.engines import _emit_rows, _emit_shards
+
+    if dense.shard_sel is None:
+        s = dense.row_ids.size
+        ov, om = (x[:s].cpu().numpy() for x in outputs)
+        return _emit_rows(dense.plan, ov, om, dense.blk_ids, dense.out_keys, eng.stats)
+    return _emit_shards(dense, *(x.cpu().numpy() for x in outputs), eng.stats)
+
+
+def _device_densify_op_level(eng, dense):
+    """Device densify's op-level route: ``_to_device`` of a fresh copy of
+    the packed buffer, then ``ops.dmm_apply_columnar*``."""
+    from repro_torch.kernels import ops
+
+    (p,), staging = _to_device(eng.device, dense.packed.copy())
+    plan, sizes = dense.plan, dense.sizes()
+    if dense.n_shards == 1:
+        return ops.dmm_apply_columnar(p, plan.uid_slot_dev, plan.uid_col_dev, plan.src2d,
+                                      **sizes), staging
+    return ops.dmm_apply_columnar_sharded(
+        p, plan.uid_slot_dev, plan.uid_col_dev, plan.src3d, mesh=eng.mesh,
+        n_shards=dense.n_shards, **sizes), staging
+
+
+def _host_densify_operands(dense):
+    """What host densify handed its dispatch before the arenas, made
+    outside the clock: fresh pageable payload arrays and, for the fused
+    engine, the unpadded routing (its dispatch padded it)."""
+    if dense.shard_sel is None:
+        return dense.vals.copy(), dense.mask.copy(), dense.row_ids, dense.blk_ids
+    return dense.vals.copy(), dense.mask.copy(), dense.rows.copy(), dense.blks.copy()
+
+
+def _host_densify_op_level(eng, dense, vals, mask, rows, blks):
+    """Host densify's op-level route: (fused) ``np.pad`` of the routing,
+    ``_to_device`` of the four arrays, then ``ops.dmm_apply_fused`` /
+    ``dmm_apply_sharded``."""
+    from repro_torch.core.dmm_torch import bucket_rows
+    from repro_torch.kernels import ops
+
+    plan = dense.plan
+    if dense.shard_sel is None:
+        pad = bucket_rows(rows.size) - rows.size
+        operands, staging = _to_device(eng.device, vals, mask, np.pad(rows, (0, pad)),
+                                       np.pad(blks, (0, pad)))
+        return ops.dmm_apply_fused(*operands, plan.src2d), staging
+    operands, staging = _to_device(eng.device, vals, mask, rows, blks)
+    return ops.dmm_apply_sharded(*operands, plan.src3d, mesh=eng.mesh), staging
+
+
+def host_split(app, chunks) -> dict:
+    """Host microseconds per chunk of ``dispatch`` and ``emit`` over
+    ``chunks`` (no profiler), two routes in one run, in turns chunk by
+    chunk (engine first on even chunks, op-level first on odd ones).  The
+    engine's: one op call from the pinned arena (four copies or one, and
+    the launch, in one C call), emit's one readback.  The op-level route it
+    replaced: ``_to_device`` (``pin_memory`` and ``.to`` of each array;
+    device densify: of a fresh copy of the packed buffer), the op
+    (``ops.dmm_apply_fused`` / ``dmm_apply_sharded``, or
+    ``ops.dmm_apply_columnar*``), and emit's two ``.cpu()`` readbacks before
+    the same row emission.  Each chunk is re-triaged after a dedup reset;
+    the op-level route's rows are counted in a throwaway counter."""
     import collections
 
-    from repro_torch.etl.engines import DispatchHandle, _to_device
-    from repro_torch.kernels import ops
+    from repro_torch.etl.engines import ColumnarDense
 
     eng, pc = app.engine, time.perf_counter
     stats = eng.stats
     times = {f"{route}_{stage}": 0.0 for route in ("engine", "op_level")
              for stage in ("dispatch", "emit")}
-
-    def op_level(dense):
-        (p,), staging = _to_device(eng.device, dense.packed.copy())
-        plan, sizes = dense.plan, dict(n_items=dense.n_items, n_events=dense.n_events,
-                                       n_rows=dense.n_rows, k=dense.k)
-        if dense.n_shards == 1:
-            out = ops.dmm_apply_columnar(p, plan.uid_slot_dev, plan.uid_col_dev, plan.src2d,
-                                         **sizes)
-        else:
-            out = ops.dmm_apply_columnar_sharded(
-                p, plan.uid_slot_dev, plan.uid_col_dev, plan.src3d, mesh=eng.mesh,
-                n_shards=dense.n_shards, **sizes)
-        return DispatchHandle(outputs=out, dense=dense, staging=staging)
-
     for i, chunk in enumerate(chunks):
         for route in (("engine", "op_level") if i % 2 == 0 else ("op_level", "engine")):
             app.reset_dedup()
             dense = eng.densify(app.triage(chunk))
+            device = isinstance(dense, ColumnarDense)
+            operands = () if device or route == "engine" else _host_densify_operands(dense)
             eng.stats = stats if route == "engine" else collections.Counter()
             torch.cuda.synchronize()
             t0 = pc()
-            handle = eng.dispatch(dense) if route == "engine" else op_level(dense)
-            t1 = pc()
-            eng.emit(handle)
+            if route == "engine":
+                handle = eng.dispatch(dense)
+                t1 = pc()
+                eng.emit(handle)
+            else:
+                out, staging = (_device_densify_op_level(eng, dense) if device
+                                else _host_densify_op_level(eng, dense, *operands))
+                t1 = pc()
+                _op_level_emit(eng, dense, out)
+                del staging  # the readbacks waited for the copies that read it
             t2 = pc()
             times[f"{route}_dispatch"] += t1 - t0
             times[f"{route}_emit"] += t2 - t1
@@ -1983,11 +2152,16 @@ def main() -> int:
     mc = check_moe_combine(dev)
     n_sgs, n_dms = check_shard_kernels(dev)
     n_edge = check_densify_edges(dev)
+    n_gedge = check_gather_edges(dev)
     torch.cuda.synchronize()
     print(f"{elapsed()} kernels vs plain versions: segmented_gather {n_sg} cases, "
           f"densify_map {n_dm} cases, densify_map and densify_map_shard {n_edge} edge "
           f"cases (K 1-64, W 3, 127, 130, 384, 1-8 shards, a misaligned table; each "
           f"also through densify_map_chunk from a pinned arena, 1 copy and 1 launch), "
+          f"segmented_gather and segmented_gather_shard {n_gedge} edge cases (W 3, 127, "
+          f"130, 256, 384, N_in 1, misaligned operands, out-of-range routing and table "
+          f"entries clamped, NaN and inf payloads, a shard with no live rows; each also "
+          f"through segmented_gather_chunk from a pinned arena, 4 copies and 1 launch), "
           f"masked_gather {n_mg} cases, "
           f"segmented_gather_shard {n_sgs} cases and densify_map_shard {n_dms} cases "
           f"(padded and empty shards; each also on a sub-range of its shards and "
@@ -2086,7 +2260,10 @@ def main() -> int:
             per_block_host(runs[f"cuda/{pname}"][3], later[:BLOCK_STAGE_CHUNKS])), flush=True)
     for pname in ("device", "sharded-device"):
         print(f"{elapsed()} device-densify host cuda/{pname}: " + json.dumps(
-            device_densify_host(runs[f"cuda/{pname}"][3], later)), flush=True)
+            host_split(runs[f"cuda/{pname}"][3], later)), flush=True)
+    for pname in ("host", "sharded-host"):
+        print(f"{elapsed()} host-densify host cuda/{pname}: " + json.dumps(
+            host_split(runs[f"cuda/{pname}"][3], later)), flush=True)
 
     serving = serving_path(dev)
 
@@ -2106,14 +2283,17 @@ def main() -> int:
                 runs["cuda/sharded-host"][3], probe),
             "densify_map_shard": measure_densify_map_shard(
                 runs["cuda/sharded-device"][3], probe)}
-    # the device-densify kernels at a large chunk too, where the body and not
-    # the launch sets their time
+    # the fused and sharded kernels at a large chunk too, where the body and
+    # not the launch sets their time
     big_chunk = EventSource(runs["cuda/device"][3].coordinator.registry,
                             seed=1).slice_columnar((EVOLVE_AT + 1) * CHUNK_EVENTS,
                                                    BIG_CHUNK_EVENTS)
-    for name in ("cuda/device", "cuda/sharded-device"):
+    for name in ("cuda/host", "cuda/device", "cuda/sharded-host", "cuda/sharded-device"):
         runs[name][3].reset_dedup()
-    meas_big = {"densify_map": measure_densify_map(runs["cuda/device"][3], big_chunk),
+    meas_big = {"segmented_gather": measure_segmented_gather(runs["cuda/host"][3], big_chunk),
+                "densify_map": measure_densify_map(runs["cuda/device"][3], big_chunk),
+                "segmented_gather_shard": measure_segmented_gather_shard(
+                    runs["cuda/sharded-host"][3], big_chunk),
                 "densify_map_shard": measure_densify_map_shard(
                     runs["cuda/sharded-device"][3], big_chunk)}
     for m in (*meas.values(), *meas_big.values()):

@@ -16,7 +16,7 @@ four explicit stages:
 Densification is pure numpy over columnar chunks, as in the reference.  The
 :class:`FusedEngine` maps a whole chunk -- every column, every block -- in
 ONE dispatch: with host densify (the default) through the
-``segmented_gather`` kernel over a dense payload; with
+``segmented_gather`` kernel over a dense payload scattered on the host; with
 ``device_densify=True`` through the ``densify_map`` kernel, which takes the
 chunk's raw (uid, value) items packed into one int32 buffer and resolves,
 densifies and maps them in the one launch.  The :class:`BlocksEngine` is the
@@ -31,18 +31,15 @@ rows emitted in the fused engine's order.  Engines are registered by name
 
 Each :class:`DenseChunk` / :class:`ColumnarDense` / :class:`BlockDense`
 pins the plan it was densified against, so a state change between stages
-never mixes plans.  Host densify copies host->device through
-:func:`_to_device` only, next to the ``stats["transfers"]`` accounting; its
-pinned staging buffers ride on the :class:`DispatchHandle` until ``emit``,
-so none is reused while its asynchronous copy may still be reading it.
-Device densify and the per-block engine densify into one of two pinned host
-arenas (:class:`_HostArenas`) and issue a chunk's copies and launches in one
-call (:func:`~repro_torch.kernels.ops.dmm_apply_packed`,
-:func:`~repro_torch.kernels.ops.dmm_apply_blocks`), counting the transfers
-and dispatches that call reports; an arena is written again only after the
-event recorded behind its copies has completed.  Device densify's emit reads
-the chunk's one output allocation back with one copy into a pinned buffer
-(:class:`_ReadBack`).
+never mixes plans.  Every engine densifies into one of two pinned host
+arenas (:class:`_HostArenas`) and issues a chunk's copies and launches in
+one call (:func:`~repro_torch.kernels.ops.dmm_apply_dense` for host
+densify, :func:`~repro_torch.kernels.ops.dmm_apply_packed` for device
+densify, :func:`~repro_torch.kernels.ops.dmm_apply_blocks`), counting the
+transfers and dispatches that call reports; an arena is written again only
+after the event recorded behind its copies has completed.  The fused and
+sharded engines' emit reads the chunk's one output allocation back with one
+copy into a pinned buffer (:class:`_ReadBack`).
 
 ``info()`` is the public observability surface.
 """
@@ -72,10 +69,10 @@ from ..kernels.ops import (
     IMPLS,
     ChunkOutput,
     dmm_apply_blocks,
-    dmm_apply_fused,
+    dmm_apply_dense,
     dmm_apply_packed,
-    dmm_apply_sharded,
 )
+from ..kernels.segmented_gather import arena_layout, arena_views
 from .events import CDCEvent, ColumnarChunk, columnarize
 from .plan import PlanEpoch, PlanManager
 
@@ -203,7 +200,17 @@ def _count_unknown_uids(
 @dataclasses.dataclass
 class DenseChunk:
     """One host-densified chunk: payload arrays plus (row, block) routing,
-    pinned to the plan it was densified against."""
+    pinned to the plan it was densified against.
+
+    Densify writes ``vals``, ``mask`` and the padded routing ``rows`` /
+    ``blks`` into a host arena (``host``, pinned for a CUDA device; ``slot``
+    and ``turn`` of :class:`_HostArenas`) at the offsets of
+    :func:`~repro_torch.kernels.segmented_gather.arena_layout`: those four
+    are views of it, valid until the arena is taken again.  ``row_ids`` /
+    ``blk_ids`` / ``out_keys`` (and ``shard_sel``) keep the host copy of the
+    global routing for emit.  The dict-walk oracle
+    (:func:`densify_chunk_dicts`) fills only the payload and the global
+    routing."""
 
     plan: Any
     vals: np.ndarray  # (bucket(n_events), n_in_pad) f32
@@ -211,10 +218,20 @@ class DenseChunk:
     row_ids: np.ndarray  # (S,) i32: event row per output row
     blk_ids: np.ndarray  # (S,) i32: global block per output row
     out_keys: np.ndarray  # (S,) i64: event key per output row (emission order)
-    # sharded extras (per-shard routing split, filled by ShardedEngine)
+    # (n_route, S_pad) i32: the fused engine's (1, bucket(S)) routing, or the
+    # sharded engine's (n_shards, S_loc) split with shard-local blocks
+    rows: Optional[np.ndarray] = None
+    blks: Optional[np.ndarray] = None
+    host: Optional[torch.Tensor] = None  # the uint8 arena the four views lie in
+    slot: int = 0
+    turn: int = 0
     shard_sel: Optional[List[np.ndarray]] = None  # per shard: its global output rows
-    rows_sh: Optional[np.ndarray] = None  # (n_shards, S_loc) i32
-    blks_sh: Optional[np.ndarray] = None  # (n_shards, S_loc) i32, shard-local blocks
+
+    def sizes(self) -> Dict[str, int]:
+        """The arena's shapes, as :func:`~repro_torch.kernels.ops.
+        dmm_apply_dense` takes them."""
+        return dict(n_events=self.vals.shape[0], n_in=self.vals.shape[1],
+                    n_rows=self.rows.shape[1])
 
 
 @dataclasses.dataclass
@@ -249,16 +266,20 @@ class ColumnarDense:
     shard_sel: Optional[List[np.ndarray]] = None
     n_shards: int = 1
 
+    def sizes(self) -> Dict[str, int]:
+        """The packed sections' sizes, as :func:`~repro_torch.kernels.ops.
+        dmm_apply_packed` takes them."""
+        return dict(n_items=self.n_items, n_events=self.n_events, n_rows=self.n_rows,
+                    k=self.k)
+
 
 @dataclasses.dataclass
 class DispatchHandle:
-    """An in-flight dispatch: unsynchronised output tensors, the dense chunk
-    they came from, and the pinned host staging buffers their input copies
-    read from (held until ``emit``)."""
+    """An in-flight dispatch: unsynchronised outputs and the dense chunk
+    they came from."""
 
     outputs: Any
     dense: Any
-    staging: Tuple[torch.Tensor, ...] = ()
 
 
 @dataclasses.dataclass
@@ -318,13 +339,24 @@ def _chunk_layout(
     )
 
 
-def _densify_host(plan: Any, layout: _ChunkLayout) -> DenseChunk:
-    """Host densification: one CSR gather, one resolve through the plan's
-    global uid tables (an item scatters only into its own column), one
-    numpy scatter."""
+def _densify_host(
+    plan: Any, layout: _ChunkLayout, arenas: "_HostArenas", rows: np.ndarray,
+    blks: np.ndarray, shard_sel: Optional[List[np.ndarray]] = None,
+) -> DenseChunk:
+    """Host densification into a host arena taken from ``arenas``: the
+    payload zeroed in place, then one CSR gather, one resolve through the
+    plan's global uid tables (an item scatters only into its own column),
+    one numpy scatter; and the padded (n_route, S) routing ``rows`` /
+    ``blks`` beside it."""
     chunk, sel = layout.chunk, layout.sel
-    vals = np.zeros((bucket_rows(sel.size), plan.n_in_pad), np.float32)
-    mask = np.zeros_like(vals, dtype=np.int8)
+    shape = (bucket_rows(sel.size), plan.n_in_pad, *rows.shape)
+    (_, _, rows_at, _), n_bytes = arena_layout(*shape)
+    slot, turn, host = arenas.take(n_bytes)
+    arena = host.numpy()[:n_bytes]
+    arena[:rows_at] = 0  # the payload
+    vals, mask, route_rows, route_blks = arena_views(arena, *shape)
+    route_rows[...] = rows
+    route_blks[...] = blks
     ev_rows, item_idx = _event_items(chunk, sel)
     if item_idx.size:
         uids = chunk.uids[item_idx]
@@ -342,23 +374,13 @@ def _densify_host(plan: Any, layout: _ChunkLayout) -> DenseChunk:
         row_ids=layout.row_ids,
         blk_ids=layout.blk_ids,
         out_keys=layout.out_keys,
+        rows=route_rows,
+        blks=route_blks,
+        host=host,
+        slot=slot,
+        turn=turn,
+        shard_sel=shard_sel,
     )
-
-
-def _to_device(
-    device: torch.device, *arrays: np.ndarray
-) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
-    """The engine's single host->device copy site.
-
-    Returns ``(tensors, staging)``.  On a CUDA device each array is copied
-    into pinned host memory and sent with ``non_blocking=True``; ``staging``
-    holds those pinned buffers, which the caller keeps alive until the chunk
-    is emitted.  On the CPU the arrays are wrapped without a copy."""
-    hosts = tuple(torch.from_numpy(a) for a in arrays)
-    if device.type == "cpu":
-        return hosts, ()
-    staging = tuple(h.pin_memory() for h in hosts)
-    return tuple(h.to(device, non_blocking=True) for h in staging), staging
 
 
 def _pack_columnar(
@@ -458,6 +480,21 @@ def densify_chunk_dicts(plan: Any, groups: Groups) -> Optional[DenseChunk]:
         row_ids=np.concatenate(row_parts),
         blk_ids=np.concatenate(blk_parts),
         out_keys=np.asarray(out_keys, dtype=np.int64),
+    )
+
+
+def _emit_shards(dense, ov, om, stats) -> List[CanonicalRow]:
+    """The sharded engine's all-gather on the host: every shard's (n_shards,
+    S_loc, W) rows, each global output row i taken from its shard's slot
+    (flat index shard * S_loc + k), then emitted as the fused engine emits;
+    the fancy index copies, so the rows own their memory."""
+    n_sh, s_loc, w = ov.shape
+    flat = np.empty(dense.row_ids.size, np.int64)
+    for s, idx in enumerate(dense.shard_sel):
+        flat[idx] = s * s_loc + np.arange(idx.size)
+    return _emit_rows(
+        dense.plan, ov.reshape(n_sh * s_loc, w)[flat], om.reshape(n_sh * s_loc, w)[flat],
+        dense.blk_ids, dense.out_keys, stats,
     )
 
 
@@ -697,11 +734,14 @@ def make_engine(
 class FusedEngine(MappingEngine):
     """One fused dispatch for the whole chunk (all columns, all blocks).
 
-    With ``device_densify=True`` densify packs the chunk's raw items and
-    routing into ONE int32 buffer and dispatch resolves, densifies and maps
-    them in the one launch -- one transfer and one dispatch per chunk.
-    Chunks below ``min_device_events`` selected events take the host
-    scatter (four transfers, one dispatch), as in the reference.
+    By default densify scatters the chunk's payload into a host arena and
+    dispatch makes one :func:`~repro_torch.kernels.ops.dmm_apply_dense`
+    call (values, mask, rows, blks: four transfers, one dispatch).  With
+    ``device_densify=True`` densify packs the chunk's raw items and routing
+    into ONE int32 buffer and dispatch resolves, densifies and maps them in
+    the one launch -- one transfer and one dispatch per chunk.  Chunks below
+    ``min_device_events`` selected events take the host scatter, as in the
+    reference.  Emit reads the chunk's outputs back with one copy.
     """
 
     def __init__(
@@ -726,45 +766,30 @@ class FusedEngine(MappingEngine):
         layout = _chunk_layout(self.plan, tri, self.stats)
         if layout is None:
             return None
-        if not self.device_densify or layout.sel.size < self.min_device_events:
-            return _densify_host(self.plan, layout)
         s = layout.row_ids.size
-        s_pad = bucket_rows(s)
-        rows = np.zeros(s_pad, np.int32)
-        blks = np.zeros(s_pad, np.int32)
-        rows[:s] = layout.row_ids
-        blks[:s] = layout.blk_ids
-        return _pack_columnar(self.plan, layout, rows, blks, self._arenas, n_rows=s_pad)
+        rows = np.zeros((1, bucket_rows(s)), np.int32)
+        blks = np.zeros_like(rows)
+        rows[0, :s] = layout.row_ids
+        blks[0, :s] = layout.blk_ids
+        if not self.device_densify or layout.sel.size < self.min_device_events:
+            return _densify_host(self.plan, layout, self._arenas, rows, blks)
+        return _pack_columnar(self.plan, layout, rows[0], blks[0], self._arenas,
+                              n_rows=rows.shape[1])
 
     def dispatch(self, dense) -> DispatchHandle:
         fused = dense.plan
         if isinstance(dense, ColumnarDense):
-            return _dispatch_columnar(self._arenas, self.stats, dense, fused.uid_slot_dev,
-                                      fused.uid_col_dev, fused.src2d)
-        s = dense.row_ids.size
-        s_pad = bucket_rows(s)
-        (jv, jm, jr, jb), staging = _to_device(
-            self.device,
-            dense.vals,
-            dense.mask,
-            np.pad(dense.row_ids, (0, s_pad - s)),
-            np.pad(dense.blk_ids, (0, s_pad - s)),
-        )
-        outputs = dmm_apply_fused(jv, jm, jr, jb, fused.src2d)
-        self.stats["transfers"] += 4  # vals, mask, rows, blks
-        self.stats["dispatches"] += 1
-        return DispatchHandle(outputs=outputs, dense=dense, staging=staging)
+            return _dispatch(self._arenas, self.stats, dense, dmm_apply_packed,
+                             fused.uid_slot_dev, fused.uid_col_dev, fused.src2d,
+                             **dense.sizes())
+        return _dispatch(self._arenas, self.stats, dense, dmm_apply_dense, fused.src2d,
+                         **dense.sizes())
 
     def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
         dense = handle.dense
         s = dense.row_ids.size
-        if isinstance(handle.outputs, ChunkOutput):
-            vals, mask = self._readback.read(handle.outputs)
-            ov, om = vals[0, :s].copy(), mask[0, :s].copy()  # rows own their memory
-        else:
-            ov = handle.outputs[0][:s].cpu().numpy()
-            om = handle.outputs[1][:s].cpu().numpy()
-            handle.staging = ()  # the copies that read the staging buffers are done
+        vals, mask = self._readback.read(handle.outputs)
+        ov, om = vals[0, :s].copy(), mask[0, :s].copy()  # rows own their memory
         return _emit_rows(
             dense.plan, ov, om, dense.blk_ids, dense.out_keys, self.stats
         )
@@ -796,15 +821,15 @@ class ShardedEngine(MappingEngine):
     ``mesh.devices[s]``).
 
     ``densify`` splits the global (row, block) routing by owning shard (host
-    work); ``dispatch`` is one op call a chunk, which launches
-    ``segmented_gather_shard`` (host densify, 4 transfers) or
-    ``densify_map_shard`` (device densify, 1 transfer) once per device of the
-    mesh -- once a chunk when every shard is on one card; ``emit``, the one
-    sync point, is the all-gather: it reads every shard's rows back to the
-    host, puts them in global order and emits them as the fused engine does,
-    so the rows are bit-exact with it.  Chunks below ``min_device_events``
-    selected events take host densify, as in the reference.  The engine runs
-    on the mesh's first device.
+    work) and writes the chunk into a host arena; ``dispatch`` is one op
+    call a chunk, which launches ``segmented_gather_shard`` (host densify,
+    4 transfers) or ``densify_map_shard`` (device densify, 1 transfer) once
+    per device of the mesh -- once a chunk when every shard is on one card;
+    ``emit``, the one sync point, is the all-gather: it reads every shard's
+    rows back to the host with one copy, puts them in global order and
+    emits them as the fused engine does, so the rows are bit-exact with it.
+    Chunks below ``min_device_events`` selected events take host densify,
+    as in the reference.  The engine runs on the mesh's first device.
     """
 
     plan_kind = "sharded"
@@ -861,9 +886,7 @@ class ShardedEngine(MappingEngine):
             return None
         sel, rows_sh, blks_sh = self._shard_split(layout.row_ids, layout.blk_ids)
         if not self.device_densify or layout.sel.size < self.min_device_events:
-            dense = _densify_host(self.plan, layout)
-            dense.shard_sel, dense.rows_sh, dense.blks_sh = sel, rows_sh, blks_sh
-            return dense
+            return _densify_host(self.plan, layout, self._arenas, rows_sh, blks_sh, sel)
         return _pack_columnar(self.plan, layout, rows_sh.ravel(), blks_sh.ravel(),
                               self._arenas, n_rows=rows_sh.shape[1], shard_sel=sel,
                               n_shards=self.n_shards)
@@ -871,37 +894,14 @@ class ShardedEngine(MappingEngine):
     def dispatch(self, dense) -> DispatchHandle:
         sh = dense.plan
         if isinstance(dense, ColumnarDense):
-            return _dispatch_columnar(self._arenas, self.stats, dense, sh.uid_slot_dev,
-                                      sh.uid_col_dev, sh.src3d, mesh=self.mesh,
-                                      n_shards=dense.n_shards)
-        (jv, jm, jr, jb), staging = _to_device(
-            self.device, dense.vals, dense.mask, dense.rows_sh, dense.blks_sh
-        )
-        outputs = dmm_apply_sharded(jv, jm, jr, jb, sh.src3d, mesh=self.mesh)
-        self.stats["transfers"] += 4  # vals, mask, rows, blks
-        self.stats["dispatches"] += 1
-        return DispatchHandle(outputs=outputs, dense=dense, staging=staging)
+            return _dispatch(self._arenas, self.stats, dense, dmm_apply_packed,
+                             sh.uid_slot_dev, sh.uid_col_dev, sh.src3d, mesh=self.mesh,
+                             n_shards=dense.n_shards, **dense.sizes())
+        return _dispatch(self._arenas, self.stats, dense, dmm_apply_dense, sh.src3d,
+                         mesh=self.mesh, n_shards=dense.rows.shape[0], **dense.sizes())
 
     def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
-        dense = handle.dense
-        # the all-gather: every shard's rows to the host, then each global
-        # output row i from its shard's slot (flat index shard * S_loc + k);
-        # the fancy index below copies, so the rows own their memory
-        if isinstance(handle.outputs, ChunkOutput):
-            ov, om = self._readback.read(handle.outputs)
-        else:
-            ov = handle.outputs[0].cpu().numpy()
-            om = handle.outputs[1].cpu().numpy()
-            handle.staging = ()  # the copies that read the staging buffers are done
-        n_sh, s_loc, w = ov.shape
-        flat = np.empty(dense.row_ids.size, np.int64)
-        for s, idx in enumerate(dense.shard_sel):
-            flat[idx] = s * s_loc + np.arange(idx.size)
-        return _emit_rows(
-            dense.plan, ov.reshape(n_sh * s_loc, w)[flat],
-            om.reshape(n_sh * s_loc, w)[flat], dense.blk_ids, dense.out_keys,
-            self.stats,
-        )
+        return _emit_shards(handle.dense, *self._readback.read(handle.outputs), self.stats)
 
     def info(self) -> Dict[str, Any]:
         d = self._base_info()
@@ -937,8 +937,7 @@ def _grown(buf: Optional[torch.Tensor], n_bytes: int, pin: bool) -> torch.Tensor
 
 
 class _HostArenas:
-    """An engine's host arenas: two, taken in turn by ``densify`` (the
-    per-block engine's and device densify's).
+    """An engine's host arenas: two, taken in turn by ``densify``.
 
     A chunk's copies read its arena asynchronously, so ``dispatch`` records
     a CUDA event after issuing them (:meth:`release`) and :meth:`take` waits
@@ -980,10 +979,10 @@ class _HostArenas:
 
 
 class _ReadBack:
-    """Device densify's emit: a chunk's outputs back to the host with one
-    copy into a pinned buffer and one wait.  The buffer grows by doubling
-    and is rewritten by the next emit, so the caller copies what it keeps.
-    On the CPU the outputs are read where they lie."""
+    """The fused and sharded engines' emit: a chunk's outputs back to the
+    host with one copy into a pinned buffer and one wait.  The buffer grows
+    by doubling and is rewritten by the next emit, so the caller copies what
+    it keeps.  On the CPU the outputs are read where they lie."""
 
     def __init__(self) -> None:
         self.buf: Optional[torch.Tensor] = None
@@ -1000,19 +999,16 @@ class _ReadBack:
         return split_outputs(raw.numpy(), *out.shape)
 
 
-def _dispatch_columnar(arenas: _HostArenas, stats: collections.Counter,
-                       dense: ColumnarDense, uid_slot, uid_col, table,
-                       **sharded: Any) -> DispatchHandle:
-    """Device densify's dispatch, for the fused and the sharded engine: one
-    :func:`~repro_torch.kernels.ops.dmm_apply_packed` call from the chunk's
+def _dispatch(arenas: _HostArenas, stats: collections.Counter, dense, op, *args: Any,
+              **kwargs: Any) -> DispatchHandle:
+    """The fused and sharded engines' dispatch: one ``op`` call
+    (:func:`~repro_torch.kernels.ops.dmm_apply_dense` or
+    :func:`~repro_torch.kernels.ops.dmm_apply_packed`) from the chunk's
     host arena, then the event that frees the arena; ``stats`` counts the
     copies and dispatches the call reports."""
     arenas.check(dense.slot, dense.turn)
     try:
-        out = dmm_apply_packed(
-            dense.host, uid_slot, uid_col, table, n_items=dense.n_items,
-            n_events=dense.n_events, n_rows=dense.n_rows, k=dense.k, **sharded,
-        )
+        out = op(dense.host, *args, **kwargs)
     finally:
         arenas.release(dense.slot)
     stats["transfers"] += out.copies

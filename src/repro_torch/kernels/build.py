@@ -30,7 +30,7 @@ import torch
 
 __all__ = [
     "KERNELS", "NVCC_FLAGS", "build_dir", "build", "load", "library_path",
-    "ptxas_report", "check_operand",
+    "ptxas_report", "check_operand", "check_arena",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -154,3 +154,12 @@ def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def check_arena(host: torch.Tensor, n_bytes: int) -> None:
+    """What a chunk entry checks of the host arena it copies from: a
+    contiguous uint8 CPU tensor of at least ``n_bytes``."""
+    if (host.device.type != "cpu" or host.dtype != torch.uint8 or host.dim() != 1
+            or not host.is_contiguous() or host.numel() < n_bytes):
+        raise ValueError(f"host must be a contiguous uint8 CPU arena of at least "
+                         f"{n_bytes} bytes")

@@ -29,7 +29,8 @@
 // rows/blks, then the event's starts/counts/ev_col, then each item's uid,
 // then its uid_slot/uid_col entries -- four round trips to L2 or memory.
 //
-// Design: one warp owns one output row (z, s) and covers it 4 * 32 = 128
+// Design (the pieces shared with segmented_gather.cu are in warp_rows.cuh):
+// one warp owns one output row (z, s) and covers it 4 * 32 = 128
 // columns at a time, lane l the four columns 4l .. 4l + 3: one 16-byte load of
 // the block-table row, one 16-byte store of values and one 4-byte store of the
 // mask a lane (scalar accesses where W % 4 != 0 or an address is not aligned).
@@ -58,39 +59,14 @@
 
 #include <cstring>
 
+#include "warp_rows.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 4;  // warps, one output row each, per block
-constexpr int kSpan = 4 * kWarp;  // output columns a warp covers per pass
-constexpr int kNoSlot = -2;       // a dropped item; no table entry equals it
+using namespace warp_rows;
+
+constexpr int kNoSlot = -2;  // a dropped item; no table entry equals it
 constexpr unsigned kAllLanes = 0xffffffffu;
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return min(max(x, lo), hi);
-}
-
-__device__ __forceinline__ bool aligned(const void* p, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
-
-// the four table entries of columns q .. q + 3, each < 0 as -1 (no column
-// past the width names a slot)
-__device__ __forceinline__ void load_table(const int32_t* __restrict__ row,
-                                           int q, int width, int p[4]) {
-  if (q + 3 < width && aligned(row + q, 16)) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(row + q));
-    p[0] = v.x;
-    p[1] = v.y;
-    p[2] = v.z;
-    p[3] = v.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = q + i < width ? __ldg(row + q + i) : -1;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) p[i] = max(p[i], -1);
-}
 
 // item j of an event whose items start at `start`, of which the first n
 // count: its payload slot (kNoSlot when dropped) and value bits
@@ -117,25 +93,7 @@ __device__ __forceinline__ void resolve(
   }
 }
 
-__device__ __forceinline__ void store(int32_t* __restrict__ ov,
-                                      int8_t* __restrict__ om, int q,
-                                      int width, const int32_t acc[4],
-                                      uint32_t hit) {
-  if (q + 3 < width && aligned(ov + q, 16) && aligned(om + q, 4)) {
-    *reinterpret_cast<int4*>(ov + q) = make_int4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<uint32_t*>(om + q) = hit;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (q + i < width) {
-        ov[q + i] = acc[i];
-        om[q + i] = static_cast<int8_t>((hit >> (8 * i)) & 1);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 densify_map_kernel(const int32_t* __restrict__ packed,
                    const int32_t* __restrict__ uid_slot,
                    const int32_t* __restrict__ uid_col,
@@ -145,7 +103,7 @@ densify_map_kernel(const int32_t* __restrict__ packed,
                    int n_items, int n_events, int n_rows, int k, int n_uid,
                    int width, int n_blocks, int n_route, int shard_lo,
                    int32_t fill_bits) {
-  const int s = blockIdx.x * kRowsPerBlock + threadIdx.y;
+  const int s = blockIdx.x * kWarpsPerBlock + threadIdx.y;
   if (s >= n_rows) return;  // the whole warp: its row is past the routing
   const int lane = threadIdx.x;
   const int64_t z = blockIdx.y;  // local shard
@@ -221,8 +179,8 @@ int launch(const void* packed, const void* uid_slot, const void* uid_col,
   int32_t fill_bits;
   static_assert(sizeof(fill_bits) == sizeof(fill), "float is 32 bits");
   std::memcpy(&fill_bits, &fill, sizeof(fill));
-  const dim3 block(kWarp, kRowsPerBlock);
-  const dim3 grid((n_rows + kRowsPerBlock - 1) / kRowsPerBlock, n_shards);
+  const dim3 block(kWarp, kWarpsPerBlock);
+  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock, n_shards);
   densify_map_kernel<<<grid, block, 0, stream>>>(
       static_cast<const int32_t*>(packed),
       static_cast<const int32_t*>(uid_slot),
@@ -276,24 +234,6 @@ enum Param {
   kDevice, kBytes, kPackedAt, kItems, kEvents, kRows, kK, kUid, kWidth,
   kBlocks, kRoute, kShardLo, kShards, kFillBits, kCopies, kLaunches
 };
-constexpr int kNotPinned = -1;
-
-// makes `device` current until it goes out of scope
-struct DeviceGuard {
-  int prev = -1;
-  bool changed = false;
-  int err = 0;
-  explicit DeviceGuard(int device) {
-    err = static_cast<int>(cudaGetDevice(&prev));
-    if (err == 0 && prev != device) {
-      err = static_cast<int>(cudaSetDevice(device));
-      changed = err == 0;
-    }
-  }
-  ~DeviceGuard() {
-    if (changed) cudaSetDevice(prev);
-  }
-};
 
 }  // namespace
 
@@ -303,12 +243,7 @@ extern "C" int metl_densify_map_chunk(const void* host, void* dev_buf,
                                       int64_t* p) {
   p[kCopies] = 0;
   p[kLaunches] = 0;
-  cudaPointerAttributes attr;
-  if (cudaPointerGetAttributes(&attr, host) != cudaSuccess ||
-      attr.type != cudaMemoryTypeHost) {
-    cudaGetLastError();  // a pageable pointer is no error of the context
-    return kNotPinned;
-  }
+  if (!pinned(host)) return kNotPinned;
   DeviceGuard guard(static_cast<int>(p[kDevice]));
   if (guard.err != 0) return guard.err;
   if (p[kBytes] < 0 || p[kPackedAt] < 0)

@@ -61,7 +61,6 @@ _NOT_PINNED = -1  # metl_densify_map_chunk: the host arena is not pinned
 # metl_densify_map_chunk's parameter block (int64): the device, the packed
 # chunk's bytes and its offset in the device allocation, the sizes, the fill's
 # float32 bits; then the copies and launches it issued
-_PARAMS = 16
 
 
 def _check_tables(dev, uid_slot, uid_col, table, ndim=3) -> None:
@@ -240,10 +239,7 @@ def densify_map_chunk(
     """
     global launches, shard_launches
     n_bytes = 4 * (route_offset(n_items, n_events) + 2 * n_route * n_rows)
-    if (host.device.type != "cpu" or host.dtype != torch.uint8 or host.dim() != 1
-            or not host.is_contiguous() or host.numel() < n_bytes):
-        raise ValueError(f"host must be a contiguous uint8 CPU arena of at least "
-                         f"{n_bytes} bytes")
+    build.check_arena(host, n_bytes)
     dev = table.device
     n_blocks, w = table.shape[-2:]
     n_loc = table.shape[0] if table.dim() == 3 else 1

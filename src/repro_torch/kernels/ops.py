@@ -19,6 +19,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from . import build
 from .blocks import BlockChunk
 from .densify_map import densify_map, densify_map_chunk, densify_map_shard, split_outputs
 from .flash_attention import flash_attention
@@ -26,12 +27,13 @@ from .masked_gather import masked_gather, masked_gather_blocks
 from .moe_combine import moe_combine as _moe_combine_kernel
 from .onehot_map import onehot_map, onehot_map_blocks
 from .ref import route_offset
-from .segmented_gather import segmented_gather, segmented_gather_shard
+from .segmented_gather import (arena_layout, arena_views, segmented_gather,
+                               segmented_gather_chunk, segmented_gather_shard)
 
 __all__ = ["IMPLS", "dmm_apply", "dmm_apply_blocks", "dmm_apply_fused",
            "dmm_apply_columnar", "dmm_apply_sharded", "dmm_apply_columnar_sharded",
-           "ChunkOutput", "dmm_apply_packed", "dispatch_count", "attention",
-           "moe_combine"]
+           "ChunkOutput", "dmm_apply_dense", "dmm_apply_packed", "dispatch_count",
+           "attention", "moe_combine"]
 
 # Device-dispatch accounting: one per dmm_apply* call, and one per block that
 # dmm_apply_blocks maps (the model ops are no mapping dispatches and do not
@@ -155,6 +157,20 @@ def _gather(outs, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
                  for i in range(2))
 
 
+def _sharded(values, mask, rows, blks, src3d, *, mesh, fill):
+    """:func:`dmm_apply_sharded`'s work, not counted."""
+    home = values.device
+    outs = [
+        segmented_gather_shard(
+            values.to(dev, non_blocking=True), mask.to(dev, non_blocking=True),
+            rows[lo:hi].to(dev, non_blocking=True), blks[lo:hi].to(dev, non_blocking=True),
+            t, fill=fill,
+        )
+        for dev, lo, hi, t in _stacks(src3d, mesh)
+    ]
+    return _gather(outs, home)
+
+
 def dmm_apply_sharded(
     values: torch.Tensor,
     mask: torch.Tensor,
@@ -178,16 +194,7 @@ def dmm_apply_sharded(
     """
     global dispatch_count
     dispatch_count += 1
-    home = values.device
-    outs = [
-        segmented_gather_shard(
-            values.to(dev, non_blocking=True), mask.to(dev, non_blocking=True),
-            rows[lo:hi].to(dev, non_blocking=True), blks[lo:hi].to(dev, non_blocking=True),
-            t, fill=fill,
-        )
-        for dev, lo, hi, t in _stacks(src3d, mesh)
-    ]
-    return _gather(outs, home)
+    return _sharded(values, mask, rows, blks, src3d, mesh=mesh, fill=fill)
 
 
 # The packed layout of one device-densify chunk (built by
@@ -281,11 +288,11 @@ def dmm_apply_columnar_sharded(
 
 
 class ChunkOutput(NamedTuple):
-    """What :func:`dmm_apply_packed` returns: the device allocation ``buf``
-    that starts with the chunk's ``shape`` = (n_shards, S, W) outputs, not
-    synchronised (all float32 values, then all int8 masks; views ``values``
-    and ``mask``), and the host->device ``copies`` and the ``dispatches``
-    that produced them."""
+    """What :func:`dmm_apply_packed` and :func:`dmm_apply_dense` return: the
+    device allocation ``buf`` that starts with the chunk's ``shape`` =
+    (n_shards, S, W) outputs, not synchronised (all float32 values, then all
+    int8 masks; views ``values`` and ``mask``), and the host->device
+    ``copies`` and the ``dispatches`` that produced them."""
 
     buf: torch.Tensor
     shape: Tuple[int, int, int]
@@ -352,19 +359,87 @@ def dmm_apply_packed(
         buf, copies, dispatches = densify_map_chunk(
             host, sl, cl, t, n_route=n_shards, shard_lo=lo, fill=fill, **sizes)
     else:
-        home = stacks[0][0]
-        if not host.is_pinned():
-            raise ValueError("a CUDA dispatch needs a pinned host arena")
         n_bytes = 4 * (route_offset(n_items, n_events) + 2 * n_shards * n_rows)
-        packed = host[:n_bytes].view(torch.int32).to(home, non_blocking=True)
-        v, m = _columnar_sharded(packed, uid_slot, uid_col, table, mesh=mesh,
-                                 n_shards=n_shards, fill=fill, **sizes)
-        buf = torch.empty(5 * v.numel(), dtype=torch.uint8, device=home)
-        for dst, src in zip(split_outputs(buf, *v.shape), (v, m)):
-            dst.copy_(src, non_blocking=True)
+        _check_host(host, n_bytes)
+        packed = host[:n_bytes].view(torch.int32).to(stacks[0][0], non_blocking=True)
+        buf = _one_allocation(*_columnar_sharded(packed, uid_slot, uid_col, table, mesh=mesh,
+                                                 n_shards=n_shards, fill=fill, **sizes))
         copies, dispatches = 1, 1
     dispatch_count += dispatches
     return ChunkOutput(buf, (n_shards, n_rows, w), copies, dispatches)
+
+
+def dmm_apply_dense(
+    host: torch.Tensor,
+    table: Union[torch.Tensor, Sequence[torch.Tensor]],
+    *,
+    n_events: int,
+    n_in: int,
+    n_rows: int,
+    mesh: Optional[Any] = None,
+    n_shards: int = 1,
+    fill: float = 0.0,
+) -> ChunkOutput:
+    """Map a host-densified chunk that lies in a host arena in ONE
+    dispatch: the engines' host-densify route.
+
+    ``host`` is a uint8 arena holding the chunk's values (n_events, n_in)
+    float32 and mask int8 and its routing, rows and blks (``n_shards``,
+    n_rows) int32, at the offsets of
+    :func:`~repro_torch.kernels.segmented_gather.arena_layout`, pinned when
+    the table is on a CUDA device.  Without ``mesh``, ``table`` is the
+    replicated (n_blocks, W) block table; with one, it is the sharded table
+    (one stack per device group, :func:`dmm_apply_sharded`) and the blocks
+    are shard-local.  When every shard lies on one device (the replicated
+    table always does), one call
+    (:func:`~repro_torch.kernels.segmented_gather.segmented_gather_chunk`)
+    makes the four copies to that device and the launch, and its reported
+    copies and launches are returned (on the CPU the plain version runs on
+    a copy of the arena).  A mesh over several cards takes the per-device
+    route of :func:`dmm_apply_sharded`, fed by four copies from the arena:
+    4 copies and 1 dispatch, one launch per card.  Adds the dispatches to
+    ``dispatch_count``.  The caller keeps ``host`` unchanged until the
+    copies have run (an event recorded after this call)."""
+    global dispatch_count
+    sizes = dict(n_events=n_events, n_in=n_in, n_rows=n_rows)
+    if mesh is None:
+        if n_shards != 1:
+            raise ValueError(f"n_shards={n_shards} without a mesh")
+        buf, copies, dispatches = segmented_gather_chunk(host, table, fill=fill, **sizes)
+        dispatch_count += dispatches
+        return ChunkOutput(buf, (1, n_rows, table.shape[-1]), copies, dispatches)
+    if n_shards != mesh.shape["data"]:
+        raise ValueError(f"n_shards={n_shards} != the mesh's {mesh.shape['data']} shards")
+    stacks = _stacks(table, mesh)
+    w = stacks[0][3].shape[2]
+    if len(stacks) == 1:
+        buf, copies, dispatches = segmented_gather_chunk(host, stacks[0][3], n_route=n_shards,
+                                                         fill=fill, **sizes)
+    else:
+        _check_host(host, arena_layout(n_events, n_in, n_shards, n_rows)[1])
+        operands = [x.to(stacks[0][0], non_blocking=True)
+                    for x in arena_views(host, n_events, n_in, n_shards, n_rows)]
+        buf = _one_allocation(*_sharded(*operands, table, mesh=mesh, fill=fill))
+        copies, dispatches = len(operands), 1
+    dispatch_count += dispatches
+    return ChunkOutput(buf, (n_shards, n_rows, w), copies, dispatches)
+
+
+def _check_host(host: torch.Tensor, n_bytes: int) -> None:
+    """What a mesh over several cards asks of the host arena it copies
+    from: :func:`~repro_torch.kernels.build.check_arena`, and pinned."""
+    build.check_arena(host, n_bytes)
+    if not host.is_pinned():
+        raise ValueError("a CUDA dispatch needs a pinned host arena")
+
+
+def _one_allocation(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """A (values, mask) pair copied into one uint8 allocation on their
+    device, as :class:`ChunkOutput` holds it, without synchronising."""
+    buf = torch.empty(5 * values.numel(), dtype=torch.uint8, device=values.device)
+    for dst, src in zip(split_outputs(buf, *values.shape), (values, mask)):
+        dst.copy_(src, non_blocking=True)
+    return buf
 
 
 def moe_combine(expert_out: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
