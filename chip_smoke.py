@@ -75,7 +75,26 @@ failure raises and the script exits non-zero):
    compare every row and every stats counter with the same stream through
    ``device="cpu"`` apps (the plain versions), and the sharded and
    per-block rows with the fused rows (the fused and sharded paths' counts
-   are the ones the chunk's one C call reports);
+   are the ones the chunk's one C call reports); each path's line also
+   prints the plan layer after the evolution's build (``plan at chunk
+   32``: its epoch, ``rebuild_ms``, ``incremental``, ``touched_columns``
+   and ``bytes_resident``, per shard too on the sharded paths), and the run
+   fails unless the default plan manager spliced it;
+4b. the plan lifecycle at the full size of ``benchmarks/bench_compaction.
+   py``'s soak (``soak_config()``: 80 schemas x 6 versions, 36 chunks of
+   256 events, 16 schema evolutions every 2 chunks from chunk 1): arm A
+   (incremental), arm B (full rebuilds), arm C (incremental and tiered,
+   only the latest versions resident) and arm A with the background build
+   on the card, and arm A on the CPU; one ``plan lifecycle arm`` line each
+   (churn rebuild ms in all and per cutover, first build ms, chunk ms p50
+   and p99, events/s, bytes resident) and one for arm C's cold path (cold
+   columns, tier misses, ``masked_gather`` launches, the copies to the card
+   and readbacks it made); the run fails unless A's row keys equal B's in
+   order, A's rows and stats equal the CPU run's, C's and the background
+   arm's rows equal A's (C by key), A made 16 incremental builds and B
+   none, and C kept columns cold, missed, holds fewer resident bytes than
+   A and launched ``masked_gather`` and no other kernel but the resident
+   path's;
 5. serve olmo-1b at full width (16 layers, d_model 2048, random weights
    from a seeded ``torch.Generator``): (a) the prefill ``forward`` with
    ``attn_impl="pallas"`` over a (2, 2048) prompt batch, 16 launches of
@@ -793,12 +812,26 @@ def _zero_launch_counts() -> None:
     ops.dispatch_count = 0
 
 
+def plan_layer(app, first_build_s: float) -> dict:
+    """The plan layer of the app's serving lease: the build's time (beside
+    the first build's), whether it spliced, the columns it re-lowered and
+    the device-resident table bytes (per shard too on the sharded paths)."""
+    lease = app.engine.lease
+    out = {"epoch": lease.epoch, "rebuild_ms": lease.rebuild_s * 1e3,
+           "first_build_ms": first_build_s * 1e3,
+           "incremental": lease.incremental, "touched_columns": lease.touched_columns,
+           "columns": len(lease.compiled.by_column), "bytes_resident": lease.bytes_resident}
+    if hasattr(lease.plan, "table_bytes_per_shard"):
+        out["bytes_resident_per_shard"] = lease.plan.table_bytes_per_shard
+    return out
+
+
 def run_main_path(device, path, cfg, stream, *, n_chunks, evolve_at):
     """One METLApp over the stream on ``device``, configured by ``path``
     (``engine``/``impl``/``device_densify`` keywords, and ``shards``: that
     many shards of a mesh on ``device``); returns (rows, stats, consume
     seconds per chunk, kernel launch counts, per-chunk accounting, the
-    app)."""
+    app, the plan layer after the evolution chunk's rebuild)."""
     from repro_torch.core.state import StateCoordinator
     from repro_torch.core.synthetic import build_scenario, churn_schedule
     from repro_torch.etl.metl import METLApp
@@ -812,6 +845,7 @@ def run_main_path(device, path, cfg, stream, *, n_chunks, evolve_at):
     if "shards" in kwargs:
         kwargs["mesh"] = make_etl_mesh(devices=[device] * kwargs.pop("shards"))
     app = METLApp(coord, device=device, **kwargs)
+    first_build_s = app.engine.lease.rebuild_s
     log = DensifyLog(app.engine) if app.engine.plan_kind == "blocks" else None
     rows, per_chunk, chunk_s = [], [], []
     _zero_launch_counts()
@@ -831,10 +865,12 @@ def run_main_path(device, path, cfg, stream, *, n_chunks, evolve_at):
             acct["groups"], acct["blocks_touched"] = log.take()
         per_chunk.append(acct)
         rows.extend(out)
+        if k == evolve_at:
+            plan = plan_layer(app, first_build_s)
     if log is not None:
         log.close()
     launches = {**_launch_counts(), "dispatch_count": ops.dispatch_count}
-    return rows, dict(app.stats), chunk_s, launches, per_chunk, app
+    return rows, dict(app.stats), chunk_s, launches, per_chunk, app, plan
 
 
 def check_accounting(name, per_chunk, path, on_card):
@@ -885,6 +921,131 @@ def compare_rows(name, got, want, atol=None) -> int:
             if atol is None or not np.allclose(x[1], y[1], rtol=0.0, atol=atol):
                 raise AssertionError(f"{name} row {i}: values differ from reference")
     return n_bits
+
+
+# -- phase 4b: the plan lifecycle -------------------------------------------------
+
+SOAK_CHUNKS, SOAK_EVENTS, SOAK_CHURN, SOAK_EVERY = 36, 256, 16, 2  # bench_compaction.py's
+
+
+def soak_arm(device, *, incremental=True, tiering=None, background=False) -> dict:
+    """One arm of ``benchmarks/bench_compaction.py``'s soak on ``device``: a
+    fresh ``soak_config()`` world served by an explicit fused
+    ``PlanManager``, ``SOAK_CHURN`` schema evolutions from ``churn_schedule
+    (first_chunk=1, every=2, seed=13)`` applied at chunk boundaries,
+    ``SOAK_CHUNKS`` chunks of ``SOAK_EVENTS`` events of ``EventSource(seed=5)``
+    consumed on the host clock (chunks made outside it).  Returns the rows,
+    the manager's and the engine's ``info()``, the app's ``stats``, the
+    build time of each cutover and the consume time of each chunk; the
+    kernels' counts are zeroed just before the arm and read just after."""
+    from repro_torch.core.state import StateCoordinator
+    from repro_torch.core.synthetic import build_scenario, churn_schedule, soak_config
+    from repro_torch.etl import EventSource, METLApp, PlanManager
+
+    sc = build_scenario(soak_config())
+    coord = StateCoordinator(sc.registry, sc.dpm)
+    mgr = PlanManager(device=device, coordinator=coord, incremental=incremental,
+                      tiering=tiering, background=background)
+    try:
+        _zero_launch_counts()
+        app = METLApp(coord, plan_manager=mgr)  # builds and serves epoch 1
+        first_s = mgr.info()["total_rebuild_s"]
+        sched = churn_schedule(coord.registry, steps=SOAK_CHURN, first_chunk=1,
+                               every=SOAK_EVERY, seed=13)
+        src = EventSource(sc.registry, seed=5)
+        rows, chunk_s, cutover_s = [], [], []
+        for k in range(SOAK_CHUNKS):
+            if k in sched:
+                coord.apply(sched[k])
+            chunk = src.slice_columnar(k * SOAK_EVENTS, SOAK_EVENTS)
+            t0 = time.perf_counter()
+            rows.extend(app.consume(chunk))
+            chunk_s.append(time.perf_counter() - t0)
+            if k in sched:
+                cutover_s.append(app.engine.lease.rebuild_s)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = _launch_counts()
+    finally:
+        mgr.close()
+    return {"rows": rows, "minfo": mgr.info(), "einfo": app.engine.info(),
+            "stats": dict(app.stats), "first_s": first_s, "cutover_s": cutover_s,
+            "chunk_s": chunk_s, "launches": launches}
+
+
+def soak_summary(arm: dict) -> dict:
+    """The numbers a soak arm's line prints: churn rebuild ms (all cutovers
+    and each), first build ms, chunk ms p50 / p99, events/s, bytes resident."""
+    chunk_ms = np.asarray(arm["chunk_s"]) * 1e3
+    return {"churn_rebuild_ms": sum(arm["cutover_s"]) * 1e3,
+            "cutover_ms": [t * 1e3 for t in arm["cutover_s"]],
+            "first_build_ms": arm["first_s"] * 1e3,
+            "chunk_ms_p50": float(np.percentile(chunk_ms, 50)),
+            "chunk_ms_p99": float(np.percentile(chunk_ms, 99)),
+            "events_per_s": SOAK_CHUNKS * SOAK_EVENTS / (chunk_ms.sum() / 1e3),
+            "rows": len(arm["rows"]), "bytes_resident": arm["einfo"]["bytes_resident"],
+            "rebuilds": arm["minfo"]["rebuilds"],
+            "incremental_rebuilds": arm["minfo"]["incremental_rebuilds"]}
+
+
+def plan_lifecycle(dev) -> None:
+    """The plan lifecycle at the reference soak's full size, on the card:
+    arm A incremental, arm B full rebuilds, arm C incremental and tiered
+    (only the latest versions pinned), arm A again with the background
+    build, and arm A on the CPU.  Fails unless A's row keys equal B's in
+    order, A's rows equal the CPU run's bit for bit, C's rows sorted equal
+    A's, the background arm's rows equal A's, A made 16 incremental builds
+    and B none, and C kept columns cold, missed, holds fewer resident bytes
+    than A and mapped its misses through the ``masked_gather`` kernel."""
+    from repro_torch.etl import TieringPolicy
+
+    arms = {"A": soak_arm(dev), "B": soak_arm(dev, incremental=False),
+            "C": soak_arm(dev, tiering=TieringPolicy(min_hits=10**9, pin_latest=True)),
+            "A background": soak_arm(dev, background=True), "A cpu": soak_arm("cpu")}
+    for name, arm in arms.items():
+        print(f"{elapsed()} plan lifecycle arm {name}: " + json.dumps(soak_summary(arm)),
+              flush=True)
+    a, b, c = arms["A"], arms["B"], arms["C"]
+    if not a["rows"]:
+        raise AssertionError("plan lifecycle: arm A emitted no rows")
+    if [r[3] for r in a["rows"]] != [r[3] for r in b["rows"]]:
+        raise AssertionError("plan lifecycle: arm A's row keys differ from arm B's")
+    compare_rows("plan lifecycle A vs cpu", a["rows"], arms["A cpu"]["rows"])
+    compare_rows("plan lifecycle A background vs A", arms["A background"]["rows"], a["rows"])
+
+    def by_key(rows):
+        return sorted(rows, key=lambda r: (r[3], r[0]))
+
+    compare_rows("plan lifecycle C vs A (sorted)", by_key(c["rows"]), by_key(a["rows"]))
+    if a["stats"] != arms["A cpu"]["stats"]:
+        raise AssertionError(f"plan lifecycle: arm A stats {a['stats']} != cpu "
+                             f"{arms['A cpu']['stats']}")
+    if (a["minfo"]["incremental_rebuilds"], b["minfo"]["incremental_rebuilds"]) != (SOAK_CHURN, 0):
+        raise AssertionError(f"plan lifecycle: {a['minfo']['incremental_rebuilds']} / "
+                             f"{b['minfo']['incremental_rebuilds']} incremental builds "
+                             f"(want {SOAK_CHURN} / 0)")
+    cold_transfers = c["stats"]["transfers"] - 4 * c["stats"]["dispatches"]
+    cold = {"cold_columns": c["minfo"]["cold_columns"],
+            "tier_misses": c["stats"].get("tier_misses", 0),
+            "masked_gather_launches": c["launches"]["masked_gather"],
+            "other_launches": {n: v for n, v in c["launches"].items()
+                               if n not in ("masked_gather", "segmented_gather") and v},
+            # per cold column a chunk maps: the reference's 2 counted transfers;
+            # the port copies values, mask and the index vectors (3), and reads
+            # each block's values and mask back (2 a launch)
+            "counted_cold_transfers": cold_transfers,
+            "cold_copies_to_card": cold_transfers // 2 * 3,
+            "cold_readbacks": 2 * c["launches"]["masked_gather"],
+            "bytes_resident": c["einfo"]["bytes_resident"],
+            "bytes_resident_A": a["einfo"]["bytes_resident"]}
+    print(f"plan lifecycle arm C cold path: {json.dumps(cold)}", flush=True)
+    if not (cold["cold_columns"] > 0 and cold["tier_misses"] > 0
+            and cold["bytes_resident"] < cold["bytes_resident_A"]
+            and cold["masked_gather_launches"] > 0 and not cold["other_launches"]):
+        raise AssertionError(f"plan lifecycle: arm C's tiering did not hold: {cold}")
+    speedup = soak_summary(b)["churn_rebuild_ms"] / soak_summary(a)["churn_rebuild_ms"]
+    print(f"plan lifecycle: rows of A, B, C, A background equal (A bit for bit with the cpu, "
+          f"C by key); churn rebuild B / A = {speedup:.2f}x", flush=True)
 
 
 # -- phase 5: timing -------------------------------------------------------------
@@ -2189,12 +2350,16 @@ def main() -> int:
     for where, device in (("cuda", dev), ("cpu", "cpu")):
         for pname, path in paths.items():
             name = f"{where}/{pname}"
-            rows, stats, chunk_s, launches, per_chunk, app = run_main_path(
+            rows, stats, chunk_s, launches, per_chunk, app, plan = run_main_path(
                 device, path, cfg, stream, n_chunks=CHUNKS, evolve_at=EVOLVE_AT
             )
             if device == dev:
                 torch.cuda.synchronize()
             check_accounting(name, per_chunk, path, on_card=device == dev)
+            # the default manager splices the evolution, as the reference's does
+            if not (plan["incremental"] and plan["epoch"] == 2
+                    and 0 < plan["touched_columns"] < plan["columns"]):
+                raise AssertionError(f"{name}: the evolution's build was not a splice: {plan}")
             runs[name] = (rows, stats, launches, app)
             info = app.engine.info()
             seconds, median_s = sum(chunk_s), statistics.median(chunk_s)
@@ -2209,7 +2374,8 @@ def main() -> int:
                   f"({per['dispatches']:.2f}/chunk); transfers {stats['transfers']} "
                   f"({per['transfers']:.2f}/chunk); launches {json.dumps(launches)}; "
                   f"engine {info['engine']} impl {info['impl']} "
-                  f"n_blocks {info['n_blocks']} table_bytes {info['table_bytes']}",
+                  f"n_blocks {info['n_blocks']} table_bytes {info['table_bytes']}; "
+                  f"plan at chunk {EVOLVE_AT} {json.dumps(plan)}",
                   flush=True)
     for pname in paths:
         got, want = runs[f"cuda/{pname}"], runs[f"cpu/{pname}"]
@@ -2264,6 +2430,8 @@ def main() -> int:
     for pname in ("host", "sharded-host"):
         print(f"{elapsed()} host-densify host cuda/{pname}: " + json.dumps(
             host_split(runs[f"cuda/{pname}"][3], later)), flush=True)
+
+    plan_lifecycle(dev)
 
     serving = serving_path(dev)
 

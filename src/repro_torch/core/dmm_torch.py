@@ -7,7 +7,10 @@ consume paths run: the per-block lowering (:func:`compile_block`,
 (:func:`apply_compacted`, the DMM gather, and :func:`apply_onehot`, the
 paper's matrix-operator baseline), the fused block table
 (:func:`compile_fused`) and its partition over a mesh's shards
-(:func:`compile_fused_sharded`).
+(:func:`compile_fused_sharded`), and the incremental lowering the plan
+manager runs across a schema change: :func:`recompile_columns` re-lowers
+only the touched columns and :func:`splice_fused` splices them into the
+previous plan's table.
 
 The paper's final mapping function is a *set lookup*: for each dense set
 element ``(q, p)`` with value 1, move payload slot ``p`` to output slot
@@ -26,7 +29,9 @@ and the fused plan (:class:`FusedDMM`) stacks every block of a state into
 
 ``src2d`` and the uid tables' device copies live on the plan's ``device``
 (a sharded plan's slices on their shards' devices); everything else is
-host-side numpy.  A per-block plan placed with
+host-side numpy, including ``table_host``, the numpy table the build
+uploaded, which the splice copies from (so a rebuild never reads a table
+back from the device).  A per-block plan placed with
 :func:`place_blocks` keeps every block's ``src`` on the device too, as views
 of one buffer uploaded once per state.  The ``LANE`` / ``SUBLANE`` padding of
 the reference is kept as it is, so every table here equals the reference's
@@ -65,6 +70,8 @@ __all__ = [
     "global_uid_tables",
     "ShardedFusedDMM",
     "compile_fused_sharded",
+    "recompile_columns",
+    "splice_fused",
 ]
 
 LANE = 128  # table row padding, kept from the reference for byte-equal tables
@@ -287,6 +294,7 @@ class FusedColumn:
     uid_pos: Dict[int, int]
     block_ids: np.ndarray  # int32 (k,): rows of FusedDMM.src2d
     col_id: int = -1  # position of this column in the plan's column order
+    uids_arr: Optional[np.ndarray] = None  # int64 (n_in,): the column's uids, in slot order
 
 
 @dataclasses.dataclass
@@ -311,6 +319,7 @@ class FusedDMM:
     # device copies of the uid tables, for the device-densify path
     uid_slot_dev: Optional[torch.Tensor] = None
     uid_col_dev: Optional[torch.Tensor] = None
+    table_host: Optional[np.ndarray] = None  # int32 (n_blocks_pad, W): src2d's host copy
 
     def column(self, o: int, v: int) -> Optional[FusedColumn]:
         return self.columns.get((o, v))
@@ -374,6 +383,7 @@ def _fused_tables(compiled: CompiledDMM, registry: Registry, lane: int = LANE) -
             uid_pos=uid_pos,
             block_ids=np.asarray(ids, dtype=np.int32),
             col_id=len(columns),
+            uids_arr=np.asarray(sv.uids, dtype=np.int64),
         )
     # plan-global uid tables: uids are globally unique (one registry
     # counter), so one dense table resolves any payload uid to its slot and
@@ -400,21 +410,15 @@ def _fused_tables(compiled: CompiledDMM, registry: Registry, lane: int = LANE) -
             col_block_start, col_block_count)
 
 
-def compile_fused(
-    compiled: CompiledDMM,
-    registry: Registry,
-    lane: int = LANE,
-    *,
-    device: DeviceLike = "cuda",
-) -> FusedDMM:
-    """Flatten a :class:`CompiledDMM` into the fused block table and place
-    its device-side tables (``src2d``, ``uid_slot_dev``, ``uid_col_dev``) on
-    ``device``.  Built once per state by the plan manager."""
+def _assemble_replicated(parts: Tuple, state: int, device: DeviceLike) -> FusedDMM:
+    """Place a host table bundle (:func:`_fused_tables` layout) on
+    ``device`` as a replicated :class:`FusedDMM`; the bundle's numpy table
+    stays on the plan as ``table_host``."""
     dev = resolve_device(device)
     (table, routes, n_out, columns, n_in_pad, width, n_blocks, uid_slot,
-     uid_col, cb_start, cb_count) = _fused_tables(compiled, registry, lane)
-    return FusedDMM(  # metl: allow[plan-publish-single-site] the port's lowering primitive, the counterpart of repro.core.dmm_jax; only repro_torch.etl.plan.PlanManager calls compile_fused
-        state=compiled.state,
+     uid_col, cb_start, cb_count) = parts
+    return FusedDMM(  # metl: allow[plan-publish-single-site] the port's lowering primitive, the counterpart of repro.core.dmm_jax; only repro_torch.etl.plan.PlanManager reaches it, through compile_fused and splice_fused
+        state=state,
         n_in_pad=n_in_pad,
         width=width,
         n_blocks=n_blocks,
@@ -428,7 +432,23 @@ def compile_fused(
         col_block_count=cb_count,
         uid_slot_dev=torch.from_numpy(uid_slot).to(dev),
         uid_col_dev=torch.from_numpy(uid_col).to(dev),
+        table_host=table,
     )
+
+
+def compile_fused(
+    compiled: CompiledDMM,
+    registry: Registry,
+    lane: int = LANE,
+    *,
+    device: DeviceLike = "cuda",
+) -> FusedDMM:
+    """Flatten a :class:`CompiledDMM` into the fused block table and place
+    its device-side tables (``src2d``, ``uid_slot_dev``, ``uid_col_dev``) on
+    ``device``.  Built by the plan manager; this full rebuild is the
+    bit-exactness oracle of the incremental path (:func:`splice_fused`)."""
+    return _assemble_replicated(_fused_tables(compiled, registry, lane), compiled.state,
+                                device)
 
 
 @dataclasses.dataclass
@@ -465,6 +485,8 @@ class ShardedFusedDMM:
     col_block_count: np.ndarray = None  # int32 (n_cols,)
     uid_slot_dev: Tuple[torch.Tensor, ...] = ()  # one copy per device group
     uid_col_dev: Tuple[torch.Tensor, ...] = ()
+    # int32 (n_blocks_pad, W): the table in global block order, on the host
+    table_host: Optional[np.ndarray] = None
 
     def column(self, o: int, v: int) -> Optional[FusedColumn]:
         return self.columns.get((o, v))
@@ -518,12 +540,10 @@ def compile_fused_sharded(
         raise ValueError("need a mesh or an explicit n_shards")
     if n_shards < 1:
         raise ValueError(f"n_shards={n_shards} < 1")
+    groups = mesh.groups if mesh is not None else ((resolve_device(device), 0, n_shards),)
     return _assemble_sharded(
-        _fused_tables(compiled, registry, lane),
-        compiled.state,
-        mesh=mesh,
+        _fused_tables(compiled, registry, lane), compiled.state, groups=groups,
         n_shards=n_shards,
-        device=device,
     )
 
 
@@ -531,13 +551,13 @@ def _assemble_sharded(
     parts: Tuple,
     state: int,
     *,
-    mesh: Optional[Any],
+    groups: Tuple[Tuple[torch.device, int, int], ...],
     n_shards: int,
-    device: DeviceLike = "cuda",
 ) -> ShardedFusedDMM:
     """Partition a host table bundle (:func:`_fused_tables`) over
     ``n_shards`` contiguous block ranges, as the reference does, and place
-    one stack per device group."""
+    one stack per device group ``(device, lo, hi)``; the bundle's numpy
+    table stays on the plan as ``table_host``."""
     (table, routes, n_out, columns, n_in_pad, width, n_blocks, uid_slot,
      uid_col, cb_start, cb_count) = parts
     per = -(-max(n_blocks, 1) // n_shards)
@@ -547,7 +567,6 @@ def _assemble_sharded(
         lo, hi = s * per, min((s + 1) * per, n_blocks)
         if hi > lo:
             src3d_np[s, : hi - lo] = table[lo:hi]
-    groups = mesh.groups if mesh is not None else ((resolve_device(device), 0, n_shards),)
     host = torch.from_numpy(src3d_np)
     return ShardedFusedDMM(  # metl: allow[plan-publish-single-site] the port's lowering primitive, the counterpart of repro.core.dmm_jax; only repro_torch.etl.plan.PlanManager calls compile_fused_sharded
         state=state,
@@ -567,4 +586,157 @@ def _assemble_sharded(
         col_block_count=cb_count,
         uid_slot_dev=tuple(torch.from_numpy(uid_slot).to(dev) for dev, _, _ in groups),
         uid_col_dev=tuple(torch.from_numpy(uid_col).to(dev) for dev, _, _ in groups),
+        table_host=table,
     )
+
+
+# ---------------------------------------------------------------------------
+# Incremental recompaction: rebuild only the touched columns (PlanManager)
+# ---------------------------------------------------------------------------
+
+
+def recompile_columns(
+    compiled: CompiledDMM, dpm: DPM, registry: Registry, touched, *, lane: int = LANE
+) -> CompiledDMM:
+    """Re-lower a DPM after a localised change, reusing every block of an
+    untouched column by block key.
+
+    ``touched`` is the set of incoming ``(o, v)`` columns whose mapping paths
+    changed since ``compiled`` was built (the plan manager's DPM diff).
+    Reuse is safe because a registry version is immutable once cut; the
+    caller must list every column whose elements changed, or a stale block
+    is reused.  Equal, block for block, to :func:`compile_dpm` of ``dpm``.
+    """
+    touched = frozenset(touched)
+    old_by_key = {blk.key: blk for blocks in compiled.by_column.values() for blk in blocks}
+    by_column: Dict[Tuple[int, int], List[CompactedBlockMap]] = {}
+    for key, elements in sorted(dpm.items()):
+        o, v, r, w = key
+        blk = old_by_key.get(key) if (o, v) not in touched else None
+        if blk is None:
+            blk = compile_block(key, elements, registry, lane)
+        by_column.setdefault((o, v), []).append(blk)
+    return CompiledDMM(state=registry.state, by_column=by_column)
+
+
+def _vectorised_uid_tables(columns) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`_uid_tables_from` by two scatters over the columns'
+    ``uids_arr``; equal to it because registry uids are globally unique, so
+    no uid belongs to two columns and the scatter order cannot matter."""
+    cols = [c for c in columns if c.uids_arr is not None and c.uids_arr.size]
+    if not cols:
+        return np.empty(0, dtype=np.int32), np.empty(0, dtype=np.int32)
+    all_uids = np.concatenate([c.uids_arr for c in cols])
+    sizes = np.asarray([c.uids_arr.size for c in cols], dtype=np.int64)
+    col_ids = np.asarray([c.col_id for c in cols], dtype=np.int32)
+    uid_slot = np.full(int(all_uids.max()) + 1, -1, dtype=np.int32)
+    uid_col = np.full(uid_slot.size, -1, dtype=np.int32)
+    starts = np.repeat(np.cumsum(sizes) - sizes, sizes)
+    uid_slot[all_uids] = (np.arange(all_uids.size, dtype=np.int64) - starts).astype(np.int32)
+    uid_col[all_uids] = np.repeat(col_ids, sizes)
+    return uid_slot, uid_col
+
+
+def _spliced_tables(
+    old: Union[FusedDMM, ShardedFusedDMM], compiled: CompiledDMM, registry: Registry,
+    touched, lane: int,
+) -> Tuple:
+    """A :func:`_fused_tables` bundle for ``compiled`` made by splicing:
+    untouched columns reuse the old plan's table rows (one fancy-index copy
+    from its host table) and :class:`FusedColumn` metadata; only touched or
+    new columns fill their rows block by block and build their uid dict."""
+    width = lane
+    for blocks in compiled.by_column.values():
+        for blk in blocks:
+            width = max(width, blk.n_out_pad)
+    routes: List[Tuple[int, int]] = []
+    n_out: List[int] = []
+    columns: Dict[Tuple[int, int], FusedColumn] = {}
+    n_in_max = 1
+    reuse_new: List[int] = []  # new global row of each reused column's first block
+    reuse_old: List[np.ndarray] = []  # that column's old block ids
+    fresh: List[Tuple[int, np.ndarray]] = []  # (row, src) of each rebuilt block
+    for (o, v), blocks in compiled.by_column.items():
+        old_col = None if (o, v) in touched else old.columns.get((o, v))
+        if old_col is not None and old_col.block_ids.size != len(blocks):
+            old_col = None  # the column's block layout changed: rebuild it
+        start = len(routes)
+        for blk in blocks:
+            routes.append((blk.key[2], blk.key[3]))
+            n_out.append(blk.n_out)
+            if old_col is None:
+                fresh.append((len(routes) - 1, blk.src))
+        if old_col is not None:
+            uid_pos, n_in, uids_arr = old_col.uid_pos, old_col.n_in, old_col.uids_arr
+            reuse_new.append(start)
+            reuse_old.append(old_col.block_ids)
+        else:
+            sv = registry.domain.get(o, v)
+            uid_pos = {u: k for k, u in enumerate(sv.uids)}
+            uids_arr = np.asarray(sv.uids, dtype=np.int64)
+            n_in = len(sv.uids)
+        n_in_max = max(n_in_max, n_in)
+        columns[(o, v)] = FusedColumn(
+            o=o,
+            v=v,
+            n_in=n_in,
+            uid_pos=uid_pos,
+            block_ids=np.arange(start, len(routes), dtype=np.int32),
+            col_id=len(columns),
+            uids_arr=uids_arr,
+        )
+    n_blocks = len(routes)
+    n_blocks_pad = max(SUBLANE, -(-max(n_blocks, 1) // SUBLANE) * SUBLANE)
+    table = np.full((n_blocks_pad, width), -1, dtype=np.int32)
+    if reuse_new:
+        new_ids = np.concatenate([np.arange(s, s + ids.size, dtype=np.int64)
+                                  for s, ids in zip(reuse_new, reuse_old)])
+        old_ids = np.concatenate([ids.astype(np.int64) for ids in reuse_old])
+        # the width shrinks when the widest column is rebuilt narrower: the
+        # cut tail of every reused row is -1 pad (width still covers each
+        # reused block's n_out_pad)
+        old_np = old.table_host
+        w = min(old_np.shape[1], width)
+        table[new_ids, :w] = old_np[old_ids, :w]
+    for t, src in fresh:
+        table[t, : src.shape[0]] = src
+    uid_slot, uid_col = _vectorised_uid_tables(columns.values())
+    col_block_start = np.asarray(
+        [int(c.block_ids[0]) if c.block_ids.size else 0 for c in columns.values()],
+        dtype=np.int32,
+    )
+    col_block_count = np.asarray([c.block_ids.size for c in columns.values()], dtype=np.int32)
+    return (table, routes, np.asarray(n_out, dtype=np.int32), columns,
+            pad_to_lane(n_in_max, lane), width, n_blocks, uid_slot, uid_col,
+            col_block_start, col_block_count)
+
+
+def splice_fused(
+    plan: Union[FusedDMM, ShardedFusedDMM],
+    compiled: CompiledDMM,
+    registry: Registry,
+    touched,
+    *,
+    lane: int = LANE,
+) -> Union[FusedDMM, ShardedFusedDMM]:
+    """Rebuild a fused plan incrementally: splice ``compiled``'s touched
+    columns into ``plan``'s table instead of re-flattening every column.
+
+    ``plan`` is the previous epoch's :class:`FusedDMM` (the result goes to
+    the same device) or :class:`ShardedFusedDMM` (the same shard count and
+    device groups; the new table is partitioned afresh, so a change of
+    width or block count moves the shard boundaries as a full build
+    would).  ``touched`` is the changed-column set (see
+    :func:`recompile_columns`).  Columns absent from ``compiled`` (deleted
+    versions, or columns a residency policy keeps out) drop out of the
+    table; columns absent from ``plan`` are built from scratch.  The old
+    table is read from its host copy (``table_host``), never from the
+    device, and its device storage is left as it is: chunks in flight may
+    still read it.  Equal to :func:`compile_fused` /
+    :func:`compile_fused_sharded` of the same ``compiled``, byte for byte.
+    """
+    parts = _spliced_tables(plan, compiled, registry, frozenset(touched), lane)
+    if isinstance(plan, ShardedFusedDMM):
+        return _assemble_sharded(parts, compiled.state, groups=plan.groups,
+                                 n_shards=plan.n_shards)
+    return _assemble_replicated(parts, compiled.state, plan.src2d.device)

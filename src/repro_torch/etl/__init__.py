@@ -11,7 +11,7 @@ from .control import (  # noqa: F401
     VersionDeleted,
     replay_control_log,
 )
-from .plan import PlanEpoch, PlanManager  # noqa: F401
+from .plan import ColdColumn, PlanEpoch, PlanManager, TieringPolicy  # noqa: F401
 from .engines import (  # noqa: F401
     ENGINES,
     BlockDense,

@@ -223,7 +223,7 @@ class PlanPublished(ControlEvent):
     ``epoch`` is the manager's monotone build counter (NOT the registry
     state ``i`` -- several epochs can serve one state when the residency
     policy repartitions); ``state`` is the state the plan was built for;
-    ``incremental`` tells a splice (:func:`repro.core.dmm_jax.splice_fused`)
+    ``incremental`` tells a splice (:func:`repro_torch.core.dmm_torch.splice_fused`)
     from a full rebuild, with ``touched_columns`` columns re-lowered;
     ``bytes_resident`` / ``n_blocks`` describe the published table and
     ``rebuild_s`` what the build cost.

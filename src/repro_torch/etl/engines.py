@@ -41,6 +41,13 @@ after the event recorded behind its copies has completed.  The fused and
 sharded engines' emit reads the chunk's one output allocation back with one
 copy into a pinned buffer (:class:`_ReadBack`).
 
+With residency tiering (:class:`~repro_torch.etl.plan.TieringPolicy`) a
+lease keeps rarely-hit columns out of the device table: the fused and
+sharded engines densify a chunk's events of such columns apart
+(:class:`ColdDense`, counted under ``stats["tier_misses"]``) and emit maps
+them block by block through ``masked_gather`` on the engine's device, after
+the resident rows.
+
 ``info()`` is the public observability surface.
 """
 
@@ -68,19 +75,21 @@ from ..kernels.densify_map import split_outputs
 from ..kernels.ops import (
     IMPLS,
     ChunkOutput,
+    dmm_apply,
     dmm_apply_blocks,
     dmm_apply_dense,
     dmm_apply_packed,
 )
 from ..kernels.segmented_gather import arena_layout, arena_views
 from .events import CDCEvent, ColumnarChunk, columnarize
-from .plan import PlanEpoch, PlanManager
+from .plan import ColdColumn, PlanEpoch, PlanManager
 
 __all__ = [
     "CanonicalRow",
     "Groups",
     "TriagedChunk",
     "as_triaged",
+    "ColdDense",
     "DenseChunk",
     "ColumnarDense",
     "DispatchHandle",
@@ -198,6 +207,19 @@ def _count_unknown_uids(
 
 
 @dataclasses.dataclass
+class ColdDense:
+    """One tier-miss column of a chunk, densified at the column's true
+    width against the lease's :class:`~repro_torch.etl.plan.ColdColumn`
+    (pinned with it, as the chunk pins its plan).  Emit maps it block by
+    block through ``masked_gather``, the slow path a miss pays."""
+
+    col: ColdColumn
+    keys: np.ndarray  # (n,) i64 event keys
+    vals: np.ndarray  # (n, n_in) f32
+    mask: np.ndarray  # (n, n_in) i8
+
+
+@dataclasses.dataclass
 class DenseChunk:
     """One host-densified chunk: payload arrays plus (row, block) routing,
     pinned to the plan it was densified against.
@@ -210,7 +232,9 @@ class DenseChunk:
     ``blk_ids`` / ``out_keys`` (and ``shard_sel``) keep the host copy of the
     global routing for emit.  The dict-walk oracle
     (:func:`densify_chunk_dicts`) fills only the payload and the global
-    routing."""
+    routing.  ``cold`` holds the chunk's tier-miss columns; a chunk with no
+    resident rows (:func:`_cold_only_chunk`) has no arena and launches
+    nothing."""
 
     plan: Any
     vals: np.ndarray  # (bucket(n_events), n_in_pad) f32
@@ -226,6 +250,7 @@ class DenseChunk:
     slot: int = 0
     turn: int = 0
     shard_sel: Optional[List[np.ndarray]] = None  # per shard: its global output rows
+    cold: Optional[List[ColdDense]] = None  # tier-miss columns, emitted after the rest
 
     def sizes(self) -> Dict[str, int]:
         """The arena's shapes, as :func:`~repro_torch.kernels.ops.
@@ -265,6 +290,7 @@ class ColumnarDense:
     turn: int
     shard_sel: Optional[List[np.ndarray]] = None
     n_shards: int = 1
+    cold: Optional[List[ColdDense]] = None  # tier-miss columns, emitted after the rest
 
     def sizes(self) -> Dict[str, int]:
         """The packed sections' sizes, as :func:`~repro_torch.kernels.ops.
@@ -298,14 +324,20 @@ class _ChunkLayout:
 
 
 def _chunk_layout(
-    plan: Any, tri: TriagedChunk, stats: Optional[collections.Counter] = None
+    plan: Any,
+    tri: TriagedChunk,
+    stats: Optional[collections.Counter] = None,
+    uid_col: Optional[np.ndarray] = None,
 ) -> Optional[_ChunkLayout]:
     """Dense-row selection and (row, block) routing for a chunk, in the
     reference's emission order (per column, per block, per event); also
-    accounts ``stats["unknown_uid"]``.  None for an unmappable chunk."""
+    accounts ``stats["unknown_uid"]`` against ``uid_col`` (the plan's own
+    table unless given: with cold columns, the full lowering's).  None for
+    an unmappable chunk."""
     chunk = tri.chunk
     if stats is not None:
-        _count_unknown_uids(plan.uid_col, chunk, tri.by_column, stats)
+        _count_unknown_uids(plan.uid_col if uid_col is None else uid_col, chunk,
+                            tri.by_column, stats)
     cols = [
         (col, idx)
         for (o, v), idx in tri.by_column.items()
@@ -483,6 +515,88 @@ def densify_chunk_dicts(plan: Any, groups: Groups) -> Optional[DenseChunk]:
     )
 
 
+def _densify_cold(
+    lease: Optional[PlanEpoch], tri: TriagedChunk, stats: collections.Counter
+) -> Optional[List[ColdDense]]:
+    """Densify the chunk's events of the lease's cold columns at each
+    column's true width: the columnar scatter of the resident path, counted
+    per event under ``stats["tier_misses"]``.  None when the chunk touches
+    no cold column (always, without tiering)."""
+    if lease is None or not lease.cold:
+        return None
+    chunk = tri.chunk
+    out: List[ColdDense] = []
+    for ov, idx in tri.by_column.items():
+        col = lease.cold.get(ov)
+        if col is None:
+            continue
+        vals = np.zeros((idx.size, col.n_in), np.float32)
+        mask = np.zeros((idx.size, col.n_in), np.int8)
+        ev_rows, item_idx = _event_items(chunk, idx)
+        if item_idx.size:
+            slots = _uid_slots(col.lut, chunk.uids[item_idx])
+            keep = slots >= 0
+            if keep.any():
+                vals[ev_rows[keep], slots[keep]] = chunk.vals[item_idx[keep]]
+                mask[ev_rows[keep], slots[keep]] = 1
+        stats["tier_misses"] += int(idx.size)
+        out.append(ColdDense(col=col, keys=chunk.keys[idx], vals=vals, mask=mask))
+    return out or None
+
+
+def _cold_only_chunk(plan: Any, cold: List[ColdDense]) -> DenseChunk:
+    """A chunk whose every mappable column is cold: no resident routing and
+    no host arena, so dispatch launches nothing; its rows come from the
+    cold path alone."""
+    return DenseChunk(
+        plan=plan,
+        vals=np.zeros((0, 0), np.float32),
+        mask=np.zeros((0, 0), np.int8),
+        row_ids=np.empty(0, np.int32),
+        blk_ids=np.empty(0, np.int32),
+        out_keys=np.empty(0, np.int64),
+        cold=cold,
+    )
+
+
+def _emit_cold(
+    cold: Optional[List[ColdDense]], stats: collections.Counter, device: torch.device
+) -> List[CanonicalRow]:
+    """Map a chunk's tier-miss columns on ``device``: per column one copy
+    each of its values, mask and concatenated index vectors, then per block
+    one :func:`~repro_torch.kernels.ops.dmm_apply` (``masked_gather``: the
+    kernel on a card, its plain version on the CPU) and one readback of its
+    outputs.  Rows follow the resident rows, per column, per block, per
+    event, as in the reference; ``stats`` counts 2 transfers a column and
+    no dispatch, as the reference does, while the kernel's ``launches``
+    and ``ops.dispatch_count`` count the launches."""
+    rows: List[CanonicalRow] = []
+    if not cold:
+        return rows
+    for cd in cold:
+        stats["transfers"] += 2  # the reference counts values + mask
+        vals = torch.from_numpy(cd.vals).to(device)
+        mask = torch.from_numpy(cd.mask).to(device)
+        src_flat = torch.from_numpy(cd.col.src_flat).to(device)
+        outs, off = [], 0
+        for block in cd.col.blocks:
+            outs.append(dmm_apply(vals, mask, src_flat[off : off + block.n_out_pad]))
+            off += block.n_out_pad
+        keys = cd.keys.tolist()
+        for block, (ov, om) in zip(cd.col.blocks, outs):
+            # the documented slow path: read back block by block, into
+            # memory the rows own
+            ov, om = ov.cpu().numpy(), om.cpu().numpy()
+            route, live = (block.key[2], block.key[3]), om.any(axis=1)
+            for b, key in enumerate(keys):
+                if live[b]:  # only non-empty outgoing messages
+                    rows.append((route, ov[b, : block.n_out], om[b, : block.n_out], key))
+                    stats["mapped"] += 1
+                else:
+                    stats["empty"] += 1
+    return rows
+
+
 def _emit_shards(dense, ov, om, stats) -> List[CanonicalRow]:
     """The sharded engine's all-gather on the host: every shard's (n_shards,
     S_loc, W) rows, each global output row i taken from its shard's slot
@@ -556,15 +670,21 @@ class MappingEngine:
         # observability binding (set by METLApp): the coordinator whose
         # replication surface info() reports
         self.coordinator: Optional[Any] = None
+        # uid -> owning column over every column when the lease has cold
+        # ones (the resident plan's table covers the hot columns only)
+        self._stats_uid_col: Optional[np.ndarray] = None
 
     @property
     def ready(self) -> bool:
         return self.plan is not None
 
     def compile(self, snapshot: SystemState, registry: Registry) -> Any:
-        """Acquire (and retain) the device plan for one state snapshot."""
+        """Acquire (and retain) the device plan for one state snapshot:
+        cached when current, spliced when the DPM diff allows, rebuilt
+        otherwise."""
         self.lease = self.manager.acquire(snapshot, registry)
         self.plan = self.lease.plan
+        self._on_plan(self.lease, registry)
         return self.plan
 
     def evict(self) -> None:
@@ -572,6 +692,14 @@ class MappingEngine:
         lease, so a re-acquire at an unchanged state is a cache hit."""
         self.plan = None
         self.lease = None
+        self._stats_uid_col = None
+
+    def _on_plan(self, lease: PlanEpoch, registry: Registry) -> None:
+        """Refresh what the engine derives from a new lease: with cold
+        columns, ``stats["unknown_uid"]`` keeps counting against every
+        column, as in the reference."""
+        self._stats_uid_col = (global_uid_tables(lease.compiled, registry)[1]
+                               if lease.cold else None)
 
     def _manager_info(self) -> Dict[str, Any]:
         """The manager- and coordinator-derived keys of ``info()``."""
@@ -653,6 +781,7 @@ def make_engine(
     mesh: Any = None,
     device_densify: bool = False,
     stats: Optional[collections.Counter] = None,
+    manager: Optional[PlanManager] = None,
 ) -> MappingEngine:
     """Resolve a registered engine name, or adopt an instance.
 
@@ -669,10 +798,15 @@ def make_engine(
 
     ``impl`` is ``"gather"`` or ``"onehot"``; anything else raises.
     ``device`` defaults to the mesh's first device when a mesh is given,
-    else to ``"cuda"`` for a name and to the instance's own device for an
-    instance; a mesh on another device than ``device``, and a conflicting
-    ``impl``, ``device``, ``mesh`` or ``device_densify``, raise instead of
-    running a different path than asked.
+    else to ``manager``'s device, else to ``"cuda"`` for a name and to the
+    instance's own device for an instance; a mesh on another device than
+    ``device``, and a conflicting ``impl``, ``device``, ``mesh`` or
+    ``device_densify``, raise instead of running a different path than
+    asked.  ``manager`` binds an explicit
+    :class:`~repro_torch.etl.plan.PlanManager` (tiering, a background
+    build, published epochs); a manager of another kind, device or mesh
+    than the engine the rules resolve to raises.  Without one the engine
+    builds its own, incremental as in the reference.
     """
     if mesh is not None:
         if device is not None and resolve_device(device) != mesh.devices[0]:
@@ -704,12 +838,18 @@ def make_engine(
             )
         if stats is not None:
             engine.stats = stats
+        if manager is not None and engine.manager is not manager:
+            raise ValueError(
+                "manager= conflicts with the engine instance's manager; construct "
+                "the engine with its manager instead"
+            )
         return engine
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r} (registered: {sorted(ENGINES)})")
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r} (ported: {IMPLS})")
-    dev = "cuda" if device is None else device
+    if device is None:
+        device = "cuda" if manager is None else manager.device
     if impl == "onehot" and engine in ("fused", "sharded"):
         if device_densify:
             raise ValueError(
@@ -719,15 +859,17 @@ def make_engine(
         engine = "blocks"
     if engine == "sharded":
         if mesh is not None and mesh.shape["data"] > 1:
-            return ENGINES["sharded"](mesh=mesh, device_densify=device_densify, stats=stats)
+            return ENGINES["sharded"](mesh=mesh, device_densify=device_densify, stats=stats,
+                                      manager=manager)
         engine = "fused"
     if engine == "fused":
-        return ENGINES["fused"](device=dev, device_densify=device_densify, stats=stats)
+        return ENGINES["fused"](device=device, device_densify=device_densify, stats=stats,
+                                manager=manager)
     if device_densify:
         raise ValueError(
             f"engine={engine!r} has no device-densify path (fused/sharded only)"
         )
-    return ENGINES[engine](impl=impl, device=dev, stats=stats)
+    return ENGINES[engine](impl=impl, device=device, stats=stats, manager=manager)
 
 
 @register_engine("fused")
@@ -741,7 +883,9 @@ class FusedEngine(MappingEngine):
     into ONE int32 buffer and dispatch resolves, densifies and maps them in
     the one launch -- one transfer and one dispatch per chunk.  Chunks below
     ``min_device_events`` selected events take the host scatter, as in the
-    reference.  Emit reads the chunk's outputs back with one copy.
+    reference.  Emit reads the chunk's outputs back with one copy, then maps
+    the chunk's cold columns, if the lease has any (:func:`_emit_cold`); a
+    chunk whose columns are all cold launches nothing resident.
     """
 
     def __init__(
@@ -763,20 +907,26 @@ class FusedEngine(MappingEngine):
         tri = as_triaged(groups)
         if tri is None:
             return None
-        layout = _chunk_layout(self.plan, tri, self.stats)
+        layout = _chunk_layout(self.plan, tri, self.stats, self._stats_uid_col)
+        cold = _densify_cold(self.lease, tri, self.stats)
         if layout is None:
-            return None
+            return _cold_only_chunk(self.plan, cold) if cold else None
         s = layout.row_ids.size
         rows = np.zeros((1, bucket_rows(s)), np.int32)
         blks = np.zeros_like(rows)
         rows[0, :s] = layout.row_ids
         blks[0, :s] = layout.blk_ids
         if not self.device_densify or layout.sel.size < self.min_device_events:
-            return _densify_host(self.plan, layout, self._arenas, rows, blks)
-        return _pack_columnar(self.plan, layout, rows[0], blks[0], self._arenas,
-                              n_rows=rows.shape[1])
+            dense = _densify_host(self.plan, layout, self._arenas, rows, blks)
+        else:
+            dense = _pack_columnar(self.plan, layout, rows[0], blks[0], self._arenas,
+                                   n_rows=rows.shape[1])
+        dense.cold = cold
+        return dense
 
     def dispatch(self, dense) -> DispatchHandle:
+        if dense.row_ids.size == 0:  # a cold-only chunk: nothing resident
+            return DispatchHandle(outputs=None, dense=dense)
         fused = dense.plan
         if isinstance(dense, ColumnarDense):
             return _dispatch(self._arenas, self.stats, dense, dmm_apply_packed,
@@ -787,12 +937,14 @@ class FusedEngine(MappingEngine):
 
     def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
         dense = handle.dense
-        s = dense.row_ids.size
-        vals, mask = self._readback.read(handle.outputs)
-        ov, om = vals[0, :s].copy(), mask[0, :s].copy()  # rows own their memory
-        return _emit_rows(
-            dense.plan, ov, om, dense.blk_ids, dense.out_keys, self.stats
-        )
+        rows: List[CanonicalRow] = []
+        if handle.outputs is not None:
+            s = dense.row_ids.size
+            vals, mask = self._readback.read(handle.outputs)
+            ov, om = vals[0, :s].copy(), mask[0, :s].copy()  # rows own their memory
+            rows = _emit_rows(dense.plan, ov, om, dense.blk_ids, dense.out_keys, self.stats)
+        rows.extend(_emit_cold(dense.cold, self.stats, self.device))
+        return rows
 
     def info(self) -> Dict[str, Any]:
         d = self._base_info()
@@ -829,7 +981,9 @@ class ShardedEngine(MappingEngine):
     rows back to the host with one copy, puts them in global order and
     emits them as the fused engine does, so the rows are bit-exact with it.
     Chunks below ``min_device_events`` selected events take host densify,
-    as in the reference.  The engine runs on the mesh's first device.
+    as in the reference.  Cold columns are mapped after the resident rows on
+    the mesh's first device, where the engine runs, as the fused engine maps
+    them.
     """
 
     plan_kind = "sharded"
@@ -881,17 +1035,23 @@ class ShardedEngine(MappingEngine):
         tri = as_triaged(groups)
         if tri is None:
             return None
-        layout = _chunk_layout(self.plan, tri, self.stats)
+        layout = _chunk_layout(self.plan, tri, self.stats, self._stats_uid_col)
+        cold = _densify_cold(self.lease, tri, self.stats)
         if layout is None:
-            return None
+            return _cold_only_chunk(self.plan, cold) if cold else None
         sel, rows_sh, blks_sh = self._shard_split(layout.row_ids, layout.blk_ids)
         if not self.device_densify or layout.sel.size < self.min_device_events:
-            return _densify_host(self.plan, layout, self._arenas, rows_sh, blks_sh, sel)
-        return _pack_columnar(self.plan, layout, rows_sh.ravel(), blks_sh.ravel(),
-                              self._arenas, n_rows=rows_sh.shape[1], shard_sel=sel,
-                              n_shards=self.n_shards)
+            dense = _densify_host(self.plan, layout, self._arenas, rows_sh, blks_sh, sel)
+        else:
+            dense = _pack_columnar(self.plan, layout, rows_sh.ravel(), blks_sh.ravel(),
+                                   self._arenas, n_rows=rows_sh.shape[1], shard_sel=sel,
+                                   n_shards=self.n_shards)
+        dense.cold = cold
+        return dense
 
     def dispatch(self, dense) -> DispatchHandle:
+        if dense.row_ids.size == 0:  # a cold-only chunk: nothing resident
+            return DispatchHandle(outputs=None, dense=dense)
         sh = dense.plan
         if isinstance(dense, ColumnarDense):
             return _dispatch(self._arenas, self.stats, dense, dmm_apply_packed,
@@ -901,7 +1061,12 @@ class ShardedEngine(MappingEngine):
                          mesh=self.mesh, n_shards=dense.rows.shape[0], **dense.sizes())
 
     def emit(self, handle: DispatchHandle) -> List[CanonicalRow]:
-        return _emit_shards(handle.dense, *self._readback.read(handle.outputs), self.stats)
+        dense = handle.dense
+        rows: List[CanonicalRow] = []
+        if handle.outputs is not None:
+            rows = _emit_shards(dense, *self._readback.read(handle.outputs), self.stats)
+        rows.extend(_emit_cold(dense.cold, self.stats, self.device))
+        return rows
 
     def info(self) -> Dict[str, Any]:
         d = self._base_info()
@@ -1148,14 +1313,13 @@ class BlocksEngine(MappingEngine):
         self._uid_col_global: Optional[np.ndarray] = None
         self._arenas = _HostArenas(self.device)
 
-    def compile(self, snapshot: SystemState, registry: Registry) -> Any:
-        plan = super().compile(snapshot, registry)
+    def _on_plan(self, lease: PlanEpoch, registry: Registry) -> None:
+        super()._on_plan(lease, registry)
         # uid -> slot tables are per registry state
-        self._cols = _ColumnSlots(registry, _BlockTable.of(plan))
+        self._cols = _ColumnSlots(registry, _BlockTable.of(lease.plan))
         # plan-global uid -> owning-column table, so stats["unknown_uid"] is
         # counted as the fused engine counts it
-        self._uid_col_global = global_uid_tables(self.lease.compiled, registry)[1]
-        return plan
+        self._uid_col_global = global_uid_tables(lease.compiled, registry)[1]
 
     def densify(self, groups) -> Optional[BlockDense]:
         tri = as_triaged(groups)

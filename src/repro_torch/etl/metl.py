@@ -11,8 +11,13 @@ per chunk on the fused engine, one per block on the per-block engine), emit.
 
 The app runs on the card by default (``device="cuda"``) and raises when no
 CUDA device exists; ``device="cpu"`` runs the same path through the plain
-PyTorch versions of the kernels.  ``engine.info()`` is the observability
-surface.
+PyTorch versions of the kernels.  ``plan_manager`` binds an explicit
+:class:`~repro_torch.etl.plan.PlanManager` (residency tiering, a background
+build, published epochs); without one the engine builds its own, which
+splices each schema change incrementally, as the reference's does.
+``engine.info()`` is the observability surface; :meth:`METLApp.
+consume_scalar` is the paper's Algorithm 6, one message at a time, kept as
+the oracle of the engines.
 """
 
 from __future__ import annotations
@@ -22,11 +27,13 @@ from typing import Any, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 
+from ..core.dmm import Message, map_message_dense
 from ..core.dmm_torch import DeviceLike
 from ..core.registry import StaleStateError
 from ..core.state import StateCoordinator, SystemState
 from .engines import CanonicalRow, MappingEngine, TriagedChunk, make_engine
 from .events import CDCEvent, ColumnarChunk, columnarize
+from .plan import PlanManager
 
 __all__ = ["METLApp", "CanonicalRow"]
 
@@ -41,7 +48,10 @@ class METLApp:
     ``engine="fused"`` to the per-block engine; see :func:`make_engine`).
     ``engine="sharded"`` partitions the block table over ``mesh``
     (:func:`repro_torch.launch.mesh.make_etl_mesh`; one shard or no mesh
-    runs the fused engine).
+    runs the fused engine).  ``plan_manager`` is passed to
+    :func:`~repro_torch.etl.engines.make_engine`: its kind, device and mesh
+    must be the engine's, and with ``device`` unset the engine takes the
+    manager's device.
     """
 
     def __init__(
@@ -55,6 +65,7 @@ class METLApp:
         device: Optional[DeviceLike] = None,
         mesh: Any = None,
         device_densify: bool = False,
+        plan_manager: Optional[PlanManager] = None,
     ) -> None:
         self.coordinator = coordinator
         self.strict_state = strict_state
@@ -65,7 +76,7 @@ class METLApp:
         # own device and shares the app's stats
         self.engine = make_engine(
             engine, impl=impl, device=device, mesh=mesh,
-            device_densify=device_densify, stats=self.stats,
+            device_densify=device_densify, stats=self.stats, manager=plan_manager,
         )
         self.device = self.engine.device
         # observability binding only: engine.info() reads the replication
@@ -140,6 +151,16 @@ class METLApp:
         rows, self._replay_rows = self._replay_rows, []
         return rows
 
+    @property
+    def state(self) -> int:
+        """The system state ``i`` the app serves (refreshing lazily)."""
+        self.ensure_ready()
+        return self._snapshot.i
+
+    @property
+    def engine_name(self) -> str:
+        return self.engine.name
+
     # -- triage + mapping --------------------------------------------------------
     def triage(
         self,
@@ -207,12 +228,18 @@ class METLApp:
                     stats["dead_lettered"] += 1
                 continue
             by_column[(schema_ids[e], versions[e])].append(e)
-        return TriagedChunk(
+        tri = TriagedChunk(
             chunk=chunk,
             by_column={
                 ov: np.asarray(idx, dtype=np.int64) for ov, idx in by_column.items()
             },
         )
+        # residency tiering: every mappable event passes here, so the
+        # manager's per-(o, v) hit counters are fed here
+        mgr = self.engine.manager
+        if mgr.tiering is not None and tri.by_column:
+            mgr.record_hits(tri.by_column)
+        return tri
 
     def consume(
         self, events: Union[Iterable[CDCEvent], ColumnarChunk]
@@ -223,3 +250,17 @@ class METLApp:
         rows = self.engine.consume_groups(self.triage(events))
         replayed = self.take_replayed()
         return replayed + rows if replayed else rows
+
+    # -- scalar oracle path (pure Algorithm 6; used in tests) -------------------
+    def consume_scalar(self, events: Iterable[CDCEvent]) -> List[Message]:
+        """Map events one message at a time through the snapshot's DPM
+        (:func:`~repro_torch.core.dmm.map_message_dense`); events of another
+        state are skipped.  No dedup, parking or stats."""
+        self.ensure_ready()
+        out: List[Message] = []
+        for ev in events:
+            msg = ev.message().densify()
+            if msg.state != self._snapshot.i:
+                continue
+            out.extend(map_message_dense(self._snapshot.dpm, self.coordinator.registry, msg))
+        return out

@@ -147,8 +147,8 @@ def test_plan_manager_caches_by_state_and_rebuilds_on_change():
     sc = t_build_scenario(TConfig(**CONFIGS[0]))
     coord = TCoordinator(sc.registry, sc.dpm)
     mgr = PlanManager(device="cpu")
-    assert mgr.info() == {"plan_epoch": 0, "rebuilds": 0, "last_rebuild_s": 0.0,
-                          "total_rebuild_s": 0.0}
+    assert mgr.info() == {"plan_epoch": 0, "rebuilds": 0, "incremental_rebuilds": 0,
+                          "last_rebuild_s": 0.0, "total_rebuild_s": 0.0}
     a = mgr.acquire(coord.snapshot(), coord.registry)
     b = mgr.acquire(coord.snapshot(), coord.registry)
     assert a is b and a.epoch == 1 and mgr.rebuilds == 1
