@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's consume paths (fused, sharded and per-block)
-and its olmo-1b server on one NVIDIA card and check them.
+"""Drive the PyTorch port's consume paths (fused, sharded and per-block),
+its streaming pipeline, cluster and initial load, and its olmo-1b server,
+alone and fed by the pipeline, on one NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -95,6 +96,28 @@ failure raises and the script exits non-zero):
    none, and C kept columns cold, missed, holds fewer resident bytes than
    A and launched ``masked_gather`` and no other kernel but the resident
    path's;
+4c. the streaming pipeline on step 4's stream, the evolution now delivered
+   in band (``EventChunkSource(control={32: ev})``): ``Pipeline`` sync,
+   async and async with ``densify_thread=True`` on fused host densify, and
+   async on fused device densify, both sharded paths and ``engine=
+   "blocks"``; rows and ``stats`` must equal step 4's run of the path bit
+   for bit (so each async run equals its sync run), each dispatch's
+   accounting must be step 4's (``check_accounting``, through an observer
+   on ``engine.dispatch``) and ``PipelineStats.control`` 1; backpressure:
+   async fused host densify into a bounded ``CollectSink`` that fills
+   mid-stream, drained and resumed until the source ends, rows equal to the
+   unbounded run's (a stop keeps its lookahead chunk for the resume to
+   flush); ``Cluster.over_stream`` with 4 async instances, rows equal to
+   one instance's in order, one state; ``initial_load`` of 8,192 events
+   over 4 instances with threads on the card, rows equal to a sequential
+   load on the card and one on the CPU; the launcher once at olmo-1b's full
+   width with ``--etl --instances 2 --shards 4 --async-consume
+   --device-densify`` (every request completes), and ``_etl_prompts`` on
+   the card equal to the CPU's for six ETL flag combinations; then the
+   ``pipeline rates`` line: events/s of sync, async and the densify thread
+   over chunks 33-63 of fused host, fused device and sharded host densify,
+   5 interleaved passes each on a fresh app (median, min, max), and the
+   device busy share of one async pass under ``torch.profiler``;
 5. serve olmo-1b at full width (16 layers, d_model 2048, random weights
    from a seeded ``torch.Generator``): (a) the prefill ``forward`` with
    ``attn_impl="pallas"`` over a (2, 2048) prompt batch, 16 launches of
@@ -760,33 +783,34 @@ class Stream:
         return self.chunks[k]
 
 
-class DensifyLog:
-    """Records each per-block chunk the engine densifies (an observer on the
-    engine's public ``densify``), so the accounting check can count the
-    groups and the blocks they touch independently of the counters."""
+class DispatchLog:
+    """An observer on the engine's public ``dispatch``: per call, the
+    dispatches, transfers and kernel launches it made and, on the per-block
+    engine, the groups and blocks its chunk touches (from the chunk's
+    columns and plan), in the form :func:`check_accounting` reads."""
 
     def __init__(self, engine) -> None:
         self.engine = engine
-        self.inner = engine.densify
-        self.dense = []
-        engine.densify = self
+        self.inner = engine.dispatch
+        self.per_chunk = []
+        engine.dispatch = self
 
-    def __call__(self, groups):
-        dense = self.inner(groups)
-        if dense is not None:
-            self.dense.append(dense)
-        return dense
-
-    def take(self):
-        """(groups, blocks touched) over the chunks densified since the
-        last call, from each chunk's (schema, version) columns and the plan."""
-        out = (sum(len(d.columns) for d in self.dense),
-               sum(len(d.plan.column(*ov)) for d in self.dense for ov in d.columns))
-        self.dense.clear()
-        return out
+    def __call__(self, dense):
+        stats = self.engine.stats
+        before = (stats["dispatches"], stats["transfers"], _launch_counts())
+        handle = self.inner(dense)
+        launched = _launch_counts()
+        acct = {"dispatches": stats["dispatches"] - before[0],
+                "transfers": stats["transfers"] - before[1],
+                **{n: launched[n] - before[2][n] for n in KERNEL_NAMES}}
+        if self.engine.plan_kind == "blocks":
+            acct["groups"] = len(dense.columns)
+            acct["blocks_touched"] = sum(len(dense.plan.column(*ov)) for ov in dense.columns)
+        self.per_chunk.append(acct)
+        return handle
 
     def close(self) -> None:
-        del self.engine.densify  # the class's own method again
+        del self.engine.dispatch  # the class's own method again
 
 
 def _counters():
@@ -826,51 +850,76 @@ def plan_layer(app, first_build_s: float) -> dict:
     return out
 
 
-def run_main_path(device, path, cfg, stream, *, n_chunks, evolve_at):
-    """One METLApp over the stream on ``device``, configured by ``path``
-    (``engine``/``impl``/``device_densify`` keywords, and ``shards``: that
-    many shards of a mesh on ``device``); returns (rows, stats, consume
-    seconds per chunk, kernel launch counts, per-chunk accounting, the
-    app, the plan layer after the evolution chunk's rebuild)."""
+# step 4's consume paths, as path_app keywords
+MAIN_PATHS = {
+    "host": {"device_densify": False},
+    "device": {"device_densify": True},
+    "blocks-gather": {"engine": "blocks"},
+    "blocks-onehot": {"impl": "onehot"},
+    "sharded-host": {"engine": "sharded", "shards": SHARDS},
+    "sharded-device": {"engine": "sharded", "shards": SHARDS, "device_densify": True},
+}
+
+
+def main_path_world(cfg):
+    """A fresh coordinator of ``cfg``'s scenario and the schema evolution of
+    chunk ``EVOLVE_AT`` (``churn_schedule(steps=1, seed=0)``)."""
     from repro_torch.core.state import StateCoordinator
     from repro_torch.core.synthetic import build_scenario, churn_schedule
-    from repro_torch.etl.metl import METLApp
-    from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_etl_mesh
 
     sc = build_scenario(cfg)
     coord = StateCoordinator(sc.registry, sc.dpm)
-    sched = churn_schedule(coord.registry, steps=1, first_chunk=evolve_at, seed=0)
+    return coord, churn_schedule(coord.registry, steps=1, first_chunk=EVOLVE_AT,
+                                 seed=0)[EVOLVE_AT]
+
+
+def path_app(device, path, coord):
+    """A new METLApp on ``device`` configured by ``path``
+    (``engine``/``impl``/``device_densify`` keywords, and ``shards``: that
+    many shards of a mesh on ``device``)."""
+    from repro_torch.etl.metl import METLApp
+    from repro_torch.launch.mesh import make_etl_mesh
+
     kwargs = dict(path)
     if "shards" in kwargs:
         kwargs["mesh"] = make_etl_mesh(devices=[device] * kwargs.pop("shards"))
-    app = METLApp(coord, device=device, **kwargs)
+    return METLApp(coord, device=device, **kwargs)
+
+
+def main_path_app(device, path, cfg):
+    """:func:`main_path_world` and a :func:`path_app` on its coordinator."""
+    coord, ev = main_path_world(cfg)
+    return coord, ev, path_app(device, path, coord)
+
+
+def run_main_path(device, path, cfg, stream, *, n_chunks, evolve_at):
+    """One METLApp over the stream on ``device``, configured by ``path``
+    (see :func:`path_app`); returns (rows, stats, consume seconds per
+    chunk, kernel launch counts, per-chunk accounting, the app, the plan
+    layer after the evolution chunk's rebuild)."""
+    from repro_torch.kernels import ops
+
+    coord, ev, app = main_path_app(device, path, cfg)
+    sched = {evolve_at: ev}
     first_build_s = app.engine.lease.rebuild_s
-    log = DensifyLog(app.engine) if app.engine.plan_kind == "blocks" else None
-    rows, per_chunk, chunk_s = [], [], []
+    log = DispatchLog(app.engine)  # every chunk here maps: one dispatch call a chunk
+    rows, chunk_s = [], []
     _zero_launch_counts()
     for k in range(n_chunks):
         if k in sched:
             coord.apply(sched[k])
         chunk = stream.get(k, coord.registry)  # set-up, outside the clock
-        before = (app.stats["dispatches"], app.stats["transfers"], _launch_counts())
         t0 = time.perf_counter()
         out = app.consume(chunk)
         chunk_s.append(time.perf_counter() - t0)
-        launched = _launch_counts()
-        acct = {"dispatches": app.stats["dispatches"] - before[0],
-                "transfers": app.stats["transfers"] - before[1],
-                **{n: launched[n] - before[2][n] for n in KERNEL_NAMES}}
-        if log is not None:
-            acct["groups"], acct["blocks_touched"] = log.take()
-        per_chunk.append(acct)
         rows.extend(out)
         if k == evolve_at:
             plan = plan_layer(app, first_build_s)
-    if log is not None:
-        log.close()
+    log.close()
+    if len(log.per_chunk) != n_chunks:
+        raise AssertionError(f"{len(log.per_chunk)} dispatch calls for {n_chunks} chunks")
     launches = {**_launch_counts(), "dispatch_count": ops.dispatch_count}
-    return rows, dict(app.stats), chunk_s, launches, per_chunk, app, plan
+    return rows, dict(app.stats), chunk_s, launches, log.per_chunk, app, plan
 
 
 def check_accounting(name, per_chunk, path, on_card):
@@ -1046,6 +1095,301 @@ def plan_lifecycle(dev) -> None:
     speedup = soak_summary(b)["churn_rebuild_ms"] / soak_summary(a)["churn_rebuild_ms"]
     print(f"plan lifecycle: rows of A, B, C, A background equal (A bit for bit with the cpu, "
           f"C by key); churn rebuild B / A = {speedup:.2f}x", flush=True)
+
+
+# -- phase 4c: the streaming pipeline -------------------------------------------
+
+PIPELINE_RUNS = {"sync": {}, "async": {"async_consume": True},
+                 "thread": {"async_consume": True, "densify_thread": True}}
+# (path, pipeline mode) of the phase's correctness runs: every mode on fused
+# host densify, async on the other paths
+PIPELINE_CASES = [("host", "sync"), ("host", "async"), ("host", "thread"),
+                  ("device", "async"), ("sharded-host", "async"),
+                  ("sharded-device", "async"), ("blocks-gather", "async")]
+RATE_PATHS = ("host", "device", "sharded-host")
+RATE_PASSES = 5
+LOAD_EVENTS, LOAD_INSTANCES = 8192, 4
+# the launcher's ETL flag combinations, as _etl_prompts keywords
+SERVE_ETL_FLAGS = {
+    "--etl": {},
+    "--etl --async-consume": {"async_consume": True},
+    "--etl --device-densify": {"device_densify": True},
+    "--etl --shards 4": {"shards": 4},
+    "--etl --instances 2": {"instances": 2},
+    "--etl --instances 2 --shards 4 --async-consume --device-densify": {
+        "instances": 2, "shards": 4, "async_consume": True, "device_densify": True},
+}
+
+
+def _stream_source(coord, ev):
+    """Step 4's stream as a pipeline pulls it: ``CHUNKS`` chunks of
+    ``CHUNK_EVENTS`` events of ``EventSource(seed=1)``, the evolution in
+    band before chunk ``EVOLVE_AT``."""
+    from repro_torch.etl import EventChunkSource, EventSource
+
+    return EventChunkSource(EventSource(coord.registry, seed=1), chunk_size=CHUNK_EVENTS,
+                            max_chunks=CHUNKS, control={EVOLVE_AT: ev})
+
+
+def run_pipeline(device, path, cfg, mode):
+    """Step 4's stream through ``Pipeline`` on one fresh app of ``path``,
+    in ``mode`` (``PIPELINE_RUNS``); the kernels' counts are zeroed just
+    before the run and read just after.  Returns (rows, stats, the run's
+    PipelineStats, per-dispatch accounting, launches, seconds)."""
+    from repro_torch.etl import CollectSink, Pipeline
+
+    coord, ev, app = main_path_app(device, MAIN_PATHS[path], cfg)
+    sink = CollectSink()
+    log = DispatchLog(app.engine)
+    pipe = Pipeline(_stream_source(coord, ev), app, [sink], **PIPELINE_RUNS[mode])
+    try:
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        st = pipe.run()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+    finally:
+        pipe.close()
+        log.close()
+    return sink.rows, dict(app.stats), st, log.per_chunk, launches, seconds
+
+
+def pipeline_backpressure(dev, cfg, want) -> dict:
+    """Async fused host densify into a bounded ``CollectSink`` that fills
+    mid-stream, drained and resumed until the source ends: the rows must be
+    the unbounded run's, none lost or repeated, and each stop must keep its
+    lookahead chunk (``_pending``) for the resume to flush first."""
+    from repro_torch.etl import CollectSink, Pipeline
+
+    coord, ev, app = main_path_app(dev, MAIN_PATHS["host"], cfg)
+    limit = len(want) // 7 + 1
+    sink = CollectSink(limit=limit)
+    pipe = Pipeline(_stream_source(coord, ev), app, [sink], async_consume=True)
+    got, stops, kept, runs, chunks = [], 0, 0, 0, 0
+    try:
+        while True:
+            st = pipe.run()
+            runs += 1
+            chunks += st.chunks
+            got.extend(sink.rows)
+            if not sink.full():
+                break
+            stops += 1
+            # a stop keeps its lookahead unless it fell on a control
+            # boundary (the drain pulls nothing ahead) or the stream's end
+            kept += pipe._pending is not None
+            sink.rows = []  # the consumer drains the sink
+    finally:
+        pipe.close()
+    if pipe._pending is not None or stops < 2 or kept < 1 or chunks != CHUNKS:
+        raise AssertionError(f"pipeline backpressure: {stops} stops, {kept} with a "
+                             f"lookahead kept, {chunks} chunks, pending left "
+                             f"{pipe._pending is not None}")
+    compare_rows("pipeline backpressure vs unbounded", got, want)
+    return {"limit": limit, "stops": stops, "stops_with_lookahead_kept": kept,
+            "runs": runs, "chunks": chunks, "rows": len(got)}
+
+
+def pipeline_cluster(dev, cfg, want) -> dict:
+    """``Cluster.over_stream`` over step 4's stream, 4 async instances of
+    fused host densify on the card: the merged rows equal the one-instance
+    rows in order, and every instance serves one state."""
+    from repro_torch.etl import Cluster, CollectSink, EventSource
+
+    coord, ev = main_path_world(cfg)
+    sink = CollectSink()
+    cluster = Cluster.over_stream(coord, EventSource(coord.registry, seed=1), instances=4,
+                                  chunk_size=CHUNK_EVENTS, max_chunks=CHUNKS,
+                                  control={EVOLVE_AT: ev}, sinks=[sink],
+                                  async_consume=True, device=dev)
+    try:
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        st = cluster.run()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+    finally:
+        cluster.close()
+    info = cluster.info()
+    if (st.chunks, st.control, len(info["states"]), info["dispatches"],
+            launches["segmented_gather"]) != (CHUNKS, 1, 1, CHUNKS, CHUNKS):
+        raise AssertionError(f"pipeline cluster: {st}, states {info['states']}, "
+                             f"{info['dispatches']} dispatches, launches {launches}")
+    compare_rows("pipeline cluster vs one instance", sink.rows, want)
+    return {"instances": info["instances"], "states": info["states"],
+            "dispatches": info["dispatches"],
+            "segmented_gather_launches": launches["segmented_gather"],
+            "rows": len(sink.rows), "seconds": seconds}
+
+
+def pipeline_initial_load(dev, cfg) -> dict:
+    """``initial_load`` of ``LOAD_EVENTS`` events of ``EventSource(seed=1)``
+    over ``LOAD_INSTANCES`` instances in chunks of ``CHUNK_EVENTS``: on the
+    card with threads, on the card in turn and on the CPU; the rows must be
+    equal.  The threaded load is held by its rows: the launch counters are
+    plain ints that threads may miscount."""
+    from repro_torch.etl import EventSource
+    from repro_torch.etl.initial_load import initial_load
+
+    coord, _ = main_path_world(cfg)  # a load freezes and thaws; it changes no state
+    rows, seconds = {}, {}
+    for name, kw in (("threads", {"threads": True, "device": dev}),
+                     ("sequential", {"threads": False, "device": dev}),
+                     ("cpu", {"threads": False, "device": "cpu"})):
+        t0 = time.perf_counter()
+        rows[name] = initial_load(coord, EventSource(coord.registry, seed=1),
+                                  count=LOAD_EVENTS, instances=LOAD_INSTANCES,
+                                  chunk=CHUNK_EVENTS, **kw)
+        seconds[name] = time.perf_counter() - t0
+        if coord.frozen:
+            raise AssertionError(f"initial load {name}: the coordinator stayed frozen")
+    if not rows["cpu"]:
+        raise AssertionError("initial load: no rows")
+    compare_rows("initial load threads vs sequential", rows["threads"], rows["sequential"])
+    compare_rows("initial load card vs cpu", rows["sequential"], rows["cpu"])
+    return {"events": LOAD_EVENTS, "instances": LOAD_INSTANCES, "rows": len(rows["cpu"]),
+            "seconds": seconds}
+
+
+def pipeline_serve() -> dict:
+    """The launcher once at olmo-1b's full width on the card, fed by the ETL
+    cluster (2 instances, 4 shards, async, device densify): every request
+    completes.  Then, for each ETL flag combination, the prompts of
+    ``_etl_prompts`` on the card must equal those on the CPU."""
+    import contextlib
+    import io
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "olmo_1b", "--etl", "--instances", "2", "--shards", "4",
+            "--async-consume", "--device-densify"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    requests = [line for line in lines if line.startswith("request ")]
+    done = [line for line in requests if ": 16 tokens -> " in line]
+    etl = [line for line in lines if line.startswith("etl: ")]
+    if len(requests) != 8 or len(done) != 8 or not etl:
+        raise AssertionError("serve --etl: not every request completed:\n" + out.getvalue())
+    vocab = configs.get("olmo_1b").vocab
+    with contextlib.redirect_stdout(io.StringIO()):  # their etl: lines
+        for flags, kw in SERVE_ETL_FLAGS.items():
+            got = serve._etl_prompts(300, vocab, device="cuda", **kw)
+            want = serve._etl_prompts(300, vocab, device="cpu", **kw)
+            if len(got) != 300 or got != want:
+                raise AssertionError(f"_etl_prompts {flags}: the card's prompts differ "
+                                     "from the cpu's")
+    return {"argv": " ".join(argv), "requests_done": len(done), "seconds": seconds,
+            "etl_line": etl[-1], "prompt_combinations_equal_cpu": len(SERVE_ETL_FLAGS)}
+
+
+def _pipeline_pass(dev, path, coord, mode, chunks, profiled=False):
+    """One timed ``Pipeline.run`` over ``chunks`` (made beforehand, at the
+    evolved state) on a new app of ``coord`` (evolved): events/s on the
+    host clock or, ``profiled``, the device's busy share of the wall time
+    from ``torch.profiler`` (None when it records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.etl import CollectSink, ListSource, Pipeline
+
+    app = path_app(dev, MAIN_PATHS[path], coord)
+    pipe = Pipeline(ListSource(chunks), app, [CollectSink()], **PIPELINE_RUNS[mode])
+    torch.cuda.synchronize()
+    try:
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                st = pipe.run()
+                wall = time.perf_counter() - t0
+        else:
+            t0 = time.perf_counter()
+            st = pipe.run()
+            wall = time.perf_counter() - t0
+    finally:
+        pipe.close()
+    if st.chunks != len(chunks):
+        raise AssertionError(f"pipeline rates {path}/{mode}: {st.chunks} chunks")
+    if not profiled:
+        return st.events / wall
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us * 1e-6 / wall if busy_us > 0 else None
+
+
+def pipeline_rates(dev, cfg, chunks) -> dict:
+    """ev/s of sync, async and async with the densify thread over
+    ``chunks`` (33-63 of step 4's stream) on fused host densify, fused
+    device densify and sharded host densify: ``RATE_PASSES`` interleaved
+    passes (the mode order rotating each pass) after one uncounted warm-up
+    pass of each, each pass on a new app of one evolved coordinator; the
+    median with the min-max spread, and the device busy share of one
+    async pass under ``torch.profiler``."""
+    coord, ev = main_path_world(cfg)
+    coord.apply(ev)
+    modes = list(PIPELINE_RUNS)
+    rates = {p: {m: [] for m in modes} for p in RATE_PATHS}
+    for path in RATE_PATHS:
+        for m in modes:
+            _pipeline_pass(dev, path, coord, m, chunks)
+    for k in range(RATE_PASSES):
+        for path in RATE_PATHS:
+            for m in modes[k % 3:] + modes[:k % 3]:
+                rates[path][m].append(_pipeline_pass(dev, path, coord, m, chunks))
+    out = {}
+    for path in RATE_PATHS:
+        out[path] = {m: {"median_ev_s": statistics.median(v), "min_ev_s": min(v),
+                         "max_ev_s": max(v)} for m, v in rates[path].items()}
+        for m in ("async", "thread"):
+            out[path][f"{m}_over_sync"] = (out[path][m]["median_ev_s"]
+                                           / out[path]["sync"]["median_ev_s"])
+        out[path]["device_busy_share_async"] = _pipeline_pass(dev, path, coord, "async",
+                                                              chunks, profiled=True)
+    return {"chunks": f"{EVOLVE_AT + 1}-{CHUNKS - 1}",
+            "events_per_pass": sum(len(c) for c in chunks), "passes": RATE_PASSES,
+            "paths": out}
+
+
+def streaming_pipeline(dev, cfg, stream, runs) -> None:
+    """Phase 4c: step 4's stream through the pipeline, the cluster, the
+    initial load and the ETL-fed launcher on the card, held against step
+    4's rows and stats, the sync run and the CPU; then the rates."""
+    import dataclasses
+
+    sync_rows = {}
+    for path, mode in PIPELINE_CASES:
+        name = f"pipeline cuda/{path} {mode}"
+        rows, stats, st, per_chunk, launches, seconds = run_pipeline(dev, path, cfg, mode)
+        if (st.chunks, st.events, st.control, st.rows) != (
+                CHUNKS, CHUNKS * CHUNK_EVENTS, 1, len(rows)):
+            raise AssertionError(f"{name}: {st}")
+        if len(per_chunk) != CHUNKS:
+            raise AssertionError(f"{name}: {len(per_chunk)} dispatch calls")
+        check_accounting(name, per_chunk, MAIN_PATHS[path], on_card=True)
+        step4_rows, step4_stats = runs[f"cuda/{path}"][0], runs[f"cuda/{path}"][1]
+        compare_rows(f"{name} vs step 4", rows, step4_rows)
+        if stats != step4_stats:
+            raise AssertionError(f"{name}: stats {stats} != step 4's {step4_stats}")
+        if mode == "sync":
+            sync_rows[path] = rows
+        elif path in sync_rows:
+            compare_rows(f"{name} vs sync", rows, sync_rows[path])
+        print(f"{elapsed()} {name}: {json.dumps(dataclasses.asdict(st))} in {seconds:.3f} s "
+              f"({CHUNKS * CHUNK_EVENTS / seconds:.0f} ev/s, the source's slicing "
+              f"included); rows and stats equal step 4's; launches "
+              f"{json.dumps(launches)}", flush=True)
+    want = runs["cuda/host"][0]
+    later = [stream.chunks[k] for k in range(EVOLVE_AT + 1, CHUNKS)]
+    for name, run in (("backpressure", lambda: pipeline_backpressure(dev, cfg, want)),
+                      ("cluster", lambda: pipeline_cluster(dev, cfg, want)),
+                      ("initial load", lambda: pipeline_initial_load(dev, cfg)),
+                      ("serve --etl", pipeline_serve),
+                      ("rates", lambda: pipeline_rates(dev, cfg, later))):
+        result = run()  # the line's time stamp is the step's end
+        print(f"{elapsed()} pipeline {name}: " + json.dumps(result), flush=True)
 
 
 # -- phase 5: timing -------------------------------------------------------------
@@ -2338,14 +2682,7 @@ def main() -> int:
 
     cfg = _paper_config()
     stream = Stream(CHUNK_EVENTS)
-    paths = {
-        "host": {"device_densify": False},
-        "device": {"device_densify": True},
-        "blocks-gather": {"engine": "blocks"},
-        "blocks-onehot": {"impl": "onehot"},
-        "sharded-host": {"engine": "sharded", "shards": SHARDS},
-        "sharded-device": {"engine": "sharded", "shards": SHARDS, "device_densify": True},
-    }
+    paths = MAIN_PATHS
     runs = {}
     for where, device in (("cuda", dev), ("cpu", "cpu")):
         for pname, path in paths.items():
@@ -2432,6 +2769,8 @@ def main() -> int:
             host_split(runs[f"cuda/{pname}"][3], later)), flush=True)
 
     plan_lifecycle(dev)
+
+    streaming_pipeline(dev, cfg, stream, runs)
 
     serving = serving_path(dev)
 

@@ -26,3 +26,18 @@ from .engines import (  # noqa: F401
     register_engine,
 )
 from .metl import METLApp  # noqa: F401
+from .batcher import CanonicalBatcher, make_token_batch  # noqa: F401
+from .pipeline import (  # noqa: F401
+    BatcherSink,
+    CollectSink,
+    EventChunkSource,
+    ListSource,
+    Pipeline,
+    PipelineStats,
+    RowSink,
+    ScriptedControlSource,
+    Source,
+    TableSink,
+    TokenizerSink,
+)
+from .cluster import Cluster, ClusterStats  # noqa: F401

@@ -128,6 +128,35 @@ def test_default_device_raises_without_cuda():
             make()
 
 
+def test_streaming_entry_points_default_to_the_card():
+    """``Cluster``, ``initial_load`` and the launcher's ``_etl_prompts`` run
+    on the card unless asked for the CPU, and raise without one; the
+    pipeline runs on its app's device.  A refused load leaves the
+    coordinator thawed."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists here")
+    from repro_torch.core.state import StateCoordinator
+    from repro_torch.core.synthetic import ScenarioConfig, build_scenario
+    from repro_torch.etl import Cluster, CollectSink, EventChunkSource, EventSource
+    from repro_torch.etl.initial_load import initial_load
+    from repro_torch.launch.serve import _etl_prompts
+
+    sc = build_scenario(ScenarioConfig(n_schemas=2, versions_per_schema=2,
+                                       attrs_per_version=4, n_entities=1,
+                                       cdm_attrs=4, seed=1))
+    coord = StateCoordinator(sc.registry, sc.dpm)
+    src = EventSource(sc.registry, seed=1)
+    for make in (lambda: Cluster(coord, [EventChunkSource(src)], [CollectSink()]),
+                 lambda: Cluster.over_stream(coord, src, instances=2),
+                 lambda: initial_load(coord, src, count=16, instances=2),
+                 lambda: _etl_prompts(2, 512),
+                 lambda: _etl_prompts(2, 512, shards=4),
+                 lambda: _etl_prompts(2, 512, instances=2)):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            make()
+    assert not coord.frozen
+
+
 def test_chip_smoke_refuses_to_run_without_the_card_or_the_repo(tmp_path):
     alone = tmp_path / "chip_smoke.py"
     alone.write_text((REPO / "chip_smoke.py").read_text())

@@ -137,14 +137,74 @@ def test_serve_launcher_runs_on_cpu():
     assert all(line.startswith(f"request {i}: 16 tokens -> ") for i, line in enumerate(lines))
 
 
-@pytest.mark.parametrize("flag", [["--etl"], ["--shards", "4"], ["--instances", "2"],
-                                  ["--replicated"], ["--async-consume"],
-                                  ["--device-densify"]])
-def test_serve_launcher_refuses_etl_modes(flag):
+@pytest.mark.parametrize("flags", [["--replicated"], ["--etl", "--instances", "2", "--replicated"]])
+def test_serve_launcher_refuses_replicated(flags):
+    """The distributed control plane (transport and replication) is the
+    one ETL-fed mode still to be ported."""
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 items 11-13"):
-        serve.main(["--smoke", "--device", "cpu", *flag])
+    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 12"):
+        serve.main(["--smoke", "--device", "cpu", *flags])
+
+
+# _etl_prompts' keywords for the launcher's ETL flag combinations
+ETL_FLAGS = {
+    "etl": {},
+    "async-consume": dict(async_consume=True),
+    "device-densify": dict(device_densify=True),
+    "instances-2": dict(instances=2),
+    "all-but-shards": dict(instances=2, async_consume=True, device_densify=True),
+}
+
+
+@pytest.mark.parametrize("flags", list(ETL_FLAGS))
+def test_etl_prompts_match_reference(flags):
+    """``--etl`` prompts: the same scenario, stream and topology on both
+    sides, so the tokenized prompts are equal."""
+    from repro.launch.serve import _etl_prompts as r_etl_prompts
+    from repro_torch.launch.serve import _etl_prompts
+
+    vocab = TC.get("olmo_1b").vocab
+    for n in (8, 300):  # one chunk, and several 16-chunk windows' worth
+        want = r_etl_prompts(n, vocab, **ETL_FLAGS[flags])
+        got = _etl_prompts(n, vocab, device="cpu", **ETL_FLAGS[flags])
+        assert len(got) == n and got == want
+
+
+def _shards_parity() -> None:
+    """Run in a 4-device process: ``--shards 4``, alone and with every other
+    ETL flag, against the reference's sharded prompts."""
+    from repro.launch.serve import _etl_prompts as r_etl_prompts
+    from repro_torch.launch.serve import _etl_prompts
+
+    for kw in ({}, dict(instances=2, async_consume=True, device_densify=True)):
+        want = r_etl_prompts(300, 50_304, shards=4, **kw)
+        assert _etl_prompts(300, 50_304, shards=4, device="cpu", **kw) == want
+
+
+def test_etl_prompts_with_shards_match_reference():
+    from _subproc import run_sub
+
+    out = run_sub(f"""
+        import sys
+        sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
+        import test_torch_serve as t
+        t._shards_parity()
+        print("subprocess OK")
+    """, devices=4)
+    assert "subprocess OK" in out
+    assert out.count("etl: sharded engine over 4 shards") == 2  # reference and port
+
+
+def test_serve_launcher_runs_etl_on_cpu():
+    proc = _launch("--arch", "olmo_1b", "--smoke", "--device", "cpu", "--etl",
+                   "--async-consume")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("etl: ") and "async double-buffered" in lines[0]
+    requests = [line for line in lines if line.startswith("request ")]
+    assert len(requests) == 8  # --requests 8, every one completed
+    assert all(line.startswith(f"request {i}: 16 tokens -> ") for i, line in enumerate(requests))
 
 
 def test_serve_launcher_defaults_to_the_card():
