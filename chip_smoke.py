@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's consume paths (fused, sharded and per-block),
-its streaming pipeline, cluster and initial load, and its olmo-1b server,
+its streaming pipeline, cluster and initial load, its replicated control
+plane (leader and follower processes on the card), and its olmo-1b server,
 alone and fed by the pipeline, on one NVIDIA card and check them.
 
 Run from the repository root with no arguments:
@@ -118,6 +119,32 @@ failure raises and the script exits non-zero):
    over chunks 33-63 of fused host, fused device and sharded host densify,
    5 interleaved passes each on a fresh app (median, min, max), and the
    device busy share of one async pass under ``torch.profiler``;
+4d. the replicated control plane (``repro_torch.etl.replication``), its
+   processes sharing the card: (a) an in-process ``LeaderNode`` on slot 0
+   of step 4's grid (the evolution at chunk 32 as its schedule) and three
+   follower processes (``--role follower --instances 4 --chunk-size 512
+   --max-chunks 64 --stream-seed 1``, seeded only by the leader's
+   snapshot) over a ``SocketServer``: the merged rows equal step 4's fused
+   host-densify rows and phase 4c's cluster rows in order (as
+   ``row_to_wire`` lists), every follower ends at the leader's term and
+   log offset with no stale record, and the leader's plane launches
+   ``segmented_gather`` once an owned chunk; 5 passes, each beside a pass
+   of the in-process 4-instance ``Cluster``; (b) the four acts of
+   ``scripts/replication_smoke.py`` through the port's command line on the
+   card (the paper's 128 schemas, 64 chunks of 512): the oracle, a leader
+   killed after 2 chunks (exit 17) with two followers over 3 instances, a
+   ``--resume`` leader under term 2, the audit (zero dropped, zero
+   duplicated, rows equal to the oracle's), and the card's oracle file
+   byte-identical to a ``--device cpu`` one; (c) ``python -m
+   repro_torch.launch.serve --arch olmo_1b --etl --instances 4
+   --replicated`` at full width (every request completes) and
+   ``_etl_replicated``'s prompts on the card equal to the CPU's; then the
+   ``replication`` line: (a)'s wall time from the leader's first chunk to
+   the last ``done`` and its events/s beside the cluster's (median and
+   min-max), the leader's ``plane.step`` against its rows' ``row_to_wire``
+   + ``json.dumps`` a chunk, (b)'s recovery time (crash to the resumed
+   leader's first chunk, and to the end of the stream), and the process
+   start-up time apart;
 5. serve olmo-1b at full width (16 layers, d_model 2048, random weights
    from a seeded ``torch.Generator``): (a) the prefill ``forward`` with
    ``attn_impl="pallas"`` over a (2, 2048) prompt batch, 16 launches of
@@ -171,7 +198,9 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -1193,7 +1222,8 @@ def pipeline_backpressure(dev, cfg, want) -> dict:
 def pipeline_cluster(dev, cfg, want) -> dict:
     """``Cluster.over_stream`` over step 4's stream, 4 async instances of
     fused host densify on the card: the merged rows equal the one-instance
-    rows in order, and every instance serves one state."""
+    rows in order, and every instance serves one state.  Returns (summary,
+    rows)."""
     from repro_torch.etl import Cluster, CollectSink, EventSource
 
     coord, ev = main_path_world(cfg)
@@ -1219,7 +1249,7 @@ def pipeline_cluster(dev, cfg, want) -> dict:
     return {"instances": info["instances"], "states": info["states"],
             "dispatches": info["dispatches"],
             "segmented_gather_launches": launches["segmented_gather"],
-            "rows": len(sink.rows), "seconds": seconds}
+            "rows": len(sink.rows), "seconds": seconds}, sink.rows
 
 
 def pipeline_initial_load(dev, cfg) -> dict:
@@ -1353,10 +1383,11 @@ def pipeline_rates(dev, cfg, chunks) -> dict:
             "paths": out}
 
 
-def streaming_pipeline(dev, cfg, stream, runs) -> None:
+def streaming_pipeline(dev, cfg, stream, runs) -> list:
     """Phase 4c: step 4's stream through the pipeline, the cluster, the
     initial load and the ETL-fed launcher on the card, held against step
-    4's rows and stats, the sync run and the CPU; then the rates."""
+    4's rows and stats, the sync run and the CPU; then the rates.  Returns
+    the cluster's rows."""
     import dataclasses
 
     sync_rows = {}
@@ -1383,13 +1414,404 @@ def streaming_pipeline(dev, cfg, stream, runs) -> None:
               f"{json.dumps(launches)}", flush=True)
     want = runs["cuda/host"][0]
     later = [stream.chunks[k] for k in range(EVOLVE_AT + 1, CHUNKS)]
+    cluster = {}
+
+    def run_cluster():
+        summary, cluster["rows"] = pipeline_cluster(dev, cfg, want)
+        return summary
+
     for name, run in (("backpressure", lambda: pipeline_backpressure(dev, cfg, want)),
-                      ("cluster", lambda: pipeline_cluster(dev, cfg, want)),
+                      ("cluster", run_cluster),
                       ("initial load", lambda: pipeline_initial_load(dev, cfg)),
                       ("serve --etl", pipeline_serve),
                       ("rates", lambda: pipeline_rates(dev, cfg, later))):
         result = run()  # the line's time stamp is the step's end
         print(f"{elapsed()} pipeline {name}: " + json.dumps(result), flush=True)
+    return cluster["rows"]
+
+
+# -- phase 4d: the replicated control plane ---------------------------------------
+
+REPL_INSTANCES = 4  # (a) and (c): the leader's slot 0 and three follower processes
+REPL_PASSES = 5
+# (b): scripts/replication_smoke.py's schedule on the paper's schema count and
+# step 4's chunks; FAILOVER_FAST_GRID is that script's --fast grid
+_FAILOVER_SCHEDULE = ["--seed", "7", "--stream-seed", "7", "--churn", "3",
+                      "--churn-first", "2", "--churn-every", "3", "--freeze-at", "3",
+                      "--thaw-at", "7"]
+FAILOVER_GRID = ["--schemas", "128", *_FAILOVER_SCHEDULE, "--chunk-size", "512",
+                 "--max-chunks", "64"]
+FAILOVER_FAST_GRID = ["--schemas", "5", *_FAILOVER_SCHEDULE, "--chunk-size", "32",
+                      "--max-chunks", "9"]
+FOLLOWER_DONE = re.compile(r"follower (\d+): done -- (\d+) rows, log_offset (\d+), "
+                           r"term (\d+), stale rejected (\d+)")
+PROCESS_TIMEOUT = 300  # seconds any one process of the phase may take
+
+
+def _replication_cli(device) -> list:
+    return [sys.executable, "-m", "repro_torch.etl.replication", "--device", str(device)]
+
+
+def _replication_env() -> dict:
+    from repro_torch.launch.serve import _src_path
+
+    return {**os.environ, "PYTHONPATH": _src_path()}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(argv, log) -> subprocess.Popen:
+    """A process of the replication command line, its output into ``log``
+    (a path: concurrent writers to one stream interleave their lines)."""
+    with open(log, "w") as f:
+        return subprocess.Popen(argv, env=_replication_env(), stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def _tails(logs) -> str:
+    return "".join(f"\n--- {Path(log).name}:\n" + Path(log).read_text()[-2000:]
+                   for log in logs if Path(log).exists())
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _read_chunks(path) -> dict:
+    """chunk index -> wire rows of one rows file; a chunk twice in one file
+    fails (a restart that did not truncate)."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                rec = json.loads(line)
+                if rec["chunk"] in out:
+                    raise AssertionError(f"chunk {rec['chunk']} twice in {path}")
+                out[rec["chunk"]] = rec["rows"]
+    return out
+
+
+def _spread(values) -> dict:
+    return {"median": statistics.median(values), "min": min(values), "max": max(values)}
+
+
+def replicated_pass(dev, cfg, want, *, chunks=CHUNKS, chunk_events=CHUNK_EVENTS,
+                    evolve_at=EVOLVE_AT) -> dict:
+    """(a) One pass of the replicated runtime: an in-process ``LeaderNode``
+    on slot 0 over :func:`main_path_world`'s coordinator, the evolution at
+    ``evolve_at`` as its schedule, and ``REPL_INSTANCES - 1`` follower
+    processes of the command line on ``dev`` over a ``SocketServer``, seeded
+    only by the leader's snapshot.  The merged rows (as ``row_to_wire``
+    lists: followers' rows come back as float64) must equal ``want`` in
+    order; every follower must end at the leader's term and log offset with
+    no stale record; on the card the leader's plane makes one
+    ``segmented_gather`` launch an owned chunk (counts zeroed just before
+    the leader's run, read just after).  Start-up (spawn to every follower's
+    plane built, seen as its rows file appearing) is timed apart from the
+    run (the leader's first chunk to the last ``done``; the leader's own
+    run and ``finish`` apart); the leader times its ``plane.step``, the
+    source's slicing inside it, and its rows' ``row_to_wire`` +
+    ``json.dumps``, the work a follower does a chunk."""
+    import tempfile
+
+    from repro_torch.etl import EventSource
+    from repro_torch.etl.replication import DataPlane, LeaderNode
+    from repro_torch.etl.transport import SocketServer, row_to_wire
+
+    coord, ev = main_path_world(cfg)
+    leader = LeaderNode(coord, term=1)
+    leader.set_schedule({evolve_at: ev})
+    followers = REPL_INSTANCES - 1
+    grid = ["--instances", str(REPL_INSTANCES), "--chunk-size", str(chunk_events),
+            "--max-chunks", str(chunks), "--stream-seed", "1"]
+    srv = SocketServer(port=0)
+    procs, logs = [], []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-repl-") as tmp:
+        tmp = Path(tmp)
+        outs = [tmp / f"follower{slot}.jsonl" for slot in range(1, followers + 1)]
+        try:
+            t_spawn = time.perf_counter()
+            for slot, out in enumerate(outs, start=1):
+                logs.append(tmp / f"follower{slot}.log")
+                procs.append(_spawn(_replication_cli(dev) + [
+                    "--role", "follower", "--port", str(srv.port), "--slot", str(slot),
+                    "--out", str(out)] + grid, logs[-1]))
+            for _ in procs:
+                transport = srv.accept(timeout=PROCESS_TIMEOUT)
+                if transport is None:
+                    raise AssertionError(f"replicated pass: a follower never connected "
+                                         f"(exit codes {[p.poll() for p in procs]})"
+                                         + _tails(logs))
+                leader.attach(transport, timeout=PROCESS_TIMEOUT)
+            plane = DataPlane(coord, EventSource(coord.registry, seed=1), slot=0,
+                              instances=REPL_INSTANCES, chunk_size=chunk_events,
+                              max_chunks=chunks, device=dev)
+            deadline = time.monotonic() + PROCESS_TIMEOUT
+            while not all(out.exists() for out in outs):
+                if any(p.poll() is not None for p in procs) or time.monotonic() > deadline:
+                    raise AssertionError(f"replicated pass: a follower stopped before its "
+                                         f"plane was built ({[p.poll() for p in procs]})"
+                                         + _tails(logs))
+                time.sleep(0.002)
+            startup_s = time.perf_counter() - t_spawn
+
+            step_s, slice_s, write_s, by_chunk = [], [], [], {}
+            step, stream = plane.step, plane.source.source
+            slice_columnar = stream.slice_columnar
+
+            def timed_step():
+                t0 = time.perf_counter()
+                out = step()
+                step_s.append(time.perf_counter() - t0)
+                return out
+
+            def timed_slice(*args):
+                t0 = time.perf_counter()
+                out = slice_columnar(*args)
+                slice_s.append(time.perf_counter() - t0)
+                return out
+
+            def on_chunk(h, rows):
+                t0 = time.perf_counter()
+                by_chunk[h] = [row_to_wire(r) for r in rows]
+                json.dumps({"chunk": h, "rows": by_chunk[h]})
+                write_s.append(time.perf_counter() - t0)
+
+            plane.step, stream.slice_columnar = timed_step, timed_slice
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            leader.run(plane, on_chunk=on_chunk)
+            leader.finish(end=chunks - 1)
+            leader_s = time.perf_counter() - t0
+            while len(leader._done) < followers:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"replicated pass: done from {sorted(leader._done)}")
+                leader.pump(0.0)
+            wall_s = time.perf_counter() - t0
+            launches = _launch_counts()
+            for p in procs:
+                if p.wait(timeout=PROCESS_TIMEOUT) != 0:
+                    raise AssertionError(f"replicated pass: a follower exited {p.returncode}"
+                                         + _tails(logs))
+        finally:
+            _stop(procs)
+            leader.close()
+            srv.close()
+        ends = [FOLLOWER_DONE.search(log.read_text()) for log in logs]
+        for out in outs:
+            for h, rows in _read_chunks(out).items():
+                if h in by_chunk:
+                    raise AssertionError(f"replicated pass: chunk {h} from two nodes")
+                by_chunk[h] = rows
+    info = coord.replication_info()
+    if sorted(by_chunk) != list(range(chunks)):
+        raise AssertionError(f"replicated pass: chunks {sorted(by_chunk)}")
+    for end in ends:
+        if end is None or [int(x) for x in end.groups()[2:]] != [
+                info["log_offset"], info["term"], 0]:
+            raise AssertionError(f"replicated pass: a follower ended at {end and end.group(0)}, "
+                                 f"the leader at {info}")
+    merged = [r for h in sorted(by_chunk) for r in by_chunk[h]]
+    if merged != [row_to_wire(r) for r in want]:
+        raise AssertionError("replicated pass: merged rows differ from the reference rows")
+    owned = len(range(0, chunks, REPL_INSTANCES))
+    on_card = torch.device(dev).type == "cuda"
+    if on_card and launches != {n: owned if n == "segmented_gather" else 0
+                                for n in KERNEL_NAMES}:
+        raise AssertionError(f"replicated pass: leader launches {launches} for {owned} chunks")
+    return {"followers": followers, "leader_chunks": len(step_s) - 1, "rows": len(merged),
+            "term": info["term"], "log_offset": info["log_offset"],
+            "leader_segmented_gather_launches": launches["segmented_gather"],
+            "startup_s": startup_s, "wall_s": wall_s, "leader_s": leader_s,
+            "ev_s": chunks * chunk_events / wall_s,
+            "step_ms": [t * 1e3 for t in step_s[:-1]], "slice_ms": [t * 1e3 for t in slice_s],
+            "write_ms": [t * 1e3 for t in write_s]}
+
+
+def failover_acts(device, grid, *, crash_after=2) -> dict:
+    """(b) ``scripts/replication_smoke.py``'s four acts through the port's
+    command line on ``device`` over ``grid``: the oracle (beside a
+    ``--device cpu`` oracle, whose file must be byte-identical); a leader
+    that exits 17 after emitting ``crash_after`` chunks, before their
+    checkpoint, with two followers over 3 instances; a ``--resume`` leader
+    under term 2; the audit (zero dropped, zero duplicated, rows equal to
+    the oracle's).  Recovery is timed from the crash (the leader's exit) to
+    the resumed leader's first chunk (its rows file grows past the
+    checkpointed chunks after the crash) and to the end of the stream
+    (every process exited)."""
+    import tempfile
+
+    from repro_torch.etl.replication import load_restart
+
+    cli = _replication_cli(device)
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-failover-") as tmp:
+        tmp = Path(tmp)
+        logs = {name: tmp / f"{name}.log" for name in
+                ("oracle", "oracle-cpu", "follower1", "follower2", "leader", "resumed")}
+        try:
+            oracles = {"device": tmp / "oracle.jsonl", "cpu": tmp / "oracle-cpu.jsonl"}
+            procs = [_spawn(cli + ["--role", "oracle", "--out", str(oracles["device"])] + grid,
+                            logs["oracle"]),
+                     _spawn(_replication_cli("cpu") + ["--role", "oracle", "--out",
+                                                       str(oracles["cpu"])] + grid,
+                            logs["oracle-cpu"])]
+            if [p.wait(timeout=PROCESS_TIMEOUT) for p in procs] != [0, 0]:
+                raise AssertionError(f"failover: oracle exit codes "
+                                     f"{[p.returncode for p in procs]}" + _tails(logs.values()))
+            oracle_bytes = oracles["device"].read_bytes()
+            if oracle_bytes != oracles["cpu"].read_bytes():
+                raise AssertionError(f"failover: the {device} oracle file differs from the "
+                                     "cpu oracle file")
+            oracle = _read_chunks(oracles["device"])
+
+            port, ledger, ckpt = _free_port(), tmp / "control.ledger", tmp / "restart.ckpt"
+            leader_out = tmp / "leader.jsonl"
+            fol_outs = [tmp / f"f{s}.jsonl" for s in (1, 2)]
+            procs = [_spawn(cli + ["--role", "follower", "--port", str(port), "--slot",
+                                   str(slot), "--instances", "3", "--out", str(out)] + grid,
+                            logs[f"follower{slot}"])
+                     for slot, out in zip((1, 2), fol_outs)]
+            leader_cmd = cli + ["--role", "leader", "--port", str(port), "--followers", "2",
+                                "--instances", "3", "--out", str(leader_out), "--ledger",
+                                str(ledger), "--checkpoint", str(ckpt)] + grid
+            crashed = _spawn(leader_cmd + ["--crash-after-chunks", str(crash_after)],
+                             logs["leader"])
+            procs.append(crashed)
+            if crashed.wait(timeout=PROCESS_TIMEOUT) != 17:
+                raise AssertionError(f"failover: the injected crash did not fire (leader "
+                                     f"exit {crashed.returncode}, want 17)"
+                                     + _tails(logs.values()))
+            t_crash = time.time()
+            kept = load_restart(str(ckpt))["chunks_done"]
+            with open(leader_out, "rb") as f:
+                kept_bytes = sum(len(f.readline()) for _ in range(kept))
+            resumed = _spawn(leader_cmd + ["--resume"], logs["resumed"])
+            procs.append(resumed)
+            live, t_first = procs[:2] + [resumed], None
+            deadline = time.monotonic() + PROCESS_TIMEOUT
+            while any(p.poll() is None for p in live):
+                if t_first is None:
+                    st = os.stat(leader_out)
+                    if st.st_mtime > t_crash and st.st_size > kept_bytes:
+                        t_first = time.time()
+                if time.monotonic() > deadline:
+                    raise AssertionError("failover: the resumed run did not end"
+                                         + _tails(logs.values()))
+                time.sleep(0.002)
+            t_end = time.time()
+            if [p.returncode for p in live] != [0, 0, 0] or t_first is None:
+                raise AssertionError(f"failover: exit codes {[p.returncode for p in live]}, "
+                                     f"first chunk seen {t_first is not None}"
+                                     + _tails(logs.values()))
+            ends = [FOLLOWER_DONE.search(logs[f"follower{s}"].read_text()) for s in (1, 2)]
+            if any(end is None or end.group(4) != "2" or end.group(5) != "0" for end in ends):
+                raise AssertionError("failover: a follower did not end at term 2 with no "
+                                     "stale record" + _tails(logs.values()))
+            got = {}
+            for path in [leader_out] + fol_outs:
+                for h, rows in _read_chunks(path).items():
+                    if h in got:
+                        raise AssertionError(f"failover: chunk {h} emitted by two nodes")
+                    got[h] = rows
+        finally:
+            _stop(procs)
+    dropped, extra = sorted(set(oracle) - set(got)), sorted(set(got) - set(oracle))
+    bad = [h for h in oracle if h in got and got[h] != oracle[h]]
+    if dropped or extra or bad:
+        raise AssertionError(f"failover: dropped {dropped}, extra {extra}, rows differ {bad}")
+    return {"chunks": len(got), "rows": sum(len(v) for v in got.values()),
+            "dropped": 0, "duplicated": 0, "crash_exit": 17, "checkpointed_chunks": kept,
+            "oracle_bytes": len(oracle_bytes), "oracle_equals_cpu_oracle": True,
+            "recovery_to_first_chunk_s": t_first - t_crash,
+            "recovery_to_end_s": t_end - t_crash}
+
+
+def replicated_serve() -> dict:
+    """(c) The launcher at olmo-1b's full width with ``--etl --instances 4
+    --replicated`` on the card (a leader and three follower processes):
+    every request completes; then ``_etl_replicated`` gives the same
+    prompts on the card as on the CPU."""
+    import contextlib
+    import io
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "olmo_1b", "--etl", "--instances", "4", "--replicated"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    done = [line for line in lines if line.startswith("request ") and ": 16 tokens -> " in line]
+    etl = [line for line in lines if line.startswith("etl: replicated")]
+    if len(done) != 8 or not etl or "1 leader + 3 followers" not in etl[0]:
+        raise AssertionError("serve --replicated: not every request completed:\n"
+                             + out.getvalue())
+    vocab = configs.get("olmo_1b").vocab
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = serve._etl_replicated(1000, vocab, instances=4, device="cuda")
+        want = serve._etl_replicated(1000, vocab, instances=4, device="cpu")
+    if len(got) != 1000 or got != want:
+        raise AssertionError("_etl_replicated: the card's prompts differ from the cpu's")
+    return {"argv": " ".join(argv), "requests_done": len(done), "seconds": seconds,
+            "etl_line": etl[0], "prompts_equal_cpu": len(got)}
+
+
+def replicated_control_plane(dev, cfg, want, cluster_rows) -> None:
+    """Phase 4d: (a) ``REPL_PASSES`` replicated passes over step 4's grid,
+    each beside a pass of phase 4c's in-process 4-instance ``Cluster``
+    (interleaved); (b) the failover acts; (c) ``serve --replicated``; then
+    the ``replication`` line."""
+    compare_rows("phase 4c cluster vs step 4", cluster_rows, want)
+    reps, clusters = [], []
+    for k in range(REPL_PASSES):
+        reps.append(replicated_pass(dev, cfg, want))
+        clusters.append(pipeline_cluster(dev, cfg, want)[0]["seconds"])
+        r = reps[-1]
+        print(f"{elapsed()} replication pass {k}: startup {r['startup_s']:.3f} s, run "
+              f"{r['wall_s']:.4f} s = {r['ev_s']:.0f} ev/s over {r['followers']} followers; "
+              f"cluster {clusters[-1]:.4f} s; rows {r['rows']} equal step 4's and phase "
+              f"4c's cluster's; followers at term {r['term']} log_offset "
+              f"{r['log_offset']}, none stale; leader launches "
+              f"{r['leader_segmented_gather_launches']} segmented_gather for "
+              f"{r['leader_chunks']} chunks", flush=True)
+    failover = failover_acts(dev, FAILOVER_GRID)
+    print(f"{elapsed()} replication failover: " + json.dumps(failover), flush=True)
+    serving = replicated_serve()
+    print(f"{elapsed()} replication serve --replicated: " + json.dumps(serving), flush=True)
+    events = CHUNKS * CHUNK_EVENTS
+    step_ms = [t for r in reps for t in r["step_ms"]]
+    step, write = (statistics.median(t for r in reps for t in r[k])
+                   for k in ("step_ms", "write_ms"))
+    line = {
+        "grid": f"{CHUNKS} x {CHUNK_EVENTS} events, {REPL_INSTANCES} instances",
+        "passes": REPL_PASSES,
+        "replicated": {"wall_s": _spread([r["wall_s"] for r in reps]),
+                       "ev_s": _spread([r["ev_s"] for r in reps]),
+                       "leader_run_s": _spread([r["leader_s"] for r in reps])},
+        "cluster_in_process": {"wall_s": _spread(clusters),
+                               "ev_s": _spread([events / s for s in clusters])},
+        "replicated_over_cluster_ev_s": (statistics.median([r["ev_s"] for r in reps])
+                                         / statistics.median([events / s for s in clusters])),
+        "per_chunk": {"chunks": len(step_ms), "step_ms_median": step,
+                      "slice_ms_median": statistics.median(
+                          t for r in reps for t in r["slice_ms"]),
+                      "write_ms_median": write, "write_share": write / (step + write)},
+        "failover": {k: failover[k] for k in ("recovery_to_first_chunk_s",
+                                              "recovery_to_end_s", "chunks", "rows")},
+        "startup_s": _spread([r["startup_s"] for r in reps]),
+    }
+    print(f"{elapsed()} replication: " + json.dumps(line), flush=True)
 
 
 # -- phase 5: timing -------------------------------------------------------------
@@ -2770,7 +3192,8 @@ def main() -> int:
 
     plan_lifecycle(dev)
 
-    streaming_pipeline(dev, cfg, stream, runs)
+    cluster_rows = streaming_pipeline(dev, cfg, stream, runs)
+    replicated_control_plane(dev, cfg, runs["cuda/host"][0], cluster_rows)
 
     serving = serving_path(dev)
 

@@ -21,27 +21,16 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .dmm import DPM
+from ..etl.transport import WIRE_VERSION, decode_snapshot
 from .dmm_torch import DeviceLike, resolve_device
-from .registry import Registry
 from .state import StateCoordinator
 
 __all__ = ["WIRE_VERSION", "coordinator_from_snapshot", "params_from_jax"]
 
-WIRE_VERSION = 1  # the snapshot wire version this module reads
-
-
-def _decode_dpm(d: Dict[str, Any]) -> DPM:
-    return {
-        tuple(int(x) for x in key.split(",")): frozenset(
-            (int(q), int(p)) for q, p in elements
-        )
-        for key, elements in d.items()
-    }
-
 
 def coordinator_from_snapshot(d: Dict[str, Any]) -> StateCoordinator:
-    """The port's coordinator for a snapshot dict (see module docstring).
+    """The port's coordinator for a snapshot dict (see module docstring),
+    decoded by :func:`repro_torch.etl.transport.decode_snapshot`.
 
     Raises ValueError on any wire version other than :data:`WIRE_VERSION`.
     The restored coordinator keeps the snapshot's frozen flag and starts its
@@ -51,12 +40,7 @@ def coordinator_from_snapshot(d: Dict[str, Any]) -> StateCoordinator:
         raise ValueError(
             f"snapshot wire version {d.get('v')!r}, this reader speaks {WIRE_VERSION}"
         )
-    return StateCoordinator(
-        Registry.from_dict(d["registry"]),
-        _decode_dpm(d["dpm"]),
-        frozen=bool(d["frozen"]),
-        log_base=int(d["log_offset"]),
-    )
+    return decode_snapshot(d)
 
 
 # the reference stacks these layer lists along a leading axis (for lax.scan);

@@ -39,15 +39,19 @@ The ETL flags compose as in the reference:
   grid, one coordinator as the single state writer, the bounded tokenizer
   sink as the merge fan-in (paper SS5.5); composes with the three above.
 
-``--replicated`` (the reference's distributed control plane: a leader and
-follower processes over the socket transport) needs the transport and
-replication modules, which are not ported yet (ROADMAP queue 1 item 12);
-it is accepted as a flag and refused.
+``--etl --instances N --replicated`` runs the fan-out as the distributed
+control plane (:mod:`repro_torch.etl.replication`): an in-process leader on
+slot 0 of the chunk grid streams fenced control records to N-1 follower
+processes (``python -m repro_torch.etl.replication --role follower``) over
+the socket transport, every node mapping its chunks on ``--device`` (on
+the card they share it).  It composes with ``--instances`` only; without
+``--etl`` it is ignored, as in the reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional
 
 
@@ -176,6 +180,120 @@ def _etl_prompts(
     return sink.prompts
 
 
+def _src_path() -> str:
+    """PYTHONPATH for follower subprocesses: the tree this repro_torch
+    package was imported from, plus whatever the parent already had."""
+    import repro_torch
+
+    src = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
+    have = os.environ.get("PYTHONPATH", "")
+    return src + (os.pathsep + have if have else "")
+
+
+def _etl_replicated(n_requests: int, vocab: int, max_len: int = 16,
+                    instances: int = 2, device: str = "cuda") -> list:
+    """Leader/follower multi-process METL: the ``--replicated`` path.
+
+    One in-process :class:`~repro_torch.etl.replication.LeaderNode` (slot 0
+    of the chunk grid) + ``instances - 1`` follower subprocesses (``python
+    -m repro_torch.etl.replication --role follower --device <device>``)
+    over the socket transport.  A small churn schedule exercises live schema
+    evolution across the replicated control plane; rows merge in global
+    chunk order.  Every node maps on ``device`` (raises without a card
+    unless it is ``"cpu"``); on the card the kernel library is built here,
+    before any follower starts, so the followers load it instead of each
+    compiling it."""
+    import json
+    import subprocess
+    import sys
+    import tempfile
+
+    from ..core.dmm_torch import resolve_device
+    from ..core.state import StateCoordinator
+    from ..core.synthetic import ScenarioConfig, build_scenario, churn_schedule
+    from ..etl import EventSource, TokenizerSink
+    from ..etl.replication import DataPlane, LeaderNode
+    from ..etl.transport import SocketServer, row_from_wire
+
+    if resolve_device(device).type == "cuda":
+        from ..kernels import build
+
+        build.build(["segmented_gather"])
+    instances = max(2, instances)
+    max_chunks, chunk_size = 4 * instances, 256
+    sc = build_scenario(ScenarioConfig(n_schemas=6, versions_per_schema=3, seed=7))
+    coord = StateCoordinator(sc.registry, sc.dpm)
+    leader = LeaderNode(coord, term=1)
+    churn = churn_schedule(sc.registry, steps=2, first_chunk=2,
+                           every=instances, seed=8)
+    leader.set_schedule({k: [v] for k, v in churn.items()})
+
+    srv = SocketServer(port=0)
+    procs, by_chunk = [], {}
+    with tempfile.TemporaryDirectory(prefix="serve-repl-") as tmp:
+        outs = [os.path.join(tmp, f"follower{slot}.jsonl") for slot in range(1, instances)]
+        try:
+            for slot, out in enumerate(outs, start=1):
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.etl.replication",
+                     "--role", "follower", "--host", "127.0.0.1",
+                     "--port", str(srv.port), "--slot", str(slot),
+                     "--instances", str(instances),
+                     "--max-chunks", str(max_chunks),
+                     "--chunk-size", str(chunk_size),
+                     "--stream-seed", "7", "--out", out, "--device", str(device)],
+                    env={**os.environ, "PYTHONPATH": _src_path()},
+                ))
+            for _ in procs:
+                transport = srv.accept(timeout=60.0)
+                if transport is None:
+                    raise RuntimeError(
+                        "a replicated follower never connected (exit codes "
+                        f"{[p.poll() for p in procs]})")
+                leader.attach(transport, timeout=60.0)
+
+            plane = DataPlane(coord, EventSource(sc.registry, seed=7), slot=0,
+                              instances=instances, max_chunks=max_chunks,
+                              chunk_size=chunk_size, device=device)
+            leader.run(plane, on_chunk=lambda h, rows: by_chunk.__setitem__(h, rows))
+            leader.finish(end=max_chunks - 1, wait_done=True, timeout=120.0)
+            for p in procs:
+                if p.wait(timeout=120) != 0:
+                    raise RuntimeError(f"replicated follower exited {p.returncode}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            leader.close()
+            srv.close()
+        for out in outs:
+            with open(out) as f:
+                for line in f:
+                    d = json.loads(line)
+                    by_chunk[d["chunk"]] = [row_from_wire(r) for r in d["rows"]]
+
+    sink = TokenizerSink(vocab, max_len=max_len, limit=n_requests)
+    for h in sorted(by_chunk):
+        sink.write(by_chunk[h])
+        if sink.full():
+            break
+    if not sink.full():
+        raise RuntimeError(
+            f"replicated ETL produced only {len(sink.prompts)} prompts of "
+            f"{n_requests} over {max_chunks} chunks"
+        )
+    info = leader.coordinator.replication_info()
+    print(
+        f"etl: replicated control plane, 1 leader + {instances - 1} followers "
+        f"(term {info['term']}, log_offset {info['log_offset']}, "
+        f"state i={coord.registry.state}): "
+        f"{sum(len(v) for v in by_chunk.values())} canonical rows over "
+        f"{len(by_chunk)} chunks"
+    )
+    return sink.prompts
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo_1b")
@@ -194,8 +312,11 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "coordinator as the single state writer); 0/1 = "
                          "one pipeline")
     ap.add_argument("--replicated", action="store_true",
-                    help="refused: the distributed control plane is not "
-                         "ported yet")
+                    help="with --etl --instances N: run the fan-out as a "
+                         "distributed control plane -- an in-process leader "
+                         "streams fenced control records to N-1 follower "
+                         "processes over the socket transport "
+                         "(repro_torch.etl.replication)")
     ap.add_argument("--async-consume", action="store_true",
                     help="with --etl: double-buffered pipeline consume "
                          "(chunk N+1 densifies while chunk N is on the device)")
@@ -208,12 +329,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     args = ap.parse_args(argv)
 
-    if args.replicated:
-        raise SystemExit(
-            "--replicated: the distributed control plane is not ported yet "
-            "(ROADMAP queue 1 item 12: etl/transport.py and etl/replication.py)"
-        )
-
     import numpy as np
 
     from .. import configs
@@ -224,7 +339,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     params = M.init_params(cfg, 0, device=args.device)
     sc = ServeConfig(batch=args.batch, cache_len=args.cache_len, max_new=args.max_new)
     server = Server(params, cfg, sc, device=args.device)
-    if args.etl:
+    if args.etl and args.replicated:
+        if args.shards > 1 or args.device_densify or args.async_consume:
+            raise SystemExit(
+                "--replicated composes with --instances only (follower "
+                "processes run the plain fused engine)"
+            )
+        prompts = _etl_replicated(
+            args.requests, cfg.vocab, instances=max(2, args.instances),
+            device=args.device,
+        )
+    elif args.etl:
         prompts = _etl_prompts(
             args.requests, cfg.vocab, shards=args.shards,
             async_consume=args.async_consume, instances=args.instances,

@@ -157,6 +157,36 @@ def test_streaming_entry_points_default_to_the_card():
     assert not coord.frozen
 
 
+def test_replication_entry_points_default_to_the_card(tmp_path):
+    """``DataPlane``, the replication command line and the launcher's
+    ``_etl_replicated`` run on the card unless asked for the CPU, and raise
+    (or exit non-zero) without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists here")
+    from repro_torch.core.state import StateCoordinator
+    from repro_torch.core.synthetic import ScenarioConfig, build_scenario
+    from repro_torch.etl import EventSource
+    from repro_torch.etl.replication import DataPlane
+    from repro_torch.launch.serve import _etl_replicated
+
+    sc = build_scenario(ScenarioConfig(n_schemas=2, versions_per_schema=2,
+                                       attrs_per_version=4, n_entities=1,
+                                       cdm_attrs=4, seed=1))
+    coord = StateCoordinator(sc.registry, sc.dpm)
+    for make in (lambda: DataPlane(coord, EventSource(sc.registry, seed=1)),
+                 lambda: DataPlane(coord, EventSource(sc.registry, seed=1), device="cuda"),
+                 lambda: _etl_replicated(2, 512)):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            make()
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.etl.replication", "--role",
+                           "oracle", "--max-chunks", "2", "--out", str(tmp_path / "o.jsonl")],
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available" in proc.stderr
+    assert "oracle:" not in proc.stdout
+
+
 def test_chip_smoke_refuses_to_run_without_the_card_or_the_repo(tmp_path):
     alone = tmp_path / "chip_smoke.py"
     alone.write_text((REPO / "chip_smoke.py").read_text())

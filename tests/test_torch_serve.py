@@ -9,6 +9,7 @@ tests/test_serve.py, plus one that drives the shared decode position past
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -137,14 +138,47 @@ def test_serve_launcher_runs_on_cpu():
     assert all(line.startswith(f"request {i}: 16 tokens -> ") for i, line in enumerate(lines))
 
 
-@pytest.mark.parametrize("flags", [["--replicated"], ["--etl", "--instances", "2", "--replicated"]])
-def test_serve_launcher_refuses_replicated(flags):
-    """The distributed control plane (transport and replication) is the
-    one ETL-fed mode still to be ported."""
+def test_serve_launcher_runs_replicated_on_cpu():
+    """``--etl --instances 4 --replicated``: a leader in the launcher and
+    three follower processes feed the prompts; every request completes."""
+    proc = _launch("--arch", "olmo_1b", "--smoke", "--device", "cpu", "--etl",
+                   "--instances", "4", "--replicated")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    etl = [line for line in lines if line.startswith("etl: ")]
+    assert len(etl) == 1 and "1 leader + 3 followers" in etl[0], proc.stdout
+    # the followers share the launcher's stdout: their lines may run together
+    done = re.findall(r"follower \d: done -- \d+ rows, log_offset 2, term 1, "
+                      r"stale rejected 0", proc.stdout)
+    assert len(done) == 3, proc.stdout
+    requests = [line for line in lines if line.startswith("request ")]
+    assert len(requests) == 8  # --requests 8, every one completed
+    assert all(line.startswith(f"request {i}: 16 tokens -> ") for i, line in enumerate(requests))
+
+
+def test_etl_replicated_prompts_match_reference():
+    """``--replicated`` prompts: the same scenario, schedule and grid on
+    both sides (the reference's followers are its own processes), so the
+    tokenized prompts are equal."""
+    from repro.launch.serve import _etl_replicated as r_etl_replicated
+    from repro_torch.launch.serve import _etl_replicated
+
+    vocab = TC.get("olmo_1b").vocab
+    want = r_etl_replicated(1000, vocab, instances=3)
+    got = _etl_replicated(1000, vocab, instances=3, device="cpu")
+    assert len(got) == 1000 and got == want
+
+
+@pytest.mark.parametrize("flags", [["--shards", "4"], ["--device-densify"],
+                                   ["--async-consume"]], ids=lambda f: f[0])
+def test_serve_launcher_refuses_replicated_with_other_etl_flags(flags):
+    """Follower processes run the plain fused engine: ``--replicated``
+    composes with ``--instances`` only, as in the reference."""
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 12"):
-        serve.main(["--smoke", "--device", "cpu", *flags])
+    with pytest.raises(SystemExit, match="--replicated composes with --instances only"):
+        serve.main(["--smoke", "--device", "cpu", "--etl", "--instances", "2",
+                    "--replicated", *flags])
 
 
 # _etl_prompts' keywords for the launcher's ETL flag combinations
