@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's consume paths (fused, sharded and per-block),
 its streaming pipeline, cluster and initial load, its replicated control
-plane (leader and follower processes on the card), and its olmo-1b server,
-alone and fed by the pipeline, on one NVIDIA card and check them.
+plane (leader and follower processes on the card), its olmo-1b server,
+alone and fed by the pipeline, and its MoE family (qwen3-moe-30b-a3b,
+dbrx-132b) on one NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -34,8 +35,9 @@ failure raises and the script exits non-zero):
    ``flash_attention`` over the shapes of ``tests/test_kernels_flash.py`` in
    float32 (its FFMA kernel) and bfloat16 (its tensor-core kernel), ragged
    non-causal T, causal S > T with ragged T, head dims 8, 16, 24, 40, 72
-   and 120, and the olmo-1b, phi3-medium (n_rep 4) and llama3-405b (n_rep
-   16) head layouts at hd 128 (float32 atol 3e-5 / rtol 1e-4, the reference
+   and 120, the olmo-1b, phi3-medium (n_rep 4) and llama3-405b (n_rep 16)
+   head layouts at hd 128, and the MoE prefills' layouts, qwen3-moe (hd 64,
+   n_rep 8, S 2048) and dbrx (hd 128, n_rep 6) (float32 atol 3e-5 / rtol 1e-4, the reference
    tests' tolerance; bfloat16 atol 5e-3 / rtol 1e-2, a limit that three
    planted faults -- p in float8, a skipped key tile, an off-by-one
    diagonal -- must fail at the largest causal shape and at the prefill's);
@@ -176,11 +178,47 @@ failure raises and the script exits non-zero):
    launch and one readback, and whose op-level route is ``np.pad``,
    ``pin_memory`` and ``.to`` of four arrays, ``ops.dmm_apply_fused`` /
    ``dmm_apply_sharded`` and two ``.cpu()`` (``host-densify host``);
+5b. serve the MoE family, olmo-1b's parameters freed first (``serving 5b``
+   lines): (a) qwen3-moe-30b-a3b at full width and all 48 layers, seeded
+   random bfloat16 weights from a ``torch.Generator`` on the card (parameter
+   bytes and ``max_memory_allocated`` printed); (b) its prefill ``forward``
+   with ``attn_impl="pallas"`` over a (2, 2048) batch: 48 launches of
+   ``flash_attention`` and no other kernel of the port, all 48 to the
+   tensor-core kernel (the profiler's device events), each launch within
+   the bfloat16 limit of the plain version on that layer's own q, k and v,
+   two identical calls bit-identical in logits and aux loss; against the
+   dense-attention prefill in bfloat16 (max abs error, argmax agreement,
+   the share of (token, layer) routings that differ), also with the dense
+   prefill's routing pinned to the flash prefill's, beside a control with
+   no kernel (chunked against dense attention, routing pinned): at 48
+   layers a bfloat16 perturbation of any kind reroutes most tokens of this
+   random-weight model, so the agreement >= 0.9 is required of the first 2
+   layers' prefill (the same parameters) and printed for all 48; (c) at full
+   width cut to 2 layers in float32, with capacity factor E / k (C >= T: the
+   prefill drops no token), 32 ``decode_step`` logits against the prefill's
+   (teacher forcing, atol 2e-3 / rtol 1e-3); (d) a batch-8 ``Server``
+   answering 16 requests; (e) the 2-layer float32 model on the card and on
+   the CPU (plain versions): the share of (token, layer) routings that
+   differ, logits within atol 1e-3 / rtol 1e-3 on every row whose own and
+   earlier tokens' routing agree (at least half the rows), equal
+   ``Server`` tokens; (f) ``moe_impl="dmm"`` against ``"dense"`` at batch 1
+   (one group, one capacity, the same drops) within atol 2e-3 / rtol 1e-3;
+   (g) dbrx-132b at full width cut to 2 layers, bfloat16: the prefill with
+   ``flash_attention`` (n_rep 6, hd 128) checked as in (b), agreement >= 0.9
+   included, and greedy decoding; (h) the serving launcher in process,
+   ``--arch qwen3_moe_30b_a3b --etl`` at full width and ``--arch dbrx_132b
+   --smoke``, every request answered; then qwen3-moe's prefill tokens/s, decode ms per step at batch
+   8 beside its byte bound, and from ``torch.profiler`` the device busy
+   share of a prefill and its device time split into the expert products,
+   the router, dispatch and combine, ``flash_attention`` and the rest, and
+   the phase's wall time;
 6. time each kernel at the main path's shapes beside its plain version and
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
    line with all eight; ``flash_attention`` also with its TFLOP/s and its
-   share of the bound; ``moe_combine`` also at the dbrx group and with a
+   share of the bound, at the olmo-1b prefill and at the qwen3-moe prefill
+   (hd 64, n_rep 8; SDPA with GQA beside it), its launches summed over the
+   three prefills; ``moe_combine`` also at the dbrx group and with a
    fully dense combine, each beside ``torch.matmul``; time an empty kernel
    the same way (the ``launch floor`` line) and state each kernel's time as
    a multiple of it (``floor_multiple`` in its ``timing`` line); time
@@ -193,6 +231,7 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import json
@@ -1286,7 +1325,6 @@ def pipeline_serve() -> dict:
     cluster (2 instances, 4 shards, async, device densify): every request
     completes.  Then, for each ETL flag combination, the prompts of
     ``_etl_prompts`` on the card must equal those on the CPU."""
-    import contextlib
     import io
 
     from repro_torch import configs
@@ -1739,7 +1777,6 @@ def replicated_serve() -> dict:
     --replicated`` on the card (a leader and three follower processes):
     every request completes; then ``_etl_replicated`` gives the same
     prompts on the card as on the CPU."""
-    import contextlib
     import io
 
     from repro_torch import configs
@@ -2442,8 +2479,10 @@ def host_split(app, chunks) -> dict:
 
 # (N, S, T, hd, n_rep, causal): tests/test_kernels_flash.py's shapes, then the
 # cases the port adds: ragged non-causal T, causal S > T with ragged T, the
-# smoke configs' head dims, many key tiles, and the olmo-1b (16 heads), phi3
-# -medium (40 on 10 KV heads) and llama3-405b (128 on 8) layouts at hd 128
+# smoke configs' head dims, many key tiles, the olmo-1b (16 heads), phi3
+# -medium (40 on 10 KV heads) and llama3-405b (128 on 8) layouts at hd 128,
+# and the MoE prefills' layouts: qwen3-moe (2 x 32 heads on 2 x 4 KV heads,
+# hd 64, S 2048) and dbrx (48 heads on 8 KV heads, hd 128)
 FLASH_CASES = [
     (1, 64, 64, 64, 1, True), (4, 128, 128, 64, 1, True), (8, 300, 300, 64, 2, True),
     (2, 256, 256, 128, 1, False), (6, 64, 512, 64, 3, True), (4, 257, 257, 128, 4, True),
@@ -2457,6 +2496,7 @@ FLASH_CASES = [
     (4, 257, 257, 40, 2, True), (2, 64, 190, 40, 1, False),
     (2, 200, 200, 72, 1, True), (3, 90, 133, 72, 3, False),
     (4, 160, 160, 120, 2, True), (2, 37, 150, 120, 1, False),
+    (64, 2048, 2048, 64, 8, True), (48, 1024, 1024, 128, 6, True),
 ]
 # (T, E, C, D): tests/test_kernels.py's sweep, then the qwen3-moe group
 MOE_CASES = [(8, 2, 4, 32), (64, 8, 16, 96), (130, 4, 8, 256), (256, 16, 8, 128),
@@ -2663,11 +2703,19 @@ def _to(tree, device, dtype=None):
 
 
 def _logit_stats(got, want) -> dict:
-    g, w = got.float(), want.float()
-    return {"max_abs_err": float((g - w).abs().max()),
-            "max_abs_logit": float(w.abs().max()),
-            "argmax_agree": float((g.argmax(-1) == w.argmax(-1)).float().mean()),
-            "finite": bool(torch.isfinite(g).all())}
+    """Largest |got - want| and |want|, argmax agreement and finiteness,
+    a leading row at a time (a full-width (2, 2048, 152,064) pair at once
+    would take ~10 GB of float32 temporaries)."""
+    err = top = agree = 0.0
+    finite = True
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = max(err, float((g - w).abs().max()))
+        top = max(top, float(w.abs().max()))
+        agree += float((g.argmax(-1) == w.argmax(-1)).sum())
+        finite = finite and bool(torch.isfinite(g).all())
+    return {"max_abs_err": err, "max_abs_logit": top,
+            "argmax_agree": agree / got.shape[:-1].numel(), "finite": finite}
 
 
 def _check_close(name, got, want, tol) -> dict:
@@ -2684,37 +2732,48 @@ def _prompts(vocab, n, lo, hi, seed):
             for _ in range(n)]
 
 
+def _sync() -> None:
+    """Wait for the card (nothing to wait for without one: the CPU tests
+    rehearse some of the serving checks)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def _timed(fn, reps=3):
     """Median host seconds of ``fn()`` ending in a device sync, after one
     warm-up call; returns (seconds, last result)."""
     out = fn()
-    torch.cuda.synchronize()
+    _sync()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        _sync()
         times.append(time.perf_counter() - t0)
     return statistics.median(times), out
 
 
-def prefill_profile(params, cfg, batch) -> dict:
-    """Device busy share of one prefill's wall time, ``flash_attention``'s
-    share of its device time and the flash kernels by name (device µs,
-    launches), from ``torch.profiler`` (None where the profiler records no
-    device time)."""
+def device_profile(fn, ranges=contextlib.nullcontext) -> dict:
+    """Device busy share of ``fn()``'s wall time, ``flash_attention``'s
+    share of its device time, the flash kernels by name (device µs,
+    launches) and the six kernels of most device time, from
+    ``torch.profiler`` (None where the profiler records no device time);
+    with ``ranges`` (a context that opens ``record_function`` ranges named
+    ``moe.*``), each range's device µs: the kernels launched inside it
+    (``range_device_us``) and its span on the card's timeline
+    (``range_span_us``, the range's own device-side event, which is kept
+    out of the kernels' sums)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import model as M
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        M.forward(params, cfg, batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    device = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("moe.")]
     busy_us = sum(e.self_device_time_total for e in device)
     flash_us = sum(e.self_device_time_total for e in device if "flash_attention" in e.key)
     top = sorted(((e.key[:60], e.self_device_time_total, e.count) for e in device),
@@ -2722,10 +2781,23 @@ def prefill_profile(params, cfg, batch) -> dict:
     flash = {e.key: (e.self_device_time_total, e.count) for e in device
              if "flash_attention" in e.key}
     return {"wall_s": wall, "device_us": busy_us, "flash_attention_us": flash_us,
-            "flash_kernels": flash,
+            "flash_kernels": flash, "kernel_launches": sum(e.count for e in device),
             "device_busy_share": busy_us * 1e-6 / wall if busy_us > 0 else None,
             "flash_attention_share": flash_us / busy_us if busy_us > 0 else None,
-            "top_device_us": top}
+            "top_device_us": top,
+            "range_device_us": {e.key: e.device_time_total for e in averages
+                                if e.key.startswith("moe.")
+                                and e.device_type != torch.autograd.DeviceType.CUDA},
+            "range_span_us": {e.key: e.self_device_time_total for e in averages
+                              if e.key.startswith("moe.")
+                              and e.device_type == torch.autograd.DeviceType.CUDA}}
+
+
+def prefill_profile(params, cfg, batch, ranges=contextlib.nullcontext) -> dict:
+    """:func:`device_profile` of one prefill ``forward``."""
+    from repro_torch.models import model as M
+
+    return device_profile(lambda: M.forward(params, cfg, batch), ranges)
 
 
 def run_server(params, cfg, device, sc, prompts):
@@ -2887,50 +2959,531 @@ def serving_path(dev: torch.device) -> dict:
     return out
 
 
+# -- phase 5b: serving the MoE family -----------------------------------------------
+
+CUT_LAYERS = 2  # dbrx-132b (263 GB in bf16) and the float32 checks, at full width
+CARD_CPU_PROMPT = 64  # the float32 card-vs-CPU prefill: its CPU side well under a minute
+DMM_PROMPT = 256
+MOE_SERVE = dict(batch=8, cache_len=256, max_new=16, eos=-1)
+MOE_RANGES = ("_moe", "_route", "router_aux_loss", "_expert_ffn")
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+@contextlib.contextmanager
+def moe_routing(replay=None):
+    """Record every MoE layer's routing inside the block, in call order:
+    ``rec["route"]`` holds each ``moe._route`` call's (gates, experts,
+    probs), ``rec["keep"]`` each ``moe._dispatch_indices`` call's keep mask.
+    With ``replay`` (a recording's ``route`` list) the i-th ``_route`` call
+    returns the recording's i-th result instead of its own: the routing is
+    pinned to the recorded run's."""
+    from repro_torch.models import moe
+
+    rec = {"route": [], "keep": []}
+    route, dispatch = moe._route, moe._dispatch_indices
+
+    def recorded_route(p, x, cfg):
+        out = route(p, x, cfg) if replay is None else replay[len(rec["route"])]
+        rec["route"].append(out)
+        return out
+
+    def recorded_dispatch(experts, n_experts, capacity):
+        out = dispatch(experts, n_experts, capacity)
+        rec["keep"].append(out[1])
+        return out
+
+    moe._route, moe._dispatch_indices = recorded_route, recorded_dispatch
+    try:
+        yield rec
+    finally:
+        moe._route, moe._dispatch_indices = route, dispatch
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """The MoE functions of ``MOE_RANGES`` wrapped in ``record_function``
+    ranges ``moe.<name>`` inside the block, for the profiler's split."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    saved = {name: getattr(moe, name) for name in MOE_RANGES}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function(f"moe.{name}"):
+                return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(moe, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+
+
+def routing_agreement(a, b):
+    """Two dense-dispatch recordings of one input: (the share of (token,
+    layer) routings whose experts or keep mask differ, a (B, T) mask of the
+    rows whose own and every earlier token's routing agree in every layer;
+    only those rows ran the same computation, since a token's keep mask
+    depends on the earlier tokens' choices and attention mixes earlier
+    tokens in)."""
+    diffs = torch.stack([
+        (ra[1].cpu() != rb[1].cpu()).any(-1) | (ka.cpu() != kb.cpu()).any(-1)
+        for ra, rb, ka, kb in zip(a["route"], b["route"], a["keep"], b["keep"])])
+    bad = diffs.any(0).to(torch.int32).cummax(-1).values.bool()
+    return float(diffs.float().mean()), ~bad
+
+
+def moe_split(profile: dict) -> dict:
+    """A profiled MoE prefill's device time by part (µs): the expert
+    products (``_expert_ffn``: three batched products and the SwiGLU), the
+    router (``_route`` and the aux loss), dispatch and combine (the rest of
+    ``_moe``: indices, scatter, gather, weighting, the ordered sum),
+    ``flash_attention`` and everything else.  A range counts the kernels
+    launched inside it, or where the profiler links none to it, its span
+    on the card's timeline; None where neither is recorded."""
+    busy = profile["device_us"]
+    r = next((r for r in (profile["range_device_us"], profile.get("range_span_us", {}))
+              if r.get("moe._moe")), None)
+    if not busy or r is None:
+        return None
+    split = {"expert products": r["moe._expert_ffn"],
+             "router": r["moe._route"] + r["moe.router_aux_loss"],
+             "dispatch and combine": r["moe._moe"] - r["moe._route"] - r["moe._expert_ffn"],
+             "flash_attention": profile["flash_attention_us"]}
+    split["rest"] = busy - sum(split.values())
+    return {k: {"us": v, "share": v / busy} for k, v in split.items()}
+
+
+def decode_profile(params, cfg, device, batch, cache_len, fill, steps=3) -> dict:
+    """:func:`device_profile` of ``steps`` batch-``batch`` serve steps on a
+    cache already holding ``fill`` positions, after one warm-up step."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import make_serve_step
+
+    step = make_serve_step(cfg)
+    state = M.init_decode_state(cfg, batch, cache_len, device=device)
+    state["pos"] = fill
+    tok = torch.full((batch,), 7, dtype=torch.int32, device=device)
+    tok, _, state = step(params, state, tok)
+
+    def run():
+        nonlocal tok, state
+        for _ in range(steps):
+            tok, _, state = step(params, state, tok)
+
+    prof = device_profile(run)
+    prof["steps"] = steps
+    return prof
+
+
+def decode_bytes(params, cfg, batch, fill) -> int:
+    """The bytes one decode step must move: every parameter (all experts,
+    as the dense dispatch runs them) but the token embedding table, of
+    which ``batch`` rows; K and V of positions 0..fill in every layer; the
+    logits written."""
+    emb = params["embed"]["tok"]
+    n = _nbytes(params) - emb.numel() * emb.element_size() + batch * emb.shape[1] * emb.element_size()
+    n += 2 * cfg.n_layers * batch * (fill + 1) * cfg.n_kv_heads * cfg.hd * cfg.cdtype.itemsize
+    return n + batch * cfg.vocab_padded * cfg.cdtype.itemsize
+
+
+@contextlib.contextmanager
+def flash_against_plain():
+    """Inside the block every ``ops.attention`` call (the model's route to
+    ``flash_attention``) is also run through the plain version on the same
+    q, k and v -- the layer's real activations -- and ``shares`` collects
+    each call's ``limit_share`` of ``FLASH_TOL`` (below 1 is within)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+
+    shares = []
+    attention = ops.attention
+
+    def checked(q, k, v, *, causal=True, n_rep=1):
+        out = attention(q, k, v, causal=causal, n_rep=n_rep)
+        want = attention_ref(q, k, v, causal=causal, n_rep=n_rep)
+        shares.append(limit_share(out, want, *FLASH_TOL[q.dtype]))
+        return out
+
+    ops.attention = checked
+    try:
+        yield shares
+    finally:
+        ops.attention = attention
+
+
+def moe_prefill_checks(name, params, cfg, batch, *, agree_gate=True) -> dict:
+    """The prefill with ``flash_attention``: one launch a layer and no other
+    kernel of the port, each launch within ``FLASH_TOL`` of the plain
+    version on that layer's own q, k and v, repeat calls bit-identical; and
+    against the dense-attention prefill (max abs error, argmax agreement,
+    the share of (token, layer) routings that differ), also with the dense
+    prefill's routing pinned to the flash prefill's
+    (``moe_routing(replay=...)``), beside a control that involves no kernel
+    (the chunked-attention prefill against the dense one, both pinned).
+    Prints the readings, then raises on any failed check; the argmax
+    agreement with the dense prefill is a check where ``agree_gate``."""
+    from repro_torch.models import model as M
+
+    fa = cfg.replace(attn_impl="pallas")
+    on_card = batch["tokens"].is_cuda
+    out = {}
+    _zero_launch_counts()
+    with moe_routing() as flash_routing, flash_against_plain() as shares:
+        logits, aux = M.forward(params, fa, batch)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = _launch_counts()
+    out["flash_vs_plain_by_layer_max_share"] = max(shares)
+    again, aux2 = M.forward(params, fa, batch)
+    out["repeat_bit_identical"] = bool(torch.equal(logits.view(torch.int16),
+                                                   again.view(torch.int16))
+                                       and torch.equal(aux, aux2))
+    del again
+    out["aux_loss"] = float(aux)
+    with moe_routing() as dense_routing:
+        dense, _ = M.forward(params, cfg, batch)
+    out["vs_dense"] = _logit_stats(logits, dense)
+    out["routing_differs_share"], rows = routing_agreement(flash_routing, dense_routing)
+    out["rows_routed_alike"] = float(rows.float().mean())
+    del dense, dense_routing
+    pin = flash_routing["route"]
+    with moe_routing(replay=pin):
+        pinned, _ = M.forward(params, cfg, batch)
+    out["vs_dense_pinned_routing"] = _logit_stats(logits, pinned)
+    with moe_routing(replay=pin):
+        chunked, _ = M.forward(params, cfg.replace(attn_impl="chunked"), batch)
+    out["control_chunked_vs_dense_pinned_routing"] = _logit_stats(chunked, pinned)
+    del pinned, chunked, flash_routing, pin
+    out["prefill_flash_attention_launches"] = launches["flash_attention"]
+    out["shape_ok"] = tuple(logits.shape) == (*batch["tokens"].shape, cfg.vocab_padded)
+    print(f"{elapsed()} serving 5b {name} prefill: " + json.dumps(out), flush=True)
+    # one launch a layer on the card; the plain version on the CPU launches none
+    want = {n: (cfg.n_layers if n == "flash_attention" and on_card else 0) for n in KERNEL_NAMES}
+    if launches != want:
+        raise AssertionError(f"{name} prefill launches {launches}, want {want}")
+    if not (out["shape_ok"] and out["vs_dense"]["finite"] and out["repeat_bit_identical"]
+            and len(shares) == cfg.n_layers and max(shares) < 1):
+        raise AssertionError(f"{name} prefill: {out}")
+    if agree_gate and out["vs_dense"]["argmax_agree"] < BF16_ARGMAX_AGREE:
+        raise AssertionError(f"{name} prefill vs dense: argmax agreement "
+                             f"{out['vs_dense']['argmax_agree']} < {BF16_ARGMAX_AGREE}")
+    return out
+
+
+def qwen3_moe_full(dev, cfg) -> dict:
+    """(a)-(b), (d) and the timings: ``cfg`` is qwen3-moe-30b-a3b at full
+    width and all 48 layers in bfloat16."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import ServeConfig
+
+    fa = cfg.replace(attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    out = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "hd": cfg.hd,
+                      "n_experts": cfg.n_experts, "top_k": cfg.top_k, "d_ff": cfg.d_ff,
+                      "vocab_padded": cfg.vocab_padded, "params": cfg.param_count()},
+           "param_bytes": _nbytes(params), "init_s": time.perf_counter() - t0}
+    print(f"{elapsed()} serving 5b (a) qwen3-moe: " + json.dumps(out), flush=True)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))).to(dev)
+    batch = {"tokens": tokens}
+
+    # at 48 layers a bf16 perturbation reroutes most tokens (PERF.md §6):
+    # the end-to-end agreement is printed there and checked on the first
+    # CUT_LAYERS layers, which share these parameters
+    out["prefill"] = moe_prefill_checks("(b) qwen3-moe", params, cfg, batch, agree_gate=False)
+    head = {**params, "layers": params["layers"][:CUT_LAYERS]}
+    out["prefill_first_layers"] = moe_prefill_checks(
+        f"(b) qwen3-moe first {CUT_LAYERS} layers", head, cfg.replace(n_layers=CUT_LAYERS), batch)
+    del head
+    prefill_s, _ = _timed(lambda: M.forward(params, fa, batch))
+    dense_s, _ = _timed(lambda: M.forward(params, cfg, batch), reps=1)
+    out["prefill_s"], out["prefill_dense_s"] = prefill_s, dense_s
+    out["prefill_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / prefill_s
+    out["prefill_dense_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / dense_s
+    profile = prefill_profile(params, fa, batch, ranges=moe_ranges)
+    out["prefill_profile"] = profile
+    out["prefill_split"] = moe_split(profile)
+    flash_kernels = profile["flash_kernels"]
+    counts = [c for kname, (_, c) in flash_kernels.items() if "flash_attention_wgmma_kernel" in kname]
+    print(f"{elapsed()} serving 5b prefill (bf16): " + json.dumps(
+        {k: out[k] for k in ("prefill_s", "prefill_tokens_per_s", "prefill_dense_s",
+                             "prefill_split", "prefill_profile")}), flush=True)
+    if len(flash_kernels) != 1 or counts != [cfg.n_layers]:
+        raise AssertionError(f"the qwen3-moe prefill's flash kernels {flash_kernels}: want "
+                             f"{cfg.n_layers} launches of the tensor-core kernel and no other")
+
+    # (d) serving: 16 requests through a batch-8 server
+    sc = ServeConfig(**MOE_SERVE)
+    prompts = _prompts(cfg.vocab, 16, 2, 8, seed=1)
+    _, seconds, steps, launches = run_server(params, cfg, dev, sc, prompts)
+    out["server"] = {"requests": len(prompts), "answered": len(prompts),
+                     "prompt_tokens": sum(map(len, prompts)),
+                     "new_tokens": len(prompts) * sc.max_new, "seconds": seconds,
+                     "steps": steps, "ms_per_step": seconds / steps * 1e3,
+                     "new_tokens_per_s": len(prompts) * sc.max_new / seconds,
+                     "launches": launches}
+    fill = 512
+    step_ms = decode_step_ms(params, cfg, dev, sc.batch, 1024, fill=fill)
+    out["decode_profile"] = decode_profile(params, cfg, dev, sc.batch, 1024, fill=fill)
+    n_bytes = decode_bytes(params, cfg, sc.batch, fill)
+    out["decode_ms_per_step_b8"] = step_ms
+    out["decode_bytes_per_step"] = n_bytes
+    out["decode_bound_ms"] = n_bytes / PEAK_BYTES_PER_S * 1e3
+    out["decode_tokens_per_s_b8"] = sc.batch / step_ms * 1e3
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"{elapsed()} serving 5b (d) qwen3-moe server: " + json.dumps(
+        {k: out[k] for k in ("server", "decode_ms_per_step_b8", "decode_bytes_per_step",
+                             "decode_bound_ms", "decode_tokens_per_s_b8", "decode_profile",
+                             "max_memory_allocated", "param_bytes")}), flush=True)
+    return out
+
+
+def qwen3_moe_cut_f32(dev, cfg) -> dict:
+    """(c), (e) and (f) on ``dev`` (and for (e) on the CPU): ``cfg`` is
+    qwen3-moe at full width, cut to ``CUT_LAYERS`` layers, in float32."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import ServeConfig
+
+    cfg = cfg.replace(attn_impl="pallas")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    cpu = torch.device("cpu")
+    params_cpu = _to(params, cpu)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_BATCH, DMM_PROMPT))).to(dev)
+    out = {"param_bytes": _nbytes(params)}
+
+    # (c) decode against teacher forcing; capacity factor E / k makes C >= T,
+    # so the prefill drops no token (it would otherwise differ from decode,
+    # whose one-token groups never drop)
+    tf = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    head = tokens[:, :TEACHER_STEPS]
+    full, _ = M.forward(params, tf, {"tokens": head})
+    state = M.init_decode_state(tf, SERVE_BATCH, TEACHER_STEPS, device=dev)
+    steps = []
+    for t in range(TEACHER_STEPS):
+        step_logits, state = M.decode_step(params, tf, state, head[:, t])
+        steps.append(step_logits)
+    out["teacher_forcing_f32"] = _check_close(
+        "qwen3-moe f32 decode vs prefill", torch.stack(steps, 1), full, SERVE_F32_TOL)
+    out["teacher_forcing_f32"]["capacity_factor"] = tf.capacity_factor
+    del full, steps, state
+    print(f"{elapsed()} serving 5b (c) qwen3-moe {CUT_LAYERS} layers f32, capacity factor "
+          f"{tf.capacity_factor} (no drops), decode vs prefill: "
+          + json.dumps(out["teacher_forcing_f32"]), flush=True)
+
+    # (e) card against CPU
+    short = {"tokens": tokens[:, :CARD_CPU_PROMPT]}
+    with moe_routing() as on_card:
+        l_dev, aux_dev = M.forward(params, cfg, short)
+    t0 = time.perf_counter()
+    with moe_routing() as on_cpu:
+        l_cpu, aux_cpu = M.forward(params_cpu, cfg, _to(short, cpu))
+    cpu_s = time.perf_counter() - t0
+    share, rows = routing_agreement(on_card, on_cpu)
+    del on_card, on_cpu
+    e = {"routing_differs_share": share, "rows_routed_alike": float(rows.float().mean()),
+         "cpu_prefill_s": cpu_s, "aux_card": float(aux_dev), "aux_cpu": float(aux_cpu)}
+    if rows.any():
+        e.update(_check_close("qwen3-moe card vs cpu prefill (rows routed alike)",
+                              l_dev.cpu()[rows], l_cpu[rows], CARD_CPU_TOL))
+    sc2 = ServeConfig(batch=4, cache_len=64, max_new=6, eos=-1)
+    prompts2 = _prompts(cfg.vocab, 4, 2, 5, seed=2)
+    done_dev, _, _, _ = run_server(params, cfg, dev, sc2, prompts2)
+    t0 = time.perf_counter()
+    done_cpu, _, _, _ = run_server(params_cpu, cfg, cpu, sc2, prompts2)
+    e["cpu_server_s"] = time.perf_counter() - t0
+    e["server_tokens_equal"] = done_dev == done_cpu
+    out["card_vs_cpu_f32"] = e
+    print(f"{elapsed()} serving 5b (e) qwen3-moe {CUT_LAYERS} layers f32 card vs cpu: "
+          + json.dumps(e), flush=True)
+    if e["rows_routed_alike"] < 0.5 or not e["server_tokens_equal"]:
+        raise AssertionError(f"qwen3-moe card vs cpu: {e}; server tokens card {done_dev} "
+                             f"cpu {done_cpu}")
+    del params_cpu, l_cpu, l_dev
+
+    # (f) dmm against dense at batch 1: one group, one capacity, the same drops
+    one = {"tokens": tokens[:1]}
+    with moe_routing() as routed:
+        dense, daux = M.forward(params, cfg, one)
+    dmm, maux = M.forward(params, cfg.replace(moe_impl="dmm"), one)
+    f = _check_close("qwen3-moe dmm vs dense", dmm, dense, SERVE_F32_TOL)
+    f["dropped_choices"] = sum(int((~k).sum()) for k in routed["keep"])
+    f["aux_dense"], f["aux_dmm"] = float(daux), float(maux)
+    out["dmm_vs_dense_f32"] = f
+    print(f"{elapsed()} serving 5b (f) qwen3-moe {CUT_LAYERS} layers f32 dmm vs dense, "
+          f"batch 1, {DMM_PROMPT} tokens: " + json.dumps(f), flush=True)
+    if not math.isclose(f["aux_dense"], f["aux_dmm"], rel_tol=1e-5):
+        raise AssertionError(f"qwen3-moe dmm vs dense aux loss: {f}")
+    return out
+
+
+def dbrx_cut(dev, cfg) -> dict:
+    """(g): ``cfg`` is dbrx-132b at full width, cut to ``CUT_LAYERS``
+    layers, bfloat16: the prefill with ``flash_attention`` (n_rep 6, hd 128)
+    against the dense attention, and greedy decoding."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import greedy_decode
+
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))).to(dev)
+    out = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "hd": cfg.hd,
+                      "n_experts": cfg.n_experts, "top_k": cfg.top_k, "d_ff": cfg.d_ff},
+           "param_bytes": _nbytes(params)}
+    out["prefill"] = moe_prefill_checks("(g) dbrx", params, cfg, {"tokens": tokens})
+    fa = cfg.replace(attn_impl="pallas")
+    prefill_s, _ = _timed(lambda: M.forward(params, fa, {"tokens": tokens}))
+    out["prefill_s"], out["prefill_tokens_per_s"] = prefill_s, SERVE_BATCH * PROMPT_LEN / prefill_s
+    new = greedy_decode(params, cfg, tokens[:, :8], max_new=8, cache_len=64, device=dev)
+    out["decode_tokens"] = new.cpu().tolist()
+    print(f"{elapsed()} serving 5b (g) dbrx {CUT_LAYERS} layers: " + json.dumps(
+        {k: out[k] for k in ("param_bytes", "prefill_s", "prefill_tokens_per_s",
+                             "decode_tokens")}), flush=True)
+    if new.shape != (SERVE_BATCH, 8) or not bool(((new >= 0) & (new < cfg.vocab)).all()):
+        raise AssertionError(f"dbrx greedy decode: {out['decode_tokens']}")
+    return out
+
+
+MOE_LAUNCHES = {  # (h): the launcher's argv, and how many requests it serves
+    "qwen3-moe --etl": (["--arch", "qwen3_moe_30b_a3b", "--etl", "--requests", "4",
+                         "--max-new", "4"], 4),
+    "dbrx --smoke": (["--arch", "dbrx_132b", "--smoke"], 8),
+}
+
+
+def moe_launcher() -> dict:
+    """(h): ``python -m repro_torch.launch.serve``'s ``main`` in this process
+    on the card: qwen3-moe at full width and all 48 layers fed by the ETL
+    pipeline, and dbrx's smoke config (the launcher has no depth cut, and
+    dbrx at full depth does not fit one card); every request answered (its
+    ``max_new`` tokens, or fewer ending at EOS 0)."""
+    import io
+
+    from repro_torch.launch import serve
+
+    out = {}
+    for name, (argv, n) in MOE_LAUNCHES.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        torch.cuda.empty_cache()
+        requests = [line for line in buf.getvalue().splitlines() if line.startswith("request ")]
+        answered = [line for line in requests
+                    if re.match(r"request \d+: [1-9]\d* tokens -> \[", line)]
+        out[name] = {"argv": " ".join(argv), "seconds": time.perf_counter() - t0,
+                     "requests": len(requests), "answered": len(answered)}
+        if len(requests) != n or len(answered) != n:
+            raise AssertionError(f"serve {out[name]['argv']}: not every request answered:\n"
+                                 + buf.getvalue())
+    print(f"{elapsed()} serving 5b (h) the launcher: " + json.dumps(out), flush=True)
+    return out
+
+
+def moe_serving(dev) -> dict:
+    """Phase 5b (see the module docstring): returns its numbers."""
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    qwen3 = configs.get("qwen3_moe_30b_a3b")
+    torch.cuda.empty_cache()
+    out = {"qwen3-moe": qwen3_moe_full(dev, qwen3)}
+    torch.cuda.empty_cache()
+    out["qwen3-moe f32 cut"] = qwen3_moe_cut_f32(dev, qwen3.replace(
+        n_layers=CUT_LAYERS, param_dtype="float32", compute_dtype="float32"))
+    torch.cuda.empty_cache()
+    out["dbrx cut"] = dbrx_cut(dev, configs.get("dbrx_132b").replace(n_layers=CUT_LAYERS))
+    torch.cuda.empty_cache()
+    out["launcher"] = moe_launcher()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"{elapsed()} serving 5b: MoE family served in {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 # -- phase 6: timing of the model kernels ----------------------------------------
 
 
-def measure_flash_attention():
-    """``flash_attention`` (its tensor-core kernel) at the olmo-1b prefill's
-    shape (N = 2 x 16 heads, S = T = 2048, hd 128, bfloat16, causal) beside
-    its plain version and ``F.scaled_dot_product_attention`` (timed here
-    only), with the rate of causal work and the share of the bound each
-    reaches, and the bfloat16 limit's power at this shape."""
+# flash_attention's timing shapes (N, S, hd, n_rep): the olmo-1b prefill (2 x 16
+# heads) and the qwen3-moe prefill (2 x 32 query heads over 2 x 4 KV heads)
+FLASH_PREFILLS = {"olmo-1b": (SERVE_BATCH * 16, PROMPT_LEN, 128, 1),
+                  "qwen3-moe": (SERVE_BATCH * 32, PROMPT_LEN, 64, 8)}
+
+
+def measure_flash_attention(n, s, hd, n_rep):
+    """``flash_attention`` (its tensor-core kernel) at a prefill's shape
+    (q (N, S, hd), k and v (N / n_rep, S, hd), bfloat16, causal) beside its
+    plain version and ``F.scaled_dot_product_attention`` (GQA for n_rep >
+    1; timed here only), with the rate of causal work and the share of the
+    bound each reaches, and (n_rep 1) the bfloat16 limit's power at this
+    shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
 
-    n, s, hd = SERVE_BATCH * 16, PROMPT_LEN, 128
-    q, k, v = flash_operands(torch.device("cuda"), n, s, s, hd, 1, torch.bfloat16, seed=5)
-    got = flash_attention(q, k, v)
-    want = attention_ref(q, k, v)
+    q, k, v = flash_operands(torch.device("cuda"), n, s, s, hd, n_rep, torch.bfloat16, seed=5)
+    got = flash_attention(q, k, v, n_rep=n_rep)
+    want = attention_ref(q, k, v, n_rep=n_rep)
     if not _allclose(got, want, *FLASH_TOL[torch.bfloat16]):
-        raise AssertionError("flash_attention != plain at the prefill shape")
+        raise AssertionError(f"flash_attention != plain at the prefill shape {q.shape}")
     err = float((got.float() - want.float()).abs().max())
-    power = flash_limit_power(q, k, v, got, want)
+    power = flash_limit_power(q, k, v, got, want) if n_rep == 1 else None
+
+    def kernel(q, k, v):
+        return flash_attention(q, k, v, n_rep=n_rep)
+
+    def plain(q, k, v):
+        return attention_ref(q, k, v, n_rep=n_rep)
 
     def library(q, k, v):
-        return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True)[0]
+        return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True,
+                                              enable_gqa=n_rep > 1)[0]
 
     lib_out = library(q, k, v)
     if not _allclose(lib_out, want, *REF_BF16_TOL):
-        raise AssertionError("scaled_dot_product_attention != plain at the prefill shape")
+        raise AssertionError(f"scaled_dot_product_attention != plain at {q.shape}")
     lib_share = limit_share(lib_out, want, *FLASH_TOL[torch.bfloat16])
     del lib_out
     ops = (q, k, v)
-    ms, eager, cold = hot_and_cold_ms(flash_attention, ops, iters=20)
-    plain_ms, _, plain_cold = hot_and_cold_ms(attention_ref, ops, iters=10)
+    ms, eager, cold = hot_and_cold_ms(kernel, ops, iters=20)
+    plain_ms, _, plain_cold = hot_and_cold_ms(plain, ops, iters=10)
     lib_ms, _, lib_cold = hot_and_cold_ms(library, ops, iters=20)
     # the same loop without the causal skip, masks and load imbalance: the
     # rate of the kernel's steady state (twice the work)
-    full_ms, _ = time_ms(lambda: flash_attention(q, k, v, causal=False), iters=20)
-    n_bytes = 4 * n * s * hd * 2  # q, k, v read once, out written once
+    full_ms, _ = time_ms(lambda: flash_attention(q, k, v, causal=False, n_rep=n_rep), iters=20)
+    # q and k, v read once, out written once
+    n_bytes = (2 * n + 2 * (n // n_rep)) * s * hd * 2
     flops = 4 * n * hd * (s * (s + 1) // 2)  # q.k and p.v over the causal half
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_PER_S * 1e3
     bound = max(bytes_ms, ops_ms)
     return {
-        "shape": {"N": n, "S": s, "T": s, "hd": hd, "dtype": "bfloat16", "causal": True},
+        "shape": {"N": n, "S": s, "T": s, "hd": hd, "n_rep": n_rep, "dtype": "bfloat16",
+                  "causal": True},
         "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
         "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
         "library_ms": lib_ms, "library_cold_ms": lib_cold,
@@ -3196,6 +3749,7 @@ def main() -> int:
     replicated_control_plane(dev, cfg, runs["cuda/host"][0], cluster_rows)
 
     serving = serving_path(dev)
+    moe_served = moe_serving(dev)
 
     for pname in paths:
         name = f"cuda/{pname}"
@@ -3246,7 +3800,13 @@ def main() -> int:
         meas[name] = measure_per_block(name, median, peak)
         big = measure_per_block(name, largest, peak)
         print(f"{elapsed()} timing {name} largest group: " + json.dumps(big), flush=True)
-    meas["flash_attention"] = measure_flash_attention()
+    meas["flash_attention"] = measure_flash_attention(*FLASH_PREFILLS["olmo-1b"])
+    flash_moe = measure_flash_attention(*FLASH_PREFILLS["qwen3-moe"])
+    print(f"timing flash_attention qwen3-moe prefill: {json.dumps(flash_moe)}", flush=True)
+    meas["flash_attention"]["qwen3_moe_prefill"] = {
+        k: flash_moe[k] for k in ("shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by", "bound_share",
+                                  "library_bound_share", "tflops")}
     meas["moe_combine"] = measure_moe_combine(peak)
     floor = launch_floor()
     print(f"launch floor: {json.dumps(floor)} (an empty kernel, graph-replayed)", flush=True)
@@ -3256,15 +3816,21 @@ def main() -> int:
         print(f"timing {name} {BIG_CHUNK_EVENTS}: " + json.dumps(m), flush=True)
     torch.cuda.synchronize()
     print("serving: " + json.dumps(serving), flush=True)
+    print("serving moe: " + json.dumps(moe_served), flush=True)
     origin["flash_attention"] = ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:93", "prefill")
     origin["moe_combine"] = ("src/repro_torch/kernels/csrc/moe_combine.cu",
                              "src/repro/kernels/moe_combine.py:53", None)
-    # launches on the main paths: the consume paths' runs, the olmo-1b
-    # prefill's (16 per forward); moe_combine is on no path (op only)
+    # launches on the main paths: the consume paths' runs, the prefills'
+    # (one a layer: olmo-1b 16, qwen3-moe 48, dbrx cut to 2 layers 2);
+    # moe_combine is on no path (op only; the reference's MoE never calls it)
     path_launches = {name: runs[run][2][name] for name, (_, _, run) in origin.items()
                      if run in runs}
-    path_launches["flash_attention"] = serving["prefill_flash_attention_launches"]
+    flash_by_path = {
+        "olmo-1b prefill": serving["prefill_flash_attention_launches"],
+        "qwen3-moe prefill": moe_served["qwen3-moe"]["prefill"]["prefill_flash_attention_launches"],
+        "dbrx prefill": moe_served["dbrx cut"]["prefill"]["prefill_flash_attention_launches"]}
+    path_launches["flash_attention"] = sum(flash_by_path.values())
     path_launches["moe_combine"] = 0
     kernels = []
     for name, m in meas.items():
@@ -3276,6 +3842,8 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
+    kernels[[k["name"] for k in kernels].index("flash_attention")].update(
+        launches_by_path=flash_by_path, qwen3_moe_prefill=meas["flash_attention"]["qwen3_moe_prefill"])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
-"""The model zoo's dense family: one functional model over plain parameter
-dicts.
+"""The model zoo's dense and MoE families: one functional model over plain
+parameter dicts.
 
 Counterpart of ``repro.models.model`` for ``family == "dense"`` (olmo-1b,
-llama3-405b, phi3-medium-14b, stablelm-1.6b), sliding windows included.
-The reference scans stacked layers with ``lax.scan``; here ``params
-["layers"]`` is a list of per-layer dicts and the layers run in a Python
-loop.  The remat and sharding knobs are training-only and not ported.  The
-other families raise :class:`NotImplementedError` naming the ROADMAP item
-that ports them.
+llama3-405b, phi3-medium-14b, stablelm-1.6b; sliding windows included) and
+``family == "moe"`` (qwen3-moe-30b-a3b, dbrx-132b: the FFN is
+:func:`repro_torch.models.moe.moe_apply`).  The reference scans stacked
+layers with ``lax.scan``; here ``params["layers"]`` is a list of per-layer
+dicts and the layers run in a Python loop.  The remat and sharding knobs
+are training-only and not ported.  The other families raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them.
 
 Entry points: ``init_params``, ``forward`` (logits; the serving prefill),
 ``init_decode_state`` / ``decode_step`` (single-token serving).  Parameters
@@ -25,6 +26,7 @@ from ..core.dmm_torch import DeviceLike, resolve_device
 from .attention import attention_decode, attention_train, attn_params, init_kv_cache
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, embed_params, lm_logits, mlp_params, norm_params
+from .moe import moe_apply, moe_ffn, moe_params
 
 __all__ = [
     "init_params",
@@ -35,7 +37,6 @@ __all__ = [
 
 # The families a later slice ports, with the ROADMAP queue 1 item that does.
 _UNPORTED = {
-    "moe": "item 14.2 (moe family)",
     "ssm": "item 14.3 (ssm family)",
     "hybrid": "item 14.4 (hybrid family)",
     "audio": "item 14.5 (audio family)",
@@ -43,8 +44,8 @@ _UNPORTED = {
 }
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         where = _UNPORTED.get(cfg.family, "no item")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP queue 1 {where})"
@@ -58,12 +59,16 @@ def _require_dense(cfg: ModelConfig) -> None:
 
 def _layer_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     dev = gen.device
-    return {
+    p = {
         "norm1": norm_params(cfg, dev),
         "attn": attn_params(gen, cfg),
         "norm2": norm_params(cfg, dev),
-        "mlp": mlp_params(gen, cfg),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_params(gen, cfg)
+    else:
+        p["mlp"] = mlp_params(gen, cfg)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0, *,
@@ -74,7 +79,7 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0, *,
     fixed order (embeddings, then each layer, then the final norm), so one
     seed on one device always gives the same parameters; they are not the
     reference's ``PRNGKey`` draws (use ``params_from_jax`` for those)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -98,10 +103,18 @@ def params_device(params: Dict[str, Any]) -> torch.device:
 
 
 def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One transformer layer.  Returns (x, aux_loss): the MoE router's
+    load-balance loss, a float32 zero for the dense family."""
     xn = apply_norm(lp["norm1"], x, cfg)
     x = x + attention_train(lp["attn"], xn, positions, cfg, causal=True, window=cfg.window)
-    return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+    xn2 = apply_norm(lp["norm2"], x, cfg)
+    if cfg.is_moe:
+        ff, aux = moe_apply(lp["moe"], xn2, cfg)
+    else:
+        ff = apply_mlp(lp["mlp"], xn2, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ff, aux
 
 
 def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -115,17 +128,20 @@ def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
 def forward(params: Dict[str, Any], cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V_pad), aux_loss) for ``batch["tokens"]``
-    (B, S) on the parameters' device.  The dense family has no auxiliary
-    loss, so ``aux_loss`` is a float32 zero."""
-    _require_dense(cfg)
+    (B, S) on the parameters' device.  ``aux_loss`` is the float32 sum of
+    the layers' router load-balance losses, as the reference's layer scan
+    sums them; a zero for the dense family."""
+    _require_ported(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None]
+    auxs = []
     for lp in params["layers"]:
-        x = _decoder_layer(lp, x, positions, cfg)
+        x, aux = _decoder_layer(lp, x, positions, cfg)
+        auxs.append(aux)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["embed"], x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, torch.sum(torch.stack(auxs))
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +157,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
     ``cache_len``: KV history length (the window size for sliding-window
     archs).  ``state["pos"]`` is a host int, one position for the whole
     batch, as in the reference."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     kv_len = min(cache_len, cfg.window) if cfg.window else cache_len
     return {"pos": 0, **init_kv_cache(cfg, batch, kv_len, cfg.n_layers, resolve_device(device))}
 
@@ -155,7 +171,7 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, state: Dict[str, Any],
     the new K/V are written into them in place (see
     :func:`~repro_torch.models.attention.attention_decode`), so a state is
     not reusable after the step that consumed it."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     pos = state["pos"]
     x = params["embed"]["tok"][token.long()[:, None]].to(cfg.cdtype)
     if cfg.pos == "learned":
@@ -166,7 +182,8 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, state: Dict[str, Any],
             lp["attn"], hn, state["k"][layer], state["v"][layer], pos, cfg, window=cfg.window
         )
         x = x + attn_out
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+        hn2 = apply_norm(lp["norm2"], x, cfg)
+        x = x + (moe_ffn(lp["moe"], hn2, cfg) if cfg.is_moe else apply_mlp(lp["mlp"], hn2, cfg))
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["embed"], x, cfg)[:, 0]
     return logits, {"pos": pos + 1, "k": state["k"], "v": state["v"]}
