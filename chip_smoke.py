@@ -2,8 +2,9 @@
 """Drive the PyTorch port's consume paths (fused, sharded and per-block),
 its streaming pipeline, cluster and initial load, its replicated control
 plane (leader and follower processes on the card), its olmo-1b server,
-alone and fed by the pipeline, and its MoE family (qwen3-moe-30b-a3b,
-dbrx-132b) on one NVIDIA card and check them.
+alone and fed by the pipeline, its MoE family (qwen3-moe-30b-a3b,
+dbrx-132b) and its SSM and hybrid families (rwkv6-3b, hymba-1.5b) on one
+NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -212,6 +213,30 @@ failure raises and the script exits non-zero):
    share of a prefill and its device time split into the expert products,
    the router, dispatch and combine, ``flash_attention`` and the rest, and
    the phase's wall time;
+5c. serve the SSM and hybrid families (``serving 5c`` lines), each at full
+   width and all 32 layers in bfloat16 with seeded random weights: rwkv6-3b
+   (``rwkv_impl="chunked"``) and hymba-1.5b (window 1024).  No kernel of
+   the port lies on these paths (rwkv6 has no attention, hymba's is
+   windowed), and the prefill must launch none.  Each: the (2, 2048)
+   prefill (finite logits of the expected shape, a repeat call
+   bit-identical), its tokens/s (median of 3), device ms, busy share and
+   launches from ``torch.profiler``, split by ``record_function`` ranges
+   (rwkv6: time-mix projections and LoRA, the wkv recurrence, group norm,
+   gate and output, channel mix, head; hymba: attention, Mamba's in_proj
+   and out_proj, conv, x_proj and dt, scan and gate, the MLP, the head);
+   rwkv6's scan prefill beside the chunked one over the first 512 tokens
+   (max abs difference and argmax agreement, reported, not gated); decode
+   ms a step at batch 8 (rwkv6 at position 512; hymba with ``cache_len``
+   2048, a rolling cache of 1,024, at position 1,536, so the write slot has
+   wrapped) beside its byte bound and with its busy share; a batch-8 ``Server`` answering 16
+   requests.  Then each at full width cut to 2 layers in float32: rwkv6's
+   chunked prefill against its scan one, decode against the prefill
+   (teacher forcing; hymba over 1,100 tokens, across its window), the card
+   against the CPU at (1, 256) and (1, 250), equal ``Server`` tokens (atol
+   2e-3 / rtol 1e-3 between two algorithms, 1e-3 / 1e-3 card against
+   CPU); and the launcher in process at full width, ``--arch rwkv6_3b`` and
+   ``--arch hymba_1_5b --etl``, every request answered; then the
+   ``serving ssm:`` line;
 6. time each kernel at the main path's shapes beside its plain version and
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
@@ -2692,6 +2717,7 @@ def check_moe_combine(device: torch.device) -> dict:
 
 SERVE_BATCH, PROMPT_LEN = 2, 2048
 TEACHER_STEPS = 32
+RANGE_PREFIXES = ("moe.", "ssm.")  # the record_function ranges of the profiled splits
 
 
 def _to(tree, device, dtype=None):
@@ -2753,14 +2779,49 @@ def _timed(fn, reps=3):
     return statistics.median(times), out
 
 
+def _trace_sums(prof):
+    """From ``prof``'s raw trace (parsing it into ``key_averages`` costs
+    ~0.3 ms an event, minutes for a prefill of 10^5 launches): the device
+    events by name ({name: (µs, count)}), each range's device µs (the
+    kernels whose launching operator started inside one of the range's
+    intervals) and each range's own device-side span."""
+    cuda = torch.autograd.DeviceType.CUDA
+    starts, intervals, spans, device, kernels = {}, {}, {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda:
+            us = e.duration_ns() / 1e3
+            if name.startswith(RANGE_PREFIXES):
+                spans[name] = spans.get(name, 0.0) + us
+                continue
+            t, n = device.get(name, (0.0, 0))
+            device[name] = (t + us, n + 1)
+            kernels.append((e.linked_correlation_id(), us))
+        elif e.linked_correlation_id() == 0:  # an operator or a range, on the host
+            if name.startswith(RANGE_PREFIXES):
+                start = e.start_ns()
+                intervals.setdefault(name, []).append((start, start + e.duration_ns()))
+            else:
+                starts[e.correlation_id()] = e.start_ns()
+    launched = np.array([starts.get(c, -1) for c, _ in kernels], dtype=np.int64)
+    us = np.array([u for _, u in kernels], dtype=np.float64)
+    ranges = {}
+    for name, iv in intervals.items():
+        iv = np.array(sorted(iv), dtype=np.int64)
+        i = np.searchsorted(iv[:, 0], launched, side="right") - 1
+        inside = (i >= 0) & (launched < iv[np.maximum(i, 0), 1])
+        ranges[name] = float(us[inside].sum())
+    return device, ranges, spans
+
+
 def device_profile(fn, ranges=contextlib.nullcontext) -> dict:
     """Device busy share of ``fn()``'s wall time, ``flash_attention``'s
     share of its device time, the flash kernels by name (device µs,
     launches) and the six kernels of most device time, from
     ``torch.profiler`` (None where the profiler records no device time);
     with ``ranges`` (a context that opens ``record_function`` ranges named
-    ``moe.*``), each range's device µs: the kernels launched inside it
-    (``range_device_us``) and its span on the card's timeline
+    ``moe.*`` or ``ssm.*``), each range's device µs: the kernels launched
+    inside it (``range_device_us``) and its span on the card's timeline
     (``range_span_us``, the range's own device-side event, which is kept
     out of the kernels' sums)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2771,26 +2832,16 @@ def device_profile(fn, ranges=contextlib.nullcontext) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    averages = prof.key_averages()
-    device = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("moe.")]
-    busy_us = sum(e.self_device_time_total for e in device)
-    flash_us = sum(e.self_device_time_total for e in device if "flash_attention" in e.key)
-    top = sorted(((e.key[:60], e.self_device_time_total, e.count) for e in device),
-                 key=lambda x: -x[1])[:6]
-    flash = {e.key: (e.self_device_time_total, e.count) for e in device
-             if "flash_attention" in e.key}
+    device, range_us, spans = _trace_sums(prof)
+    busy_us = sum(t for t, _ in device.values())
+    flash = {k: v for k, v in device.items() if "flash_attention" in k}
+    flash_us = sum(t for t, _ in flash.values())
+    top = sorted(((k[:60], t, n) for k, (t, n) in device.items()), key=lambda x: -x[1])[:6]
     return {"wall_s": wall, "device_us": busy_us, "flash_attention_us": flash_us,
-            "flash_kernels": flash, "kernel_launches": sum(e.count for e in device),
+            "flash_kernels": flash, "kernel_launches": sum(n for _, n in device.values()),
             "device_busy_share": busy_us * 1e-6 / wall if busy_us > 0 else None,
             "flash_attention_share": flash_us / busy_us if busy_us > 0 else None,
-            "top_device_us": top,
-            "range_device_us": {e.key: e.device_time_total for e in averages
-                                if e.key.startswith("moe.")
-                                and e.device_type != torch.autograd.DeviceType.CUDA},
-            "range_span_us": {e.key: e.self_device_time_total for e in averages
-                              if e.key.startswith("moe.")
-                              and e.device_type == torch.autograd.DeviceType.CUDA}}
+            "top_device_us": top, "range_device_us": range_us, "range_span_us": spans}
 
 
 def prefill_profile(params, cfg, batch, ranges=contextlib.nullcontext) -> dict:
@@ -3014,28 +3065,35 @@ def moe_routing(replay=None):
 
 
 @contextlib.contextmanager
-def moe_ranges():
-    """The MoE functions of ``MOE_RANGES`` wrapped in ``record_function``
-    ranges ``moe.<name>`` inside the block, for the profiler's split."""
+def function_ranges(targets):
+    """Inside the block each function of ``targets`` ({range name: (module,
+    attribute)}) is wrapped in a ``record_function`` range of that name,
+    for the profiler's split; the names start with one of
+    ``RANGE_PREFIXES``."""
     from torch.profiler import record_function
 
-    from repro_torch.models import moe
-
-    saved = {name: getattr(moe, name) for name in MOE_RANGES}
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
 
     def ranged(name, fn):
         def call(*args, **kwargs):
-            with record_function(f"moe.{name}"):
+            with record_function(name):
                 return fn(*args, **kwargs)
         return call
 
-    for name, fn in saved.items():
-        setattr(moe, name, ranged(name, fn))
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, ranged(name, saved[name]))
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(moe, name, fn)
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, saved[name])
+
+
+def moe_ranges():
+    """The MoE functions of ``MOE_RANGES`` in ranges ``moe.<name>``."""
+    from repro_torch.models import moe
+
+    return function_ranges({f"moe.{name}": (moe, name) for name in MOE_RANGES})
 
 
 def routing_agreement(a, b):
@@ -3098,11 +3156,22 @@ def decode_profile(params, cfg, device, batch, cache_len, fill, steps=3) -> dict
 def decode_bytes(params, cfg, batch, fill) -> int:
     """The bytes one decode step must move: every parameter (all experts,
     as the dense dispatch runs them) but the token embedding table, of
-    which ``batch`` rows; K and V of positions 0..fill in every layer; the
-    logits written."""
+    which ``batch`` rows; K and V of positions 0..fill in every layer (the
+    last ``window`` of them for a rolling window); the recurrent state of
+    the ssm and hybrid families (read once and written once); the logits
+    written."""
+    from repro_torch.models.ssm import CONV_W
+
     emb = params["embed"]["tok"]
     n = _nbytes(params) - emb.numel() * emb.element_size() + batch * emb.shape[1] * emb.element_size()
-    n += 2 * cfg.n_layers * batch * (fill + 1) * cfg.n_kv_heads * cfg.hd * cfg.cdtype.itemsize
+    positions = min(fill + 1, cfg.window) if cfg.window else fill + 1
+    n += 2 * cfg.n_layers * batch * positions * cfg.n_kv_heads * cfg.hd * cfg.cdtype.itemsize
+    D = cfg.d_model
+    if cfg.family == "ssm":  # wkv (H, hd, hd) float32, two token shifts
+        H = cfg.n_rwkv_heads
+        n += 2 * cfg.n_layers * batch * (H * (D // H) ** 2 * 4 + 2 * D * cfg.cdtype.itemsize)
+    elif cfg.family == "hybrid":  # Mamba h (Di, N) and the conv tail, float32
+        n += 2 * cfg.n_layers * batch * D * (cfg.ssm_state + CONV_W - 1) * 4
     return n + batch * cfg.vocab_padded * cfg.cdtype.itemsize
 
 
@@ -3376,23 +3445,23 @@ MOE_LAUNCHES = {  # (h): the launcher's argv, and how many requests it serves
 }
 
 
-def moe_launcher() -> dict:
-    """(h): ``python -m repro_torch.launch.serve``'s ``main`` in this process
-    on the card: qwen3-moe at full width and all 48 layers fed by the ETL
-    pipeline, and dbrx's smoke config (the launcher has no depth cut, and
-    dbrx at full depth does not fit one card); every request answered (its
-    ``max_new`` tokens, or fewer ending at EOS 0)."""
+def run_launcher(launches, label) -> dict:
+    """``python -m repro_torch.launch.serve``'s ``main`` in this process on
+    the card, once for each entry of ``launches`` ({name: (argv, requests)}):
+    every request answered (its ``max_new`` tokens, or fewer ending at EOS
+    0)."""
     import io
 
     from repro_torch.launch import serve
 
     out = {}
-    for name, (argv, n) in MOE_LAUNCHES.items():
+    for name, (argv, n) in launches.items():
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             serve.main(argv)
-        torch.cuda.empty_cache()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
         requests = [line for line in buf.getvalue().splitlines() if line.startswith("request ")]
         answered = [line for line in requests
                     if re.match(r"request \d+: [1-9]\d* tokens -> \[", line)]
@@ -3401,8 +3470,15 @@ def moe_launcher() -> dict:
         if len(requests) != n or len(answered) != n:
             raise AssertionError(f"serve {out[name]['argv']}: not every request answered:\n"
                                  + buf.getvalue())
-    print(f"{elapsed()} serving 5b (h) the launcher: " + json.dumps(out), flush=True)
+    print(f"{elapsed()} serving {label} the launcher: " + json.dumps(out), flush=True)
     return out
+
+
+def moe_launcher() -> dict:
+    """(h): qwen3-moe at full width and all 48 layers fed by the ETL
+    pipeline, and dbrx's smoke config (the launcher has no depth cut, and
+    dbrx at full depth does not fit one card)."""
+    return run_launcher(MOE_LAUNCHES, "5b (h)")
 
 
 def moe_serving(dev) -> dict:
@@ -3422,6 +3498,227 @@ def moe_serving(dev) -> dict:
     out["launcher"] = moe_launcher()
     out["wall_s"] = time.perf_counter() - t0
     print(f"{elapsed()} serving 5b: MoE family served in {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# -- phase 5c: serving the SSM and hybrid families ---------------------------------
+
+SSM_SERVE = dict(batch=8, cache_len=2048, max_new=16, eos=-1)
+SSM_FILL = {"ssm": 512, "hybrid": 1536}  # decode positions filled: hymba's write slot wraps
+SSM_CUT_PROMPTS = (256, 250)  # the float32 card-vs-CPU prefills, (1, S): aligned and not
+HYMBA_TEACHER = 1100  # float32 teacher forcing across hymba's 1,024-token window
+SSM_SCAN_PROMPT = 512  # rwkv6's bf16 scan prefill (reported): 2 x 512 steps a layer
+SSM_LAUNCHES = {  # the launcher at full width, on the card
+    "rwkv6-3b": (["--arch", "rwkv6_3b"], 8),
+    "hymba-1.5b --etl": (["--arch", "hymba_1_5b", "--etl"], 8),
+}
+
+
+def ssm_ranges(cfg):
+    """``record_function`` ranges ``ssm.*`` over the parts of a prefill:
+    rwkv6 (``family == "ssm"``): the time mix, its projections and LoRA,
+    the wkv recurrence, the channel mix and the head; hymba: attention, the
+    Mamba block and inside it the core, conv, x_proj and dt, and scan; the
+    MLP and the head."""
+    from repro_torch.models import model, ssm
+
+    if cfg.family == "ssm":
+        wkv = "_wkv_chunked" if cfg.rwkv_impl == "chunked" else "_wkv_scan"
+        targets = {"ssm.time_mix": (model, "rwkv_train"), "ssm.inputs": (ssm, "_rwkv_inputs"),
+                   "ssm.wkv": (ssm, wkv), "ssm.channel_mix": (model, "rwkv_channel_mix")}
+    else:
+        targets = {"ssm.attention": (model, "attention_train"), "ssm.mamba": (model, "mamba_train"),
+                   "ssm.mamba_core": (ssm, "_mamba_core"), "ssm.conv": (ssm, "_causal_conv"),
+                   "ssm.x_proj_dt": (ssm, "_ssm_inputs"), "ssm.scan": (ssm, "_selective_scan"),
+                   "ssm.mlp": (model, "apply_mlp")}
+    return function_ranges({**targets, "ssm.head": (model, "lm_logits")})
+
+
+def ssm_split(profile: dict, cfg) -> dict:
+    """A profiled prefill's device time by part (µs and share), from the
+    ranges of :func:`ssm_ranges` (the kernels launched inside each, or where
+    the profiler links none, its span on the card's timeline); the rest is
+    the embedding, the norms and the residual adds.  None where neither is
+    recorded."""
+    busy = profile["device_us"]
+    r = next((r for r in (profile["range_device_us"], profile.get("range_span_us", {}))
+              if r.get("ssm.head")), None)
+    if not busy or r is None:
+        return None
+    if cfg.family == "ssm":
+        split = {"time-mix projections and LoRA": r["ssm.inputs"],
+                 "wkv recurrence": r["ssm.wkv"],
+                 "group norm, gate and output": r["ssm.time_mix"] - r["ssm.inputs"] - r["ssm.wkv"],
+                 "channel mix": r["ssm.channel_mix"]}
+    else:
+        parts = ("ssm.conv", "ssm.x_proj_dt", "ssm.scan")
+        split = {"attention": r["ssm.attention"],
+                 "mamba in_proj and out_proj": r["ssm.mamba"] - r["ssm.mamba_core"],
+                 "mamba conv": r["ssm.conv"], "mamba x_proj and dt": r["ssm.x_proj_dt"],
+                 "mamba scan": r["ssm.scan"],
+                 "mamba gate": r["ssm.mamba_core"] - sum(r[k] for k in parts),
+                 "mlp": r["ssm.mlp"]}
+    split["head"] = r["ssm.head"]
+    split["rest"] = busy - sum(split.values())
+    return {k: {"us": v, "share": v / busy} for k, v in split.items()}
+
+
+def ssm_prefill_checks(name, params, cfg, batch):
+    """The prefill: logits of the expected shape, finite, two calls
+    bit-identical, and no kernel of the port launched (none lies on these
+    paths: rwkv6 has no attention, hymba's is windowed).  Returns the
+    readings; raises on any failed check."""
+    from repro_torch.models import model as M
+
+    _zero_launch_counts()
+    logits, _ = M.forward(params, cfg, batch)
+    _sync()
+    launches = _launch_counts()
+    again, _ = M.forward(params, cfg, batch)
+    out = {"shape_ok": tuple(logits.shape) == (*batch["tokens"].shape, cfg.vocab_padded),
+           "finite": bool(torch.isfinite(logits).all()),
+           "repeat_bit_identical": _bits_equal(logits, again),
+           "port_kernel_launches": sum(launches.values())}
+    del logits, again
+    print(f"{elapsed()} serving 5c {name} prefill: " + json.dumps(out), flush=True)
+    if not (out["shape_ok"] and out["finite"] and out["repeat_bit_identical"]):
+        raise AssertionError(f"{name} prefill: {out}")
+    if out["port_kernel_launches"]:
+        raise AssertionError(f"{name} prefill launched kernels of the port: {launches}")
+    return out
+
+
+def ssm_full(dev, cfg) -> dict:
+    """rwkv6-3b or hymba-1.5b at full width and all layers in bfloat16: the
+    (2, 2048) prefill's checks, tokens/s (median of 3), profile and split;
+    for rwkv6 the scan prefill beside the chunked one (report only); decode
+    at batch 8 beside its byte bound; a 16-request ``Server`` run."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import ServeConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    out = {"config": {k: getattr(cfg, k) for k in (
+               "name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_padded",
+               "window", "ssm_state", "rwkv_impl")},
+           "params": cfg.param_count(), "param_bytes": _nbytes(params),
+           "init_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))).to(dev)
+    batch = {"tokens": tokens}
+    out["prefill"] = ssm_prefill_checks(cfg.name, params, cfg, batch)
+    if cfg.family == "ssm":  # report only: bf16 noise through 32 layers
+        head = {"tokens": tokens[:, :SSM_SCAN_PROMPT]}
+        chunked, _ = M.forward(params, cfg, head)
+        scan, _ = M.forward(params, cfg.replace(rwkv_impl="scan"), head)
+        out["prefill"][f"chunked_vs_scan_bf16_{SSM_SCAN_PROMPT}"] = _logit_stats(chunked, scan)
+        del chunked, scan
+    prefill_s, _ = _timed(lambda: M.forward(params, cfg, batch))
+    out["prefill_s"] = prefill_s
+    out["prefill_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / prefill_s
+    profile = prefill_profile(params, cfg, batch, ranges=lambda: ssm_ranges(cfg))
+    out["prefill_profile"] = profile
+    out["prefill_split"] = ssm_split(profile, cfg)
+    print(f"{elapsed()} serving 5c {cfg.name} prefill (bf16): " + json.dumps(
+        {k: out[k] for k in ("prefill", "prefill_s", "prefill_tokens_per_s", "prefill_split",
+                             "prefill_profile")}), flush=True)
+
+    sc = ServeConfig(**SSM_SERVE)
+    fill = SSM_FILL[cfg.family]
+    step_ms = decode_step_ms(params, cfg, dev, sc.batch, sc.cache_len, fill=fill)
+    n_bytes = decode_bytes(params, cfg, sc.batch, fill)
+    out["decode"] = {"batch": sc.batch, "cache_len": sc.cache_len, "fill": fill,
+                     "ms_per_step": step_ms, "tokens_per_s": sc.batch / step_ms * 1e3,
+                     "bytes_per_step": n_bytes, "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+                     "profile": decode_profile(params, cfg, dev, sc.batch, sc.cache_len, fill)}
+    prompts = _prompts(cfg.vocab, 16, 2, 8, seed=1)
+    _, seconds, steps, launches = run_server(params, cfg, dev, sc, prompts)
+    out["server"] = {"requests": len(prompts), "answered": len(prompts),
+                     "prompt_tokens": sum(map(len, prompts)),
+                     "new_tokens": len(prompts) * sc.max_new, "seconds": seconds,
+                     "steps": steps, "ms_per_step": seconds / steps * 1e3,
+                     "new_tokens_per_s": len(prompts) * sc.max_new / seconds,
+                     "launches": launches}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"{elapsed()} serving 5c {cfg.name} decode and server: " + json.dumps(
+        {k: out[k] for k in ("decode", "server", "max_memory_allocated", "param_bytes")}),
+        flush=True)
+    return out
+
+
+def ssm_cut_f32(dev, cfg, *, teacher=TEACHER_STEPS, prompts=SSM_CUT_PROMPTS) -> dict:
+    """float32 checks on ``dev`` (and the CPU): ``cfg`` at full width cut to
+    ``CUT_LAYERS`` layers.  rwkv6: the chunked prefill against the scan one;
+    both: decode against the prefill over ``teacher`` tokens (hymba's across
+    its window), the prefill on ``dev`` against the CPU at (1, S) for each
+    S of ``prompts``, and equal ``Server`` tokens."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import ServeConfig
+
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    cpu = torch.device("cpu")
+    params_cpu = _to(params, cpu)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_BATCH, max(teacher, *prompts))))
+    tokens = tokens.to(dev)
+    out = {"param_bytes": _nbytes(params)}
+    if cfg.family == "ssm":
+        short = {"tokens": tokens[:, :prompts[0]]}
+        chunked, _ = M.forward(params, cfg.replace(rwkv_impl="chunked"), short)
+        scan, _ = M.forward(params, cfg.replace(rwkv_impl="scan"), short)
+        out["chunked_vs_scan_f32"] = _check_close(f"{cfg.name} chunked vs scan", chunked, scan,
+                                                  SERVE_F32_TOL)
+        del chunked, scan
+    head = tokens[:, :teacher]
+    full, _ = M.forward(params, cfg, {"tokens": head})
+    state = M.init_decode_state(cfg, SERVE_BATCH, teacher, device=dev)
+    steps = []
+    for t in range(teacher):
+        step_logits, state = M.decode_step(params, cfg, state, head[:, t])
+        steps.append(step_logits)
+    out["teacher_forcing_f32"] = _check_close(f"{cfg.name} decode vs prefill",
+                                              torch.stack(steps, 1), full, SERVE_F32_TOL)
+    out["teacher_forcing_f32"]["tokens"] = teacher
+    del full, steps, state
+    for S in prompts:
+        one = {"tokens": tokens[:1, :S]}
+        l_dev, _ = M.forward(params, cfg, one)
+        l_cpu, _ = M.forward(params_cpu, cfg, _to(one, cpu))
+        out[f"card_vs_cpu_f32_{S}"] = _check_close(f"{cfg.name} card vs cpu prefill (1, {S})",
+                                                   l_dev.cpu(), l_cpu, CARD_CPU_TOL)
+    sc = ServeConfig(batch=4, cache_len=64, max_new=8, eos=-1)
+    server_prompts = _prompts(cfg.vocab, 6, 2, 7, seed=2)
+    done_dev, _, _, _ = run_server(params, cfg, dev, sc, server_prompts)
+    done_cpu, _, _, _ = run_server(params_cpu, cfg, cpu, sc, server_prompts)
+    out["server_tokens_equal"] = done_dev == done_cpu
+    print(f"{elapsed()} serving 5c {cfg.name} {cfg.n_layers} layers f32: " + json.dumps(out),
+          flush=True)
+    if not out["server_tokens_equal"]:
+        raise AssertionError(f"{cfg.name} server tokens differ: card {done_dev} cpu {done_cpu}")
+    return out
+
+
+def ssm_serving(dev) -> dict:
+    """Phase 5c (see the module docstring): returns its numbers."""
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch in ("rwkv6_3b", "hymba_1_5b"):
+        cfg = configs.get(arch)
+        torch.cuda.empty_cache()
+        out[cfg.name] = ssm_full(dev, cfg)
+        torch.cuda.empty_cache()
+        teacher = HYMBA_TEACHER if cfg.window else TEACHER_STEPS
+        out[f"{cfg.name} f32 cut"] = ssm_cut_f32(dev, cfg.replace(
+            n_layers=CUT_LAYERS, param_dtype="float32", compute_dtype="float32"), teacher=teacher)
+    torch.cuda.empty_cache()
+    out["launcher"] = run_launcher(SSM_LAUNCHES, "5c")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"{elapsed()} serving 5c: SSM and hybrid families served in {out['wall_s']:.1f} s",
+          flush=True)
     return out
 
 
@@ -3750,6 +4047,7 @@ def main() -> int:
 
     serving = serving_path(dev)
     moe_served = moe_serving(dev)
+    ssm_served = ssm_serving(dev)
 
     for pname in paths:
         name = f"cuda/{pname}"
@@ -3817,6 +4115,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print("serving: " + json.dumps(serving), flush=True)
     print("serving moe: " + json.dumps(moe_served), flush=True)
+    print("serving ssm: " + json.dumps(ssm_served), flush=True)
     origin["flash_attention"] = ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:93", "prefill")
     origin["moe_combine"] = ("src/repro_torch/kernels/csrc/moe_combine.cu",

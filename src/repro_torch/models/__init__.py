@@ -1,3 +1,3 @@
-"""The model zoo's dense family on PyTorch: configuration, layers,
-attention with a KV cache, and the full model (``init_params``,
-``forward``, ``init_decode_state``, ``decode_step``)."""
+"""The model zoo on PyTorch: configuration, layers, attention with a KV
+cache, the MoE FFN, the RWKV-6 and Mamba blocks, and the full model
+(``init_params``, ``forward``, ``init_decode_state``, ``decode_step``)."""
