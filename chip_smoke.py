@@ -3,8 +3,9 @@
 its streaming pipeline, cluster and initial load, its replicated control
 plane (leader and follower processes on the card), its olmo-1b server,
 alone and fed by the pipeline, its MoE family (qwen3-moe-30b-a3b,
-dbrx-132b) and its SSM and hybrid families (rwkv6-3b, hymba-1.5b) on one
-NVIDIA card and check them.
+dbrx-132b), its SSM and hybrid families (rwkv6-3b, hymba-1.5b) and its
+audio and VLM families (whisper-tiny, internvl2-1b) on one NVIDIA card and
+check them.
 
 Run from the repository root with no arguments:
 
@@ -37,8 +38,10 @@ failure raises and the script exits non-zero):
    float32 (its FFMA kernel) and bfloat16 (its tensor-core kernel), ragged
    non-causal T, causal S > T with ragged T, head dims 8, 16, 24, 40, 72
    and 120, the olmo-1b, phi3-medium (n_rep 4) and llama3-405b (n_rep 16)
-   head layouts at hd 128, and the MoE prefills' layouts, qwen3-moe (hd 64,
-   n_rep 8, S 2048) and dbrx (hd 128, n_rep 6) (float32 atol 3e-5 / rtol 1e-4, the reference
+   head layouts at hd 128, the MoE prefills' layouts, qwen3-moe (hd 64,
+   n_rep 8, S 2048) and dbrx (hd 128, n_rep 6), whisper-tiny's encoder
+   (non-causal, S = T = 1,500, ragged in both tile sizes) and internvl2-1b's
+   prefill (n_rep 7, S 2,304) (float32 atol 3e-5 / rtol 1e-4, the reference
    tests' tolerance; bfloat16 atol 5e-3 / rtol 1e-2, a limit that three
    planted faults -- p in float8, a skipped key tile, an off-by-one
    diagonal -- must fail at the largest causal shape and at the prefill's);
@@ -237,13 +240,44 @@ failure raises and the script exits non-zero):
    CPU); and the launcher in process at full width, ``--arch rwkv6_3b`` and
    ``--arch hymba_1_5b --etl``, every request answered; then the
    ``serving ssm:`` line;
+5d. serve the audio and VLM families (``serving 5d`` lines), at full width
+   and depth in bfloat16 with seeded random weights and ``attn_impl=
+   "pallas"``: whisper-tiny (4 encoder and 4 decoder layers) and
+   internvl2-1b (24 layers).  Each: the prefill -- whisper's (2, 448)
+   tokens (its decoder's own cap) over (2, 1,500) frames, internvl2's (2,
+   256 patches + 2,048 tokens) -- with one ``flash_attention`` launch a
+   self-attention layer (8: the encoder's four non-causal ones included;
+   24) and no other kernel of the port, all to the tensor-core kernel (the
+   profiler's device events), each launch within ``FLASH_TOL`` of the plain
+   version on its layer's own q, k and v, logits finite and shaped right
+   (internvl2's keep the patch positions), a repeat call bit-identical, the
+   dense-attention prefill beside it (reported); tokens/s (median of 3;
+   whisper also frames/s), device ms, busy share, launches and the split
+   by ``record_function`` ranges (``flash_attention``, the rest of
+   self-attention, cross-attention with the memory projection, the MLP,
+   the head, the rest; whisper's encoder as a whole); whisper's
+   ``prefill_memory`` at batch 8 (4 launches) and ``greedy_decode`` over
+   frames; decode ms a step at batch 8 (whisper at position 448, internvl2
+   at 2,304) beside its byte bound (the decoder's weights, a tied head's
+   whole table, self K/V and whisper's cross K/V) with its busy share and
+   launches; a batch-8 ``Server`` answering 16 requests.  Then float32
+   (whisper at full depth, internvl2 cut to 2 layers): the prefill on the
+   card against the CPU, decode (whisper after ``prefill_memory`` on the
+   same frames, internvl2 over an empty patch prefix) against the prefill
+   (teacher forcing, atol 2e-3 / rtol 1e-3) and against the CPU's decode
+   with its whole state (atol 1e-3 / rtol 1e-3), equal ``Server`` tokens
+   and whisper's equal ``greedy_decode`` tokens; the launcher in process
+   at full width, ``--arch whisper_tiny`` and ``--arch internvl2_1b``,
+   every request answered; then the ``serving av:`` line;
 6. time each kernel at the main path's shapes beside its plain version and
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
    line with all eight; ``flash_attention`` also with its TFLOP/s and its
-   share of the bound, at the olmo-1b prefill and at the qwen3-moe prefill
-   (hd 64, n_rep 8; SDPA with GQA beside it), its launches summed over the
-   three prefills; ``moe_combine`` also at the dbrx group and with a
+   share of the bound, at the olmo-1b prefill, the qwen3-moe prefill
+   (hd 64, n_rep 8; SDPA with GQA beside it), whisper-tiny's encoder
+   (non-causal; SDPA non-causal beside it) and the internvl2-1b prefill
+   (n_rep 7), its launches summed over the prefills and whisper's
+   ``prefill_memory``; ``moe_combine`` also at the dbrx group and with a
    fully dense combine, each beside ``torch.matmul``; time an empty kernel
    the same way (the ``launch floor`` line) and state each kernel's time as
    a multiple of it (``floor_multiple`` in its ``timing`` line); time
@@ -2507,7 +2541,10 @@ def host_split(app, chunks) -> dict:
 # smoke configs' head dims, many key tiles, the olmo-1b (16 heads), phi3
 # -medium (40 on 10 KV heads) and llama3-405b (128 on 8) layouts at hd 128,
 # and the MoE prefills' layouts: qwen3-moe (2 x 32 heads on 2 x 4 KV heads,
-# hd 64, S 2048) and dbrx (48 heads on 8 KV heads, hd 128)
+# hd 64, S 2048) and dbrx (48 heads on 8 KV heads, hd 128); then whisper
+# -tiny's encoder (2 x 6 heads, non-causal over 1,500 frames: ragged in the
+# query blocks and the key tiles) and internvl2-1b's prefill (2 x 14 heads
+# on 2 x 2 KV heads over 256 patches + 2,048 tokens)
 FLASH_CASES = [
     (1, 64, 64, 64, 1, True), (4, 128, 128, 64, 1, True), (8, 300, 300, 64, 2, True),
     (2, 256, 256, 128, 1, False), (6, 64, 512, 64, 3, True), (4, 257, 257, 128, 4, True),
@@ -2522,6 +2559,7 @@ FLASH_CASES = [
     (2, 200, 200, 72, 1, True), (3, 90, 133, 72, 3, False),
     (4, 160, 160, 120, 2, True), (2, 37, 150, 120, 1, False),
     (64, 2048, 2048, 64, 8, True), (48, 1024, 1024, 128, 6, True),
+    (12, 1500, 1500, 64, 1, False), (28, 2304, 2304, 64, 7, True),
 ]
 # (T, E, C, D): tests/test_kernels.py's sweep, then the qwen3-moe group
 MOE_CASES = [(8, 2, 4, 32), (64, 8, 16, 96), (130, 4, 8, 256), (256, 16, 8, 128),
@@ -2717,7 +2755,7 @@ def check_moe_combine(device: torch.device) -> dict:
 
 SERVE_BATCH, PROMPT_LEN = 2, 2048
 TEACHER_STEPS = 32
-RANGE_PREFIXES = ("moe.", "ssm.")  # the record_function ranges of the profiled splits
+RANGE_PREFIXES = ("moe.", "ssm.", "av.")  # the record_function ranges of the profiled splits
 
 
 def _to(tree, device, dtype=None):
@@ -3156,14 +3194,26 @@ def decode_profile(params, cfg, device, batch, cache_len, fill, steps=3) -> dict
 def decode_bytes(params, cfg, batch, fill) -> int:
     """The bytes one decode step must move: every parameter (all experts,
     as the dense dispatch runs them) but the token embedding table, of
-    which ``batch`` rows; K and V of positions 0..fill in every layer (the
-    last ``window`` of them for a rolling window); the recurrent state of
-    the ssm and hybrid families (read once and written once); the logits
-    written."""
+    which ``batch`` rows (all of it where the head is tied to it), and a
+    learned position table, of which one row;
+    K and V of positions 0..fill in every layer (the last ``window`` of
+    them for a rolling window); the recurrent state of the ssm and hybrid
+    families (read once and written once); an encoder-decoder's cross K and
+    V (enc_seq positions a layer), whose encoder and cross-attention K / V
+    projections the step does not read; the logits written."""
     from repro_torch.models.ssm import CONV_W
 
     emb = params["embed"]["tok"]
-    n = _nbytes(params) - emb.numel() * emb.element_size() + batch * emb.shape[1] * emb.element_size()
+    n = _nbytes(params)
+    if not cfg.tie_embeddings:
+        n += (batch - emb.shape[0]) * emb.shape[1] * emb.element_size()
+    pos = params["embed"].get("pos")
+    if pos is not None:
+        n -= (pos.shape[0] - 1) * pos.shape[1] * pos.element_size()
+    if cfg.enc_dec:
+        n -= _nbytes([params[k] for k in ("enc_layers", "enc_final_norm", "enc_pos")])
+        n -= _nbytes([[lp["xattn"]["wk"], lp["xattn"]["wv"]] for lp in params["layers"]])
+        n += 2 * cfg.n_layers * batch * cfg.enc_seq * cfg.n_kv_heads * cfg.hd * cfg.cdtype.itemsize
     positions = min(fill + 1, cfg.window) if cfg.window else fill + 1
     n += 2 * cfg.n_layers * batch * positions * cfg.n_kv_heads * cfg.hd * cfg.cdtype.itemsize
     D = cfg.d_model
@@ -3588,6 +3638,30 @@ def ssm_prefill_checks(name, params, cfg, batch):
     return out
 
 
+def decode_summary(params, cfg, dev, batch, cache_len, fill) -> dict:
+    """Decode at ``batch`` on a cache of ``cache_len`` holding ``fill``
+    positions: ms a step beside the byte bound of :func:`decode_bytes`, and
+    :func:`decode_profile`."""
+    step_ms = decode_step_ms(params, cfg, dev, batch, cache_len, fill=fill)
+    n_bytes = decode_bytes(params, cfg, batch, fill)
+    return {"batch": batch, "cache_len": cache_len, "fill": fill,
+            "ms_per_step": step_ms, "tokens_per_s": batch / step_ms * 1e3,
+            "bytes_per_step": n_bytes, "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+            "profile": decode_profile(params, cfg, dev, batch, cache_len, fill)}
+
+
+def server_summary(params, cfg, dev, sc) -> dict:
+    """A ``Server`` (``sc``) answering 16 requests of 2-8 prompt tokens."""
+    prompts = _prompts(cfg.vocab, 16, 2, 8, seed=1)
+    _, seconds, steps, launches = run_server(params, cfg, dev, sc, prompts)
+    return {"requests": len(prompts), "answered": len(prompts),
+            "prompt_tokens": sum(map(len, prompts)),
+            "new_tokens": len(prompts) * sc.max_new, "seconds": seconds,
+            "steps": steps, "ms_per_step": seconds / steps * 1e3,
+            "new_tokens_per_s": len(prompts) * sc.max_new / seconds,
+            "launches": launches}
+
+
 def ssm_full(dev, cfg) -> dict:
     """rwkv6-3b or hymba-1.5b at full width and all layers in bfloat16: the
     (2, 2048) prefill's checks, tokens/s (median of 3), profile and split;
@@ -3626,21 +3700,9 @@ def ssm_full(dev, cfg) -> dict:
                              "prefill_profile")}), flush=True)
 
     sc = ServeConfig(**SSM_SERVE)
-    fill = SSM_FILL[cfg.family]
-    step_ms = decode_step_ms(params, cfg, dev, sc.batch, sc.cache_len, fill=fill)
-    n_bytes = decode_bytes(params, cfg, sc.batch, fill)
-    out["decode"] = {"batch": sc.batch, "cache_len": sc.cache_len, "fill": fill,
-                     "ms_per_step": step_ms, "tokens_per_s": sc.batch / step_ms * 1e3,
-                     "bytes_per_step": n_bytes, "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
-                     "profile": decode_profile(params, cfg, dev, sc.batch, sc.cache_len, fill)}
-    prompts = _prompts(cfg.vocab, 16, 2, 8, seed=1)
-    _, seconds, steps, launches = run_server(params, cfg, dev, sc, prompts)
-    out["server"] = {"requests": len(prompts), "answered": len(prompts),
-                     "prompt_tokens": sum(map(len, prompts)),
-                     "new_tokens": len(prompts) * sc.max_new, "seconds": seconds,
-                     "steps": steps, "ms_per_step": seconds / steps * 1e3,
-                     "new_tokens_per_s": len(prompts) * sc.max_new / seconds,
-                     "launches": launches}
+    out["decode"] = decode_summary(params, cfg, dev, sc.batch, sc.cache_len,
+                                   SSM_FILL[cfg.family])
+    out["server"] = server_summary(params, cfg, dev, sc)
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     print(f"{elapsed()} serving 5c {cfg.name} decode and server: " + json.dumps(
         {k: out[k] for k in ("decode", "server", "max_memory_allocated", "param_bytes")}),
@@ -3722,43 +3784,330 @@ def ssm_serving(dev) -> dict:
     return out
 
 
+# -- phase 5d: serving the audio and VLM families ----------------------------------
+
+
+WHISPER_TOKENS = 448  # whisper's own decoder cap (configs/whisper_tiny.py)
+AV_SERVE = dict(batch=8, cache_len=512, max_new=16, eos=-1)
+AV_DECODE = {"audio": (512, WHISPER_TOKENS), "vlm": (2560, 256 + PROMPT_LEN)}  # cache, fill
+AV_CUT_TOKENS = {"audio": WHISPER_TOKENS, "vlm": 64}  # the float32 card-vs-CPU prefill, (1, S)
+AV_LAUNCHES = {  # the launcher at full width, on the card
+    "whisper-tiny": (["--arch", "whisper_tiny"], 8),
+    "internvl2-1b": (["--arch", "internvl2_1b"], 8),
+}
+
+
+def av_inputs(cfg, batch, tokens, seed, device) -> dict:
+    """A prefill batch: ``tokens`` random text tokens a row and, float32
+    normal from the same numpy seed as ``etl.batcher`` makes them, whisper's
+    frames (B, enc_seq, D) or internvl2's patches (B, frontend_tokens, D)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (batch, tokens))).to(device)}
+    if cfg.enc_dec:
+        out["frames"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(device)
+    if cfg.family == "vlm":
+        out["patches"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)).to(device)
+    return out
+
+
+def av_flash_launches(cfg) -> int:
+    """``flash_attention`` launches of one prefill: one a self-attention
+    layer, the encoder's included."""
+    return cfg.n_layers + (cfg.enc_layers if cfg.enc_dec else 0)
+
+
+def av_ranges():
+    """``record_function`` ranges ``av.*`` over the parts of a prefill: the
+    encoder, self-attention (encoder and decoder), cross-attention and the
+    memory projection, the MLP and the head."""
+    from repro_torch.models import model
+
+    return function_ranges({"av.encoder": (model, "_encode"),
+                            "av.attention": (model, "attention_train"),
+                            "av.cross": (model, "cross_attention"),
+                            "av.project": (model, "project_memory"),
+                            "av.mlp": (model, "apply_mlp"), "av.head": (model, "lm_logits")})
+
+
+def av_split(profile: dict, cfg) -> dict:
+    """A profiled prefill's device time by part (µs and share), from the
+    ranges of :func:`av_ranges`: ``flash_attention``, the rest of
+    self-attention (projections, layout), cross-attention with its memory
+    projection, the MLP and the head, and the rest (embedding, norms,
+    residual adds); for whisper also the encoder's whole time, which
+    overlaps the parts.  None where the profiler records no range."""
+    busy = profile["device_us"]
+    r = next((r for r in (profile["range_device_us"], profile.get("range_span_us", {}))
+              if r.get("av.head")), None)
+    if not busy or r is None:
+        return None
+    flash = profile["flash_attention_us"]
+    split = {"flash_attention": flash,
+             "attention projections and layout": r["av.attention"] - flash,
+             "mlp": r["av.mlp"], "head": r["av.head"]}
+    if cfg.enc_dec:
+        split["cross-attention and memory projection"] = r["av.cross"] + r["av.project"]
+    split["rest"] = busy - sum(split.values())
+    out = {k: {"us": v, "share": v / busy} for k, v in split.items()}
+    if cfg.enc_dec:
+        out["encoder, all its parts"] = {"us": r["av.encoder"], "share": r["av.encoder"] / busy}
+    return out
+
+
+def av_prefill_checks(name, params, cfg, batch) -> dict:
+    """The prefill with ``flash_attention``: one launch a self-attention
+    layer (the encoder's too) and no other kernel of the port, each launch
+    within ``FLASH_TOL`` of the plain version on that layer's own q, k and
+    v, logits finite and of the expected shape (patch positions kept),
+    repeat calls bit-identical; against the dense-attention prefill (max
+    abs error and argmax agreement, reported).  Raises on any failed
+    check."""
+    from repro_torch.models import model as M
+
+    fa = cfg.replace(attn_impl="pallas")
+    on_card = batch["tokens"].is_cuda
+    _zero_launch_counts()
+    with flash_against_plain() as shares:
+        logits, _ = M.forward(params, fa, batch)
+    _sync()
+    launches = _launch_counts()
+    again, _ = M.forward(params, fa, batch)
+    B, S = batch["tokens"].shape
+    positions = S + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    out = {"shape_ok": tuple(logits.shape) == (B, positions, cfg.vocab_padded),
+           "finite": bool(torch.isfinite(logits).all()),
+           "repeat_bit_identical": _bits_equal(logits, again),
+           "flash_launches_checked": len(shares),
+           "flash_vs_plain_by_layer_max_share": max(shares, default=None),
+           "prefill_flash_attention_launches": launches["flash_attention"]}
+    del again
+    dense, _ = M.forward(params, cfg.replace(attn_impl="dense"), batch)
+    out["vs_dense"] = _logit_stats(logits, dense)
+    del logits, dense
+    print(f"{elapsed()} serving 5d {name} prefill: " + json.dumps(out), flush=True)
+    n_flash = av_flash_launches(cfg)
+    # one launch a layer on the card; the plain version on the CPU launches none
+    want = {n: (n_flash if n == "flash_attention" and on_card else 0) for n in KERNEL_NAMES}
+    if launches != want:
+        raise AssertionError(f"{name} prefill launches {launches}, want {want}")
+    if not (out["shape_ok"] and out["finite"] and out["repeat_bit_identical"]
+            and len(shares) == n_flash and max(shares) < 1):
+        raise AssertionError(f"{name} prefill: {out}")
+    return out
+
+
+def av_full(dev, cfg) -> dict:
+    """whisper-tiny or internvl2-1b at full width and depth in bfloat16
+    with ``attn_impl="pallas"``: the (2, 448) prefill over (2, 1,500)
+    frames or the (2, 256 + 2,048) one, its checks, tokens/s (median of
+    3), profile (the flash kernels all tensor-core ones) and split; for
+    whisper ``prefill_memory`` at batch 8 and ``greedy_decode`` over
+    frames; decode at batch 8 beside its byte bound; a 16-request
+    ``Server`` run."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import ServeConfig, greedy_decode
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    fa = cfg.replace(attn_impl="pallas")
+    out = {"config": {k: getattr(cfg, k) for k in (
+               "name", "family", "n_layers", "enc_layers", "enc_seq", "frontend_tokens",
+               "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_padded")},
+           "params": cfg.param_count(), "param_bytes": _nbytes(params),
+           "init_s": time.perf_counter() - t0}
+    text = WHISPER_TOKENS if cfg.enc_dec else PROMPT_LEN
+    batch = av_inputs(cfg, SERVE_BATCH, text, seed=5, device=dev)
+    out["prefill"] = av_prefill_checks(cfg.name, params, cfg, batch)
+    prefill_s, _ = _timed(lambda: M.forward(params, fa, batch))
+    out["prefill_s"] = prefill_s
+    out["prefill_tokens_per_s"] = SERVE_BATCH * (text + cfg.frontend_tokens) / prefill_s
+    if cfg.enc_dec:
+        out["prefill_frames_per_s"] = SERVE_BATCH * cfg.enc_seq / prefill_s
+    profile = prefill_profile(params, fa, batch, ranges=av_ranges)
+    out["prefill_profile"] = profile
+    out["prefill_split"] = av_split(profile, cfg)
+    flash_kernels = profile["flash_kernels"]
+    counts = [c for name, (_, c) in flash_kernels.items()
+              if "flash_attention_wgmma_kernel" in name]
+    if len(flash_kernels) != 1 or counts != [av_flash_launches(cfg)]:
+        raise AssertionError(f"{cfg.name}'s bf16 prefill flash kernels {flash_kernels}: want "
+                             f"{av_flash_launches(cfg)} launches of the tensor-core kernel")
+    print(f"{elapsed()} serving 5d {cfg.name} prefill (bf16): " + json.dumps(
+        {k: out[k] for k in ("prefill_s", "prefill_tokens_per_s", "prefill_split",
+                             "prefill_profile")}
+        | ({"prefill_frames_per_s": out["prefill_frames_per_s"]} if cfg.enc_dec else {})),
+        flush=True)
+
+    sc = ServeConfig(**AV_SERVE)
+    cache_len, fill = AV_DECODE[cfg.family]
+    if cfg.enc_dec:
+        frames = av_inputs(cfg, sc.batch, 1, seed=6, device=dev)["frames"]
+        state = M.init_decode_state(cfg, sc.batch, cache_len, device=dev)
+        _zero_launch_counts()
+        M.prefill_memory(params, fa, frames, state)
+        _sync()
+        launches = _launch_counts()["flash_attention"]
+        memory_s, _ = _timed(lambda: M.prefill_memory(params, fa, frames, state))
+        out["prefill_memory"] = {"batch": sc.batch, "ms": memory_s * 1e3,
+                                 "flash_attention_launches": launches}
+        if launches != cfg.enc_layers:
+            raise AssertionError(f"prefill_memory launched flash_attention {launches} times")
+        del state
+        prompt = torch.from_numpy(np.random.default_rng(7).integers(2, cfg.vocab, (2, 4)))
+        t0 = time.perf_counter()
+        toks = greedy_decode(params, fa, prompt, max_new=16, cache_len=64, device=dev,
+                             extras={"frames": frames[:2].cpu()})
+        out["greedy_decode"] = {"shape": list(toks.shape), "seconds": time.perf_counter() - t0}
+        if tuple(toks.shape) != (2, 16) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"greedy_decode over frames: {toks}")
+    out["decode"] = decode_summary(params, fa, dev, sc.batch, cache_len, fill)
+    out["server"] = server_summary(params, fa, dev, sc)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"{elapsed()} serving 5d {cfg.name} decode and server: " + json.dumps(
+        {k: out[k] for k in ("prefill_memory", "greedy_decode", "decode", "server",
+                             "max_memory_allocated", "param_bytes") if k in out}), flush=True)
+    return out
+
+
+def av_cut_f32(dev, cfg, *, teacher=TEACHER_STEPS) -> dict:
+    """float32 checks of ``cfg`` on ``dev`` against the CPU: the prefill at
+    (1, ``AV_CUT_TOKENS``) with frames or patches; decode over ``teacher``
+    tokens at batch 2 (whisper after ``prefill_memory`` on the same frames)
+    against the prefill (teacher forcing; internvl2's over an empty patch
+    prefix, as decode takes no patches) and against the CPU's decode, step
+    logits and the whole state; equal ``Server`` tokens; for whisper equal
+    ``greedy_decode`` tokens over frames."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import ServeConfig, greedy_decode
+
+    fa = cfg.replace(attn_impl="pallas")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    cpu = torch.device("cpu")
+    params_cpu = _to(params, cpu)
+    out = {"param_bytes": _nbytes(params), "n_layers": cfg.n_layers}
+    one = av_inputs(cfg, 1, AV_CUT_TOKENS[cfg.family], seed=2, device=dev)
+    l_dev, _ = M.forward(params, fa, one)
+    l_cpu, _ = M.forward(params_cpu, fa, _to(one, cpu))
+    out["card_vs_cpu_f32_prefill"] = _check_close(f"{cfg.name} card vs cpu prefill", l_dev.cpu(),
+                                                  l_cpu, CARD_CPU_TOL)
+    del l_dev, l_cpu
+    two = av_inputs(cfg, SERVE_BATCH, teacher, seed=3, device=dev)
+    if cfg.family == "vlm":
+        two["patches"] = two["patches"][:, :0]
+    full, _ = M.forward(params, fa, two)
+    sides = ((params, dev), (params_cpu, cpu))  # the card's decode, then the CPU's
+    states = [M.init_decode_state(cfg, SERVE_BATCH, teacher, device=w) for _, w in sides]
+    if cfg.enc_dec:
+        for (p, w), state in zip(sides, states):
+            M.prefill_memory(p, fa, two["frames"].to(w), state)
+    steps = [[], []]
+    for t in range(teacher):
+        for i, (p, w) in enumerate(sides):
+            logits, states[i] = M.decode_step(p, fa, states[i], two["tokens"][:, t].to(w))
+            steps[i].append(logits)
+    got = torch.stack(steps[0], 1)
+    out["teacher_forcing_f32"] = _check_close(f"{cfg.name} decode vs prefill", got, full,
+                                              SERVE_F32_TOL)
+    out["teacher_forcing_f32"]["tokens"] = teacher
+    out["decode_card_vs_cpu_f32"] = _check_close(f"{cfg.name} decode card vs cpu", got.cpu(),
+                                                 torch.stack(steps[1], 1), CARD_CPU_TOL)
+    for key in ("k", "v", "xk", "xv"):
+        if key in states[1]:
+            _check_close(f"{cfg.name} decode state {key} card vs cpu", states[0][key].cpu(),
+                         states[1][key], CARD_CPU_TOL)
+    del full, got, steps, states
+    sc = ServeConfig(batch=4, cache_len=64, max_new=8, eos=-1)
+    server_prompts = _prompts(cfg.vocab, 6, 2, 7, seed=2)
+    done_dev, _, _, _ = run_server(params, fa, dev, sc, server_prompts)
+    done_cpu, _, _, _ = run_server(params_cpu, fa, cpu, sc, server_prompts)
+    out["server_tokens_equal"] = done_dev == done_cpu
+    if cfg.enc_dec:
+        prompt = torch.from_numpy(np.random.default_rng(4).integers(2, cfg.vocab, (2, 4)))
+        extras = {"frames": two["frames"].cpu()}
+        g_dev = greedy_decode(params, fa, prompt, max_new=8, cache_len=32, device=dev,
+                              extras=extras)
+        g_cpu = greedy_decode(params_cpu, fa, prompt, max_new=8, cache_len=32, device=cpu,
+                              extras=extras)
+        out["greedy_tokens_equal"] = bool(torch.equal(g_dev.cpu(), g_cpu))
+    print(f"{elapsed()} serving 5d {cfg.name} {cfg.n_layers} layers f32: " + json.dumps(out),
+          flush=True)
+    if not out["server_tokens_equal"]:
+        raise AssertionError(f"{cfg.name} server tokens differ: card {done_dev} cpu {done_cpu}")
+    if not out.get("greedy_tokens_equal", True):
+        raise AssertionError(f"{cfg.name} greedy_decode tokens differ: card {g_dev} cpu {g_cpu}")
+    return out
+
+
+def av_serving(dev) -> dict:
+    """Phase 5d (see the module docstring): returns its numbers."""
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch in ("whisper_tiny", "internvl2_1b"):
+        cfg = configs.get(arch)
+        torch.cuda.empty_cache()
+        out[cfg.name] = av_full(dev, cfg)
+        torch.cuda.empty_cache()
+        f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        if cfg.family == "vlm":
+            f32 = f32.replace(n_layers=CUT_LAYERS)
+        out[f"{cfg.name} f32"] = av_cut_f32(dev, f32)
+    torch.cuda.empty_cache()
+    out["launcher"] = run_launcher(AV_LAUNCHES, "5d")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"{elapsed()} serving 5d: audio and VLM families served in {out['wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
 # -- phase 6: timing of the model kernels ----------------------------------------
 
 
-# flash_attention's timing shapes (N, S, hd, n_rep): the olmo-1b prefill (2 x 16
-# heads) and the qwen3-moe prefill (2 x 32 query heads over 2 x 4 KV heads)
-FLASH_PREFILLS = {"olmo-1b": (SERVE_BATCH * 16, PROMPT_LEN, 128, 1),
-                  "qwen3-moe": (SERVE_BATCH * 32, PROMPT_LEN, 64, 8)}
+# flash_attention's timing shapes (N, S, hd, n_rep, causal): the olmo-1b
+# prefill (2 x 16 heads), the qwen3-moe prefill (2 x 32 query heads over 2 x 4
+# KV heads), whisper-tiny's encoder (2 x 6 heads over 1,500 frames, non-causal)
+# and the internvl2-1b prefill (2 x 14 on 2 x 2 KV heads, 256 patches + 2,048
+# tokens)
+FLASH_PREFILLS = {"olmo-1b": (SERVE_BATCH * 16, PROMPT_LEN, 128, 1, True),
+                  "qwen3-moe": (SERVE_BATCH * 32, PROMPT_LEN, 64, 8, True),
+                  "whisper-tiny encoder": (SERVE_BATCH * 6, 1500, 64, 1, False),
+                  "internvl2-1b": (SERVE_BATCH * 14, 256 + PROMPT_LEN, 64, 7, True)}
 
 
-def measure_flash_attention(n, s, hd, n_rep):
+def measure_flash_attention(n, s, hd, n_rep, causal=True):
     """``flash_attention`` (its tensor-core kernel) at a prefill's shape
-    (q (N, S, hd), k and v (N / n_rep, S, hd), bfloat16, causal) beside its
-    plain version and ``F.scaled_dot_product_attention`` (GQA for n_rep >
-    1; timed here only), with the rate of causal work and the share of the
-    bound each reaches, and (n_rep 1) the bfloat16 limit's power at this
-    shape."""
+    (q (N, S, hd), k and v (N / n_rep, S, hd), bfloat16) beside its plain
+    version and ``F.scaled_dot_product_attention`` (GQA for n_rep > 1;
+    timed here only), with the rate of the work (the causal half where
+    causal) and the share of the bound each reaches; where causal, the
+    kernel's non-causal time at the same shape, and (n_rep 1) the bfloat16
+    limit's power at this shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
 
     q, k, v = flash_operands(torch.device("cuda"), n, s, s, hd, n_rep, torch.bfloat16, seed=5)
-    got = flash_attention(q, k, v, n_rep=n_rep)
-    want = attention_ref(q, k, v, n_rep=n_rep)
+    got = flash_attention(q, k, v, causal=causal, n_rep=n_rep)
+    want = attention_ref(q, k, v, causal=causal, n_rep=n_rep)
     if not _allclose(got, want, *FLASH_TOL[torch.bfloat16]):
         raise AssertionError(f"flash_attention != plain at the prefill shape {q.shape}")
     err = float((got.float() - want.float()).abs().max())
-    power = flash_limit_power(q, k, v, got, want) if n_rep == 1 else None
+    power = flash_limit_power(q, k, v, got, want) if n_rep == 1 and causal else None
 
     def kernel(q, k, v):
-        return flash_attention(q, k, v, n_rep=n_rep)
+        return flash_attention(q, k, v, causal=causal, n_rep=n_rep)
 
     def plain(q, k, v):
-        return attention_ref(q, k, v, n_rep=n_rep)
+        return attention_ref(q, k, v, causal=causal, n_rep=n_rep)
 
     def library(q, k, v):
-        return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True,
+        return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=causal,
                                               enable_gqa=n_rep > 1)[0]
 
     lib_out = library(q, k, v)
@@ -3770,17 +4119,15 @@ def measure_flash_attention(n, s, hd, n_rep):
     ms, eager, cold = hot_and_cold_ms(kernel, ops, iters=20)
     plain_ms, _, plain_cold = hot_and_cold_ms(plain, ops, iters=10)
     lib_ms, _, lib_cold = hot_and_cold_ms(library, ops, iters=20)
-    # the same loop without the causal skip, masks and load imbalance: the
-    # rate of the kernel's steady state (twice the work)
-    full_ms, _ = time_ms(lambda: flash_attention(q, k, v, causal=False, n_rep=n_rep), iters=20)
     # q and k, v read once, out written once
     n_bytes = (2 * n + 2 * (n // n_rep)) * s * hd * 2
-    flops = 4 * n * hd * (s * (s + 1) // 2)  # q.k and p.v over the causal half
+    # q.k and p.v over the causal half, or over every (query, key) pair
+    flops = 4 * n * hd * (s * (s + 1) // 2 if causal else s * s)
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_PER_S * 1e3
     bound = max(bytes_ms, ops_ms)
-    return {
+    out = {
         "shape": {"N": n, "S": s, "T": s, "hd": hd, "n_rep": n_rep, "dtype": "bfloat16",
-                  "causal": True},
+                  "causal": causal},
         "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
         "plain_ms": plain_ms, "plain_cold_ms": plain_cold,
         "library_ms": lib_ms, "library_cold_ms": lib_cold,
@@ -3788,12 +4135,19 @@ def measure_flash_attention(n, s, hd, n_rep):
         "library_limit_share": lib_share,
         "tflops": flops / ms * 1e-9, "cold_tflops": flops / cold * 1e-9,
         "library_tflops": flops / lib_ms * 1e-9,
-        "noncausal_ms": full_ms, "noncausal_tflops": 4 * n * hd * s * s / full_ms * 1e-9,
         "bound_share": bound / ms, "cold_bound_share": bound / cold,
         "library_bound_share": bound / lib_ms,
         "bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         "bound_ms": bound, "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
     }
+    if causal:
+        # the same loop without the causal skip, masks and load imbalance: the
+        # rate of the kernel's steady state (twice the work)
+        full_ms, _ = time_ms(lambda: flash_attention(q, k, v, causal=False, n_rep=n_rep),
+                             iters=20)
+        out["noncausal_ms"] = full_ms
+        out["noncausal_tflops"] = 4 * n * hd * s * s / full_ms * 1e-9
+    return out
 
 
 def moe_bound(cw, eo, fp32_peak) -> dict:
@@ -4048,6 +4402,7 @@ def main() -> int:
     serving = serving_path(dev)
     moe_served = moe_serving(dev)
     ssm_served = ssm_serving(dev)
+    av_served = av_serving(dev)
 
     for pname in paths:
         name = f"cuda/{pname}"
@@ -4099,12 +4454,17 @@ def main() -> int:
         big = measure_per_block(name, largest, peak)
         print(f"{elapsed()} timing {name} largest group: " + json.dumps(big), flush=True)
     meas["flash_attention"] = measure_flash_attention(*FLASH_PREFILLS["olmo-1b"])
-    flash_moe = measure_flash_attention(*FLASH_PREFILLS["qwen3-moe"])
-    print(f"timing flash_attention qwen3-moe prefill: {json.dumps(flash_moe)}", flush=True)
-    meas["flash_attention"]["qwen3_moe_prefill"] = {
-        k: flash_moe[k] for k in ("shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
-                                  "library_ms", "bound_ms", "bound_by", "bound_share",
-                                  "library_bound_share", "tflops")}
+    flash_prefills = {}
+    for name, shape in FLASH_PREFILLS.items():
+        if name == "olmo-1b":
+            continue
+        m = measure_flash_attention(*shape)
+        print(f"timing flash_attention {name} prefill: {json.dumps(m)}", flush=True)
+        flash_prefills[name] = {
+            k: m[k] for k in ("shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
+                              "library_ms", "bound_ms", "bound_by", "bound_share",
+                              "library_bound_share", "tflops")}
+    meas["flash_attention"]["other_prefills"] = flash_prefills
     meas["moe_combine"] = measure_moe_combine(peak)
     floor = launch_floor()
     print(f"launch floor: {json.dumps(floor)} (an empty kernel, graph-replayed)", flush=True)
@@ -4116,19 +4476,27 @@ def main() -> int:
     print("serving: " + json.dumps(serving), flush=True)
     print("serving moe: " + json.dumps(moe_served), flush=True)
     print("serving ssm: " + json.dumps(ssm_served), flush=True)
+    print("serving av: " + json.dumps(av_served), flush=True)
     origin["flash_attention"] = ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:93", "prefill")
     origin["moe_combine"] = ("src/repro_torch/kernels/csrc/moe_combine.cu",
                              "src/repro/kernels/moe_combine.py:53", None)
     # launches on the main paths: the consume paths' runs, the prefills'
-    # (one a layer: olmo-1b 16, qwen3-moe 48, dbrx cut to 2 layers 2);
+    # (one a layer: olmo-1b 16, qwen3-moe 48, dbrx cut to 2 layers 2,
+    # whisper-tiny 4 + 4 and its prefill_memory 4, internvl2-1b 24);
     # moe_combine is on no path (op only; the reference's MoE never calls it)
     path_launches = {name: runs[run][2][name] for name, (_, _, run) in origin.items()
                      if run in runs}
     flash_by_path = {
         "olmo-1b prefill": serving["prefill_flash_attention_launches"],
         "qwen3-moe prefill": moe_served["qwen3-moe"]["prefill"]["prefill_flash_attention_launches"],
-        "dbrx prefill": moe_served["dbrx cut"]["prefill"]["prefill_flash_attention_launches"]}
+        "dbrx prefill": moe_served["dbrx cut"]["prefill"]["prefill_flash_attention_launches"],
+        "whisper-tiny prefill": av_served["whisper-tiny"]["prefill"][
+            "prefill_flash_attention_launches"],
+        "whisper-tiny prefill_memory": av_served["whisper-tiny"]["prefill_memory"][
+            "flash_attention_launches"],
+        "internvl2-1b prefill": av_served["internvl2-1b"]["prefill"][
+            "prefill_flash_attention_launches"]}
     path_launches["flash_attention"] = sum(flash_by_path.values())
     path_launches["moe_combine"] = 0
     kernels = []
@@ -4142,7 +4510,7 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
     kernels[[k["name"] for k in kernels].index("flash_attention")].update(
-        launches_by_path=flash_by_path, qwen3_moe_prefill=meas["flash_attention"]["qwen3_moe_prefill"])
+        launches_by_path=flash_by_path, other_prefills=flash_prefills)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ Counterpart of ``repro.models.attention``.  The training path avoids
 materialising repeated KV heads: queries are reshaped to (B, S, G, Hg, hd)
 where G = n_kv_heads groups, so scores contract against the (B, T, G, hd)
 keys directly.  Sliding-window archs apply a band mask in training and keep
-a rolling window cache in decode.
+a rolling window cache in decode.  Cross-attention (the whisper decoder
+over projected encoder memory) takes the dense path, as in the reference.
 
 ``cfg.attn_impl`` picks the full-sequence algorithm: ``"dense"`` (the whole
 score matrix), ``"chunked"`` (online softmax over key chunks) or
@@ -29,6 +30,8 @@ __all__ = [
     "attention_train",
     "attention_decode",
     "init_kv_cache",
+    "cross_attention",
+    "project_memory",
 ]
 
 NEG_INF = -1e9
@@ -229,3 +232,36 @@ def attention_decode(
     out = _sdpa(q, cache_k, cache_v, mask, cfg)
     out = torch.matmul(out, p["wo"].to(cfg.cdtype))
     return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(
+    p: Params,
+    x: torch.Tensor,  # (B, S, D) decoder activations
+    mem_k: torch.Tensor,  # (B, T, KV, hd) projected encoder keys
+    mem_v: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Attention of the decoder's x over the projected encoder memory, no
+    mask (every query sees every frame); the dense path whatever
+    ``cfg.attn_impl`` is, as in the reference (S != T)."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = torch.matmul(x, p["wq"].to(cfg.cdtype)).reshape(B, S, H, hd)
+    out = _sdpa(q, mem_k, mem_v, None, cfg)
+    return torch.matmul(out, p["wo"].to(cfg.cdtype))
+
+
+def project_memory(p: Params, mem: torch.Tensor,
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output (B, T, D) projected once to K, V (B, T, KV, hd);
+    reused by every decode step."""
+    B, T, _ = mem.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    k = torch.matmul(mem, p["wk"].to(cfg.cdtype)).reshape(B, T, KV, hd)
+    v = torch.matmul(mem, p["wv"].to(cfg.cdtype)).reshape(B, T, KV, hd)
+    return k, v

@@ -1,34 +1,52 @@
-"""The model zoo's dense, MoE, SSM and hybrid families: one functional
-model over plain parameter dicts.
+"""The model zoo's six families: one functional model over plain
+parameter dicts.
 
-Counterpart of ``repro.models.model`` for ``family == "dense"`` (olmo-1b,
-llama3-405b, phi3-medium-14b, stablelm-1.6b; sliding windows included),
-``family == "moe"`` (qwen3-moe-30b-a3b, dbrx-132b: the FFN is
-:func:`repro_torch.models.moe.moe_apply`), ``family == "ssm"`` (rwkv6-3b:
-RWKV-6 time and channel mix, :mod:`repro_torch.models.ssm`) and ``family ==
-"hybrid"`` (hymba-1.5b: windowed attention and Mamba heads in parallel,
-mean-fused).  The reference scans stacked layers with ``lax.scan``; here
-``params["layers"]`` is a list of per-layer dicts and the layers run in a
-Python loop.  The remat and sharding knobs are training-only and not
-ported.  The other families raise :class:`NotImplementedError` naming the
-ROADMAP item that ports them.
+Counterpart of ``repro.models.model`` for every family of ``configs``:
+``"dense"`` (olmo-1b, llama3-405b, phi3-medium-14b, stablelm-1.6b; sliding
+windows included), ``"moe"`` (qwen3-moe-30b-a3b, dbrx-132b: the FFN is
+:func:`repro_torch.models.moe.moe_apply`), ``"ssm"`` (rwkv6-3b: RWKV-6 time
+and channel mix, :mod:`repro_torch.models.ssm`), ``"hybrid"`` (hymba-1.5b:
+windowed attention and Mamba heads in parallel, mean-fused), ``"audio"``
+(whisper-tiny: a non-causal encoder over stubbed conv-frontend frames, and
+decoder layers that cross-attend its output) and ``"vlm"`` (internvl2-1b:
+stubbed ViT patch embeddings prefix the text, causal over both).  The
+reference scans stacked layers with ``lax.scan``; here ``params["layers"]``
+(and ``params["enc_layers"]``) is a list of per-layer dicts and the layers
+run in a Python loop.  The remat and sharding knobs are training-only and
+not ported.
 
 Entry points: ``init_params``, ``forward`` (logits; the serving prefill),
-``init_decode_state`` / ``decode_step`` (single-token serving).  Parameters
-keep the reference's layout, so :func:`repro_torch.core.convert.
-params_from_jax` carries the reference's weights across unchanged.
+``init_decode_state`` / ``prefill_memory`` (whisper: the encoder's K/V
+into the cache) / ``decode_step`` (single-token serving).  Parameters keep
+the reference's layout, so :func:`repro_torch.core.convert.params_from_jax`
+carries the reference's weights across unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..core.dmm_torch import DeviceLike, resolve_device
-from .attention import attention_decode, attention_train, attn_params, init_kv_cache
+from .attention import (
+    attention_decode,
+    attention_train,
+    attn_params,
+    cross_attention,
+    init_kv_cache,
+    project_memory,
+)
 from .config import ModelConfig
-from .layers import apply_mlp, apply_norm, embed_params, lm_logits, mlp_params, norm_params
+from .layers import (
+    apply_mlp,
+    apply_norm,
+    embed_params,
+    lm_logits,
+    mlp_params,
+    norm_params,
+    trunc_normal,
+)
 from .moe import moe_apply, moe_ffn, moe_params
 from .ssm import (
     mamba_decode,
@@ -47,22 +65,9 @@ __all__ = [
     "init_params",
     "forward",
     "init_decode_state",
+    "prefill_memory",
     "decode_step",
 ]
-
-# The families a later slice ports, with the ROADMAP queue 1 item that does.
-_UNPORTED = {
-    "audio": "item 14.5 (audio family)",
-    "vlm": "item 14.6 (vlm family)",
-}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        where = _UNPORTED.get(cfg.family, "no item")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP queue 1 {where})"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +96,20 @@ def _layer_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
         p["moe"] = moe_params(gen, cfg)
     else:
         p["mlp"] = mlp_params(gen, cfg)
+    if cfg.enc_dec:  # the decoder layer gains cross-attention
+        p["norm_x"] = norm_params(cfg, dev)
+        p["xattn"] = attn_params(gen, cfg)
     return p
+
+
+def _enc_layer_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    dev = gen.device
+    return {
+        "norm1": norm_params(cfg, dev),
+        "attn": attn_params(gen, cfg),
+        "norm2": norm_params(cfg, dev),
+        "mlp": mlp_params(gen, cfg),
+    }
 
 
 def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0, *,
@@ -99,20 +117,27 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0, *,
     """Random parameters for ``cfg`` on ``device`` (the card by default;
     raises when there is none).  ``generator`` is a :class:`torch.Generator`
     on that device, or an int that seeds a new one.  The draws come in a
-    fixed order (embeddings, then each layer, then the final norm), so one
-    seed on one device always gives the same parameters; they are not the
-    reference's ``PRNGKey`` draws (use ``params_from_jax`` for those)."""
-    _require_ported(cfg)
+    fixed order (embeddings, then each layer, then the final norm; for an
+    encoder-decoder then each encoder layer and the encoder positions), so
+    one seed on one device always gives the same parameters; they are not
+    the reference's ``PRNGKey`` draws (use ``params_from_jax`` for
+    those)."""
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on {dev}")
-    return {
+    params = {
         "embed": embed_params(generator, cfg),
         "layers": [_layer_params(generator, cfg) for _ in range(cfg.n_layers)],
         "final_norm": norm_params(cfg, dev),
     }
+    if cfg.enc_dec:
+        params["enc_layers"] = [_enc_layer_params(generator, cfg)
+                                for _ in range(cfg.enc_layers)]
+        params["enc_final_norm"] = norm_params(cfg, dev)
+        params["enc_pos"] = trunc_normal(generator, (cfg.enc_seq, cfg.d_model), 1.0, cfg.pdtype)
+    return params
 
 
 def params_device(params: Dict[str, Any]) -> torch.device:
@@ -126,9 +151,12 @@ def params_device(params: Dict[str, Any]) -> torch.device:
 
 
 def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
-                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                   cfg: ModelConfig, memory: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer.  Returns (x, aux_loss): the MoE router's load-balance
-    loss, a float32 zero for the other families."""
+    loss, a float32 zero for the other families.  ``memory``: the raw
+    encoder output of an encoder-decoder, which the layer projects with its
+    own cross-attention weights."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         h, _ = rwkv_train(lp["tm"], apply_norm(lp["ln1"], x, cfg), cfg, impl=cfg.rwkv_impl)
@@ -143,6 +171,9 @@ def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
         x = x + 0.5 * (attn_out + ssm_out)  # mean-fused parallel heads (Hymba)
     else:
         x = x + attn_out
+    if memory is not None:
+        mem_k, mem_v = project_memory(lp["xattn"], memory, cfg)
+        x = x + cross_attention(lp["xattn"], apply_norm(lp["norm_x"], x, cfg), mem_k, mem_v, cfg)
     xn2 = apply_norm(lp["norm2"], x, cfg)
     if cfg.is_moe:
         ff, aux = moe_apply(lp["moe"], xn2, cfg)
@@ -152,6 +183,9 @@ def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
 
 
 def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The token rows, then (learned positions, the encoder-decoder's
+    included) the position rows, each cast to the compute dtype: the
+    reference's order, which adds the encoder-decoder's in ``forward``."""
     x = params["embed"]["tok"][tokens.long()].to(cfg.cdtype)
     if cfg.pos == "learned":
         S = tokens.shape[1]
@@ -159,19 +193,40 @@ def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
     return x
 
 
+def _encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The whisper encoder over stubbed conv-frontend frames (B, enc_seq,
+    D): learned positions, pre-norm layers of non-causal self-attention
+    (``flash_attention`` with ``attn_impl="pallas"``) and the MLP, then
+    the final norm."""
+    x = frames.to(cfg.cdtype) + params["enc_pos"][None].to(cfg.cdtype)
+    positions = torch.arange(frames.shape[1], device=x.device)[None]
+    for lp in params["enc_layers"]:
+        hn = apply_norm(lp["norm1"], x, cfg)
+        x = x + attention_train(lp["attn"], hn, positions, cfg, causal=False)
+        x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+    return apply_norm(params["enc_final_norm"], x, cfg)
+
+
 def forward(params: Dict[str, Any], cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V_pad), aux_loss) for ``batch["tokens"]``
     (B, S) on the parameters' device.  ``aux_loss`` is the float32 sum of
     the layers' router load-balance losses, as the reference's layer scan
-    sums them; a zero for the other families."""
-    _require_ported(cfg)
+    sums them; a zero for the other families.
+
+    An encoder-decoder also takes ``batch["frames"]`` (B, enc_seq, D); the
+    vlm family ``batch["patches"]`` (B, P, D), cast to the compute dtype
+    and put before the text, so the logits are (B, P + S, V_pad) with the
+    patch positions kept, as in the reference."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
+    memory = _encode(params, batch["frames"], cfg) if cfg.enc_dec else None
     auxs = []
     for lp in params["layers"]:
-        x, aux = _decoder_layer(lp, x, positions, cfg)
+        x, aux = _decoder_layer(lp, x, positions, cfg, memory)
         auxs.append(aux)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["embed"], x, cfg)
@@ -193,8 +248,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
     matrices in float32 and the two token-shift inputs), the hybrid family
     a rolling KV window beside the Mamba state (``"mamba"``: ``h`` and the
     conv tail, float32).  ``state["pos"]`` is a host int, one position for
-    the whole batch, as in the reference."""
-    _require_ported(cfg)
+    the whole batch, as in the reference.  An encoder-decoder's cache also
+    holds the cross-attention memory ``"xk"`` / ``"xv"`` (L, B, enc_seq,
+    KV, hd), zeros until :func:`prefill_memory` writes them."""
     dev = resolve_device(device)
     L = cfg.n_layers
     if cfg.family == "ssm":
@@ -203,6 +259,26 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
     state = {"pos": 0, **init_kv_cache(cfg, batch, kv_len, L, dev)}
     if cfg.family == "hybrid":
         state["mamba"] = mamba_init_state(cfg, batch, L, dev)
+    if cfg.enc_dec:
+        memory = init_kv_cache(cfg, batch, cfg.enc_seq, L, dev)
+        state["xk"], state["xv"] = memory["k"], memory["v"]
+    return state
+
+
+def prefill_memory(params: Dict[str, Any], cfg: ModelConfig, frames: torch.Tensor,
+                   state: Dict[str, Any]) -> Dict[str, Any]:
+    """Whisper: run the encoder once over ``frames`` (B, enc_seq, D) and
+    write each decoder layer's projected cross K/V into ``state["xk"]`` /
+    ``["xv"]`` IN PLACE (the reference returns new arrays); returns the
+    state."""
+    enc = _encode(params, frames, cfg)
+    for layer, lp in enumerate(params["layers"]):
+        k, v = project_memory(lp["xattn"], enc, cfg)
+        if k.shape != state["xk"][layer].shape:
+            raise ValueError(f"memory K/V {tuple(k.shape)} do not fit the cache's "
+                             f"{tuple(state['xk'][layer].shape)}")
+        state["xk"][layer].copy_(k)
+        state["xv"][layer].copy_(v)
     return state
 
 
@@ -232,8 +308,8 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, state: Dict[str, Any],
     K/V are written into the caches in place (see
     :func:`~repro_torch.models.attention.attention_decode`), and the ssm and
     Mamba states are overwritten with the next ones, so a state is not
-    reusable after the step that consumed it."""
-    _require_ported(cfg)
+    reusable after the step that consumed it.  An encoder-decoder's layers
+    cross-attend ``state["xk"]`` / ``["xv"]``, which carry over unchanged."""
     pos = state["pos"]
     x = params["embed"]["tok"][token.long()[:, None]].to(cfg.cdtype)
     if cfg.pos == "learned":
@@ -255,6 +331,9 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, state: Dict[str, Any],
             mc.copy_(ns["conv"])
         else:
             x = x + attn_out
+        if cfg.enc_dec:
+            x = x + cross_attention(lp["xattn"], apply_norm(lp["norm_x"], x, cfg),
+                                    state["xk"][layer], state["xv"][layer], cfg)
         hn2 = apply_norm(lp["norm2"], x, cfg)
         x = x + (moe_ffn(lp["moe"], hn2, cfg) if cfg.is_moe else apply_mlp(lp["mlp"], hn2, cfg))
     x = apply_norm(params["final_norm"], x, cfg)

@@ -14,7 +14,10 @@ tokens equal the reference's:
   cache write slot, clamped at ``cache_len - 1``) advances on every step;
 - a slot is prefilled by stepping the whole batch once per prompt token, so
   during another slot's prefill an active slot is fed its last token again;
-- the last prompt token is fed once more by the first decode step.
+- the last prompt token is fed once more by the first decode step;
+- a :class:`Server` takes no frames: an encoder-decoder's server decodes
+  against the zero cross-attention memory of ``init_decode_state`` (a
+  uniform softmax over zero values, so cross-attention adds 0).
 
 Prefill for a real deployment is the full-sequence ``forward``
 (:func:`repro_torch.models.model.forward` with ``attn_impl="pallas"``).
@@ -73,14 +76,20 @@ def greedy_decode(
     max_new: int = 16,
     cache_len: int = 256,
     device: DeviceLike = "cuda",
+    extras: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Prefill by stepping the prompt, then decode greedily.  Returns
     (B, max_new) int32 generated tokens on ``device`` (the card by default;
-    the parameters must live there)."""
+    the parameters must live there).  An encoder-decoder first encodes
+    ``extras["frames"]`` (B, enc_seq, D), moved to that device, into the
+    cache's cross-attention memory (:func:`~repro_torch.models.model.
+    prefill_memory`)."""
     dev = _on_device(params, device)
     B, S0 = prompt.shape
     prompt = prompt.to(dev)
     state = M.init_decode_state(cfg, B, cache_len, device=dev)
+    if cfg.enc_dec:
+        state = M.prefill_memory(params, cfg, extras["frames"].to(dev), state)
     step = make_serve_step(cfg)
     tok = prompt[:, 0]
     for t in range(1, S0):  # prefill token-by-token (exactness over speed)

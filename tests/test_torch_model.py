@@ -192,13 +192,37 @@ def test_trunc_normal_cuts_at_two_standard_deviations():
     assert abs(float(x.std()) * 64 - 0.8796) < 0.01  # a normal cut at +-2 sigma
 
 
-def test_other_families_raise_naming_their_roadmap_item():
-    for arch, item in [("whisper_tiny", "14.5"), ("internvl2_1b", "14.6")]:
-        cfg = TC.get_smoke(arch)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            TM.init_params(cfg, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            TM.init_decode_state(cfg, 2, 8, device="cpu")
+def _leaf_shapes(tree, stacked=(), prefix=(), drop=False):
+    """{path: (shape, dtype name)} of a parameter or state tree; the
+    reference's stacked entries (``stacked``) without their leading layer
+    axis, the port's per-layer lists by their first layer."""
+    out = {}
+    for key, v in tree.items():
+        path = (*prefix, key)
+        if isinstance(v, list):
+            out.update(_leaf_shapes(v[0], prefix=path))
+        elif isinstance(v, dict):
+            out.update(_leaf_shapes(v, prefix=path, drop=drop or key in stacked))
+        else:
+            shape = tuple(v.shape)[1 if drop else 0:]
+            out[path] = (shape, str(v.dtype).removeprefix("torch."))
+    return out
+
+
+@pytest.mark.parametrize("arch", RC.ARCHS)
+def test_every_arch_builds_params_and_decode_state_as_the_reference(arch):
+    """No family raises: every smoke config's parameters and decode state
+    on the CPU have the reference's keys, shapes and dtypes."""
+    rcfg, tcfg = RC.get_smoke(arch), TC.get_smoke(arch)
+    tp = TM.init_params(tcfg, 0, device="cpu")
+    assert len(tp["layers"]) == tcfg.n_layers
+    assert _leaf_shapes(tp) == _leaf_shapes(RM.init_params(rcfg, KEY),
+                                            stacked=("layers", "enc_layers"))
+    rstate = RM.init_decode_state(rcfg, 2, 8)
+    tstate = TM.init_decode_state(tcfg, 2, 8, device="cpu")
+    assert set(tstate) == set(rstate) and tstate["pos"] == 0
+    assert _leaf_shapes({k: v for k, v in tstate.items() if k != "pos"}) == _leaf_shapes(
+        {k: v for k, v in rstate.items() if k != "pos"})
 
 
 def test_entry_points_default_to_the_card():
