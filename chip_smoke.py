@@ -3,9 +3,10 @@
 its streaming pipeline, cluster and initial load, its replicated control
 plane (leader and follower processes on the card), its olmo-1b server,
 alone and fed by the pipeline, its MoE family (qwen3-moe-30b-a3b,
-dbrx-132b), its SSM and hybrid families (rwkv6-3b, hymba-1.5b) and its
-audio and VLM families (whisper-tiny, internvl2-1b) on one NVIDIA card and
-check them.
+dbrx-132b), its SSM and hybrid families (rwkv6-3b, hymba-1.5b), its
+audio and VLM families (whisper-tiny, internvl2-1b) and its training path
+(olmo-1b fed by METL, every family's train step against the CPU) on one
+NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -283,7 +284,35 @@ failure raises and the script exits non-zero):
    a multiple of it (``floor_multiple`` in its ``timing`` line); time
    ``segmented_gather``, ``densify_map`` and their shard kernels also on an
    8,192-event chunk after the evolution (the ``timing ... 8192`` lines,
-   bit for bit against the plain version there too).
+   bit for bit against the plain version there too);
+7. (run after 5d, before 6's timing) train (``training`` lines, each naming
+   the card and its power limit, then the ``training:`` JSON line): (a)
+   olmo-1b at full width and depth (16 layers, d_model 2048, tied vocab
+   50,304; bfloat16, remat "full", dense attention) through
+   ``repro_torch.train.loop.train(batch_fn=...)``, the batches (8, 2048)
+   from the reference's ``examples/etl_train.py`` feed on the card (an
+   async ``Pipeline`` of the paper's scenario through ``METLApp``, fused
+   engine and host densify, into ``BatcherSink(CanonicalBatcher)``), 1
+   warm-up and 5 timed steps: step time (median, min-max, less the feed's
+   time), tokens/s, ``max_memory_allocated``, the FLOP bound at 989
+   TFLOP/s (6 N T plus the dense attention's, and with full remat's second
+   forward) and its share, the feed's host time a batch, ``adamw_update``
+   timed alone; the launch counts zeroed just before ``train`` and read
+   just after (the feed's ``segmented_gather``, one a chunk, and no other
+   kernel); every loss finite, 10 steps on one fixed batch lower the loss,
+   and the feed's first 2 batches equal a CPU feed's token for token; (b)
+   each family at full width in float32 with TF32 off, cut to 2 layers
+   (whisper-tiny at full depth), (2, 128) tokens: the loss and every
+   gradient leaf of the first ``make_train_step`` on the card against the
+   CPU, then the parameters and moments after 3 steps (atol and rtol
+   1e-4; a parameter may leave that only as one of at most 1e-5 of the
+   elements, within 2 lr a step: Adam's normalised step flips where a
+   gradient is at float32 noise); (c) ``train`` on the card writes a
+   checkpoint (the olmo smoke config, bfloat16 parameters and moments)
+   that restores on the CPU bit for bit, and ``train`` restarted from it
+   runs on to the end step; (d) a backward through ``attention_train``
+   with ``attn_impl="pallas"`` on the card raises the port's
+   ``NotImplementedError`` before any ``flash_attention`` launch.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -293,6 +322,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import gc
 import json
 import math
 import os
@@ -4065,6 +4095,407 @@ def av_serving(dev) -> dict:
     return out
 
 
+# -- phase 7: training ------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048  # (a): olmo-1b batches from the METL feed
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FIXED = 1, 5, 10  # (a): steps
+TRAIN_FEED_CHECKED = 2  # (a): the card's first batches held against the CPU feed's
+TRAIN_OPT_REPS = 3  # (a): adamw_update timed alone
+# (b): each family at full width, float32, cut to 2 layers (whisper-tiny at
+# full depth), the batch (B, S) and the steps compared
+TRAIN_CUT_ARCHS = ("olmo_1b", "qwen3_moe_30b_a3b", "rwkv6_3b", "hymba_1_5b", "whisper_tiny",
+                   "internvl2_1b")
+TRAIN_CUT_LAYERS = 2
+TRAIN_CUT_SHAPE = (2, 128)
+TRAIN_CUT_STEPS = 3
+TRAIN_CUT_TOL = (1e-4, 1e-4)  # atol, rtol: loss, gradients, parameters and moments
+# (b): after 3 AdamW steps at most this share of a family's parameters may
+# lie outside TRAIN_CUT_TOL, each within 2 lr a step: where a gradient is at
+# float32 noise, Adam's normalised step is +-lr either way
+TRAIN_FLIP_SHARE = 1e-5
+TRAIN_CKPT_STEPS = (3, 5)  # (c): the checkpoint's step, and the restarted run's end
+BF16_DENSE_PEAK = 989e12  # H100 SXM bf16 dense tensor-core FLOP/s, NVIDIA's data sheet
+
+
+class TrainFeed:
+    """The reference's ``examples/etl_train.py`` feed: a CDC stream of the
+    paper's scenario through ``EventChunkSource -> METLApp -> BatcherSink(
+    CanonicalBatcher)`` on an async ``Pipeline`` (fused engine, host
+    densify: one ``segmented_gather`` launch a chunk on the card).  Called
+    with a step, it pulls until a batch is ready and returns it; it keeps
+    the host seconds each batch took and copies of the first ``keep``."""
+
+    def __init__(self, device, vocab, seq_len, batch_size, keep=TRAIN_FEED_CHECKED):
+        from repro_torch.core.state import StateCoordinator
+        from repro_torch.core.synthetic import build_scenario
+        from repro_torch.etl import (BatcherSink, CanonicalBatcher, EventChunkSource,
+                                     EventSource, METLApp, Pipeline)
+
+        sc = build_scenario(_paper_config())
+        self.app = METLApp(StateCoordinator(sc.registry, sc.dpm), device=device)
+        self.batcher = CanonicalBatcher(vocab=vocab, seq_len=seq_len, batch_size=batch_size)
+        self.pipe = Pipeline(
+            EventChunkSource(EventSource(sc.registry, seed=0, p_duplicate=0.05),
+                             chunk_size=CHUNK_EVENTS),
+            self.app, [BatcherSink(self.batcher)], async_consume=True)
+        self.keep, self.first, self.seconds = keep, [], []
+
+    def __call__(self, step):
+        t0 = time.perf_counter()
+        while not self.batcher.ready():
+            self.pipe.run()
+        batch = self.batcher.next_batch()
+        self.seconds.append(time.perf_counter() - t0)
+        if len(self.first) < self.keep:
+            self.first.append({k: v.copy() for k, v in batch.items()})
+        return batch
+
+    def close(self):
+        self.pipe.close()
+
+
+def train_flop_bound(cfg, batch, seq) -> dict:
+    """FLOPs of one training step of a dense decoder, and their time at the
+    bf16 dense peak: 6 N T (N the parameters, the tied head's product
+    counted once through the embedding) plus the dense attention's score
+    and value products, 4 B S^2 D a layer forward (the full S x S matrix,
+    as the dense path computes it) and twice that backward; with full
+    remat the layers' forward once more (2 N_layers T and the attention's
+    forward)."""
+    tokens = batch * seq
+    n = cfg.param_count()
+    n_layers = n - cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    attn_fwd = 4 * batch * seq * seq * cfg.d_model * cfg.n_layers
+    flops = 6 * n * tokens + 3 * attn_fwd
+    remat = flops + 2 * n_layers * tokens + attn_fwd
+    return {"params": n, "layer_params": n_layers, "tokens": tokens, "flop": flops,
+            "flop_with_remat": remat, "peak_flop_per_s": BF16_DENSE_PEAK,
+            "bound_s": flops / BF16_DENSE_PEAK, "bound_with_remat_s": remat / BF16_DENSE_PEAK}
+
+
+def train_olmo_etl(dev, cfg=None, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> dict:
+    """Phase 7 (a): ``train(batch_fn=TrainFeed(...))`` of olmo-1b at full
+    width and depth in bfloat16 (remat "full", dense attention) on ``dev``,
+    1 warm-up and ``TRAIN_TIMED`` timed steps; then ``adamw_update`` timed
+    alone, ``TRAIN_FIXED`` steps on the first batch (the loss must fall)
+    and the first batches of a CPU feed against the card's (equal tokens).
+    The launch counts are zeroed just before ``train`` and read just
+    after: the feed's ``segmented_gather`` and no other kernel."""
+    from repro_torch import configs
+    from repro_torch.train import loop as L
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+
+    cfg = cfg or configs.get("olmo_1b")
+    on_card = torch.device(dev).type == "cuda"
+    tc = L.TrainConfig(steps=TRAIN_WARMUP + TRAIN_TIMED, batch=batch, seq=seq, log_every=1,
+                       opt=AdamWConfig(warmup_steps=1))
+    feed = TrainFeed(dev, cfg.vocab, seq, batch)
+    marks = []
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    out = L.train(cfg, tc, batch_fn=feed, device=dev,
+                  on_step=lambda step, m: marks.append(time.perf_counter()))
+    _sync()
+    launches = _launch_counts()
+    dispatches = feed.app.stats["dispatches"]
+    feed.close()
+    want = {n: (dispatches if n == "segmented_gather" and on_card else 0) for n in KERNEL_NAMES}
+    if launches != want or dispatches < 1:
+        raise AssertionError(f"training feed launches {launches}, want {want}")
+    losses = [m["loss"] for m in out["history"]]
+    if len(losses) != tc.steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses {losses}")
+    # a step: from one on_step to the next, less the feed's time for the batch
+    steps_s = [b - a - feed.seconds[i + 1] for i, (a, b) in enumerate(zip(marks, marks[1:]))]
+    timed = steps_s[TRAIN_WARMUP - 1:]
+    res = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "vocab_padded": cfg.vocab_padded, "dtype": cfg.param_dtype,
+                      "remat": cfg.remat, "attn_impl": cfg.attn_impl,
+                      "batch": batch, "seq": seq},
+           "wall_s": time.perf_counter() - t0, "losses": losses,
+           "step_s": {"median": statistics.median(timed), "min": min(timed),
+                      "max": max(timed), "all": timed},
+           "etl_s_per_batch": {"median": statistics.median(feed.seconds),
+                               "min": min(feed.seconds), "max": max(feed.seconds)},
+           "etl_chunks": dispatches, "etl_rows": feed.app.stats.get("mapped", 0),
+           "launches": launches}
+    res["tokens_per_s"] = batch * seq / res["step_s"]["median"]
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated() if on_card else None
+    res["bound"] = train_flop_bound(cfg, batch, seq)
+    res["bound_share"] = res["bound"]["bound_s"] / res["step_s"]["median"]
+    res["bound_with_remat_share"] = res["bound"]["bound_with_remat_s"] / res["step_s"]["median"]
+
+    # the optimizer alone, on the last step's gradients
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    first = {k: torch.as_tensor(v).to(dev) for k, v in feed.first[0].items()}
+    _, grads = L.value_and_grad(params, cfg, first)
+    opt_times = []
+    for _ in range(TRAIN_OPT_REPS):
+        _sync()
+        t1 = time.perf_counter()
+        upd = adamw_update(grads, opt_state, params, tc.opt)
+        _sync()
+        opt_times.append(time.perf_counter() - t1)
+        del upd
+    del grads
+    res["adamw_update_s"] = {"median": statistics.median(opt_times), "min": min(opt_times),
+                             "max": max(opt_times)}
+    res["adamw_share_of_step"] = res["adamw_update_s"]["median"] / res["step_s"]["median"]
+    res["etl_share_of_step"] = (res["etl_s_per_batch"]["median"]
+                                / (res["etl_s_per_batch"]["median"] + res["step_s"]["median"]))
+
+    # the loss falls over TRAIN_FIXED steps on one fixed batch
+    step_fn = L.make_train_step(cfg, tc)
+    fixed = []
+    for _ in range(TRAIN_FIXED):
+        params, opt_state, m = step_fn(params, opt_state, first)
+        fixed.append(float(m["loss"]))
+    del params, opt_state
+    if not all(math.isfinite(x) for x in fixed) or not fixed[-1] < fixed[0]:
+        raise AssertionError(f"{TRAIN_FIXED} steps on one batch did not lower the loss: {fixed}")
+    res["fixed_batch_losses"] = fixed
+
+    # the feed on the CPU gives the same first batches, token for token
+    cpu_feed = TrainFeed("cpu", cfg.vocab, seq, batch)
+    for i in range(TRAIN_FEED_CHECKED):
+        got, want_b = feed.first[i], cpu_feed(i)
+        for k in ("tokens", "labels", "loss_weight"):
+            if not np.array_equal(got[k], want_b[k]):
+                raise AssertionError(f"feed batch {i} {k}: card != cpu")
+    cpu_feed.close()
+    res["feed_batches_equal_cpu"] = TRAIN_FEED_CHECKED
+    return res
+
+
+def _cut_config(arch):
+    from repro_torch import configs
+
+    cfg = configs.get(arch).replace(param_dtype="float32", compute_dtype="float32")
+    return cfg if cfg.enc_dec else cfg.replace(n_layers=TRAIN_CUT_LAYERS)
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat_leaves(sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _flat_leaves(sub, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def _tree_close(name, got, want, tol, *, flips=None) -> dict:
+    """Every leaf of ``got`` (on the card) within ``tol`` of ``want`` (on the
+    CPU), compared on ``got``'s device, a leaf at a time.  With
+    ``flips=(share, most)``, up to ``share`` of the elements may lie
+    outside it, each within ``most``.  Returns the largest difference and
+    the count outside."""
+    worst, outside, total = 0.0, 0, 0
+    g_leaves, w_leaves = _flat_leaves(got), _flat_leaves(want)
+    if sorted(g_leaves) != sorted(w_leaves):
+        raise AssertionError(f"{name}: the trees differ in structure")
+    for path, w in w_leaves.items():
+        g = g_leaves[path].detach().float()
+        w = w.detach().to(g.device).float()
+        d = (g - w).abs()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} {path}: not finite")
+        bad = d > tol[0] + tol[1] * w.abs()
+        n_bad = int(bad.sum())
+        if n_bad and (flips is None or float(d[bad].max()) > flips[1]):
+            raise AssertionError(f"{name} {path}: {n_bad} elements outside atol={tol[0]} "
+                                 f"rtol={tol[1]}, the largest {float(d.max())}")
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        outside += n_bad
+        total += d.numel()
+    if flips is not None and outside > flips[0] * total:
+        raise AssertionError(f"{name}: {outside} of {total} elements outside atol={tol[0]} "
+                             f"rtol={tol[1]}")
+    return {"max_abs_err": worst, "outside": outside, "elements": total}
+
+
+@contextlib.contextmanager
+def first_gradients():
+    """Records the gradients that ``make_train_step`` hands to
+    ``adamw_update`` on its first call inside the block (``first["grads"]``;
+    the caller appends the step's loss to ``first["loss"]``)."""
+    from repro_torch.train import loop as L
+
+    first = {"grads": None, "loss": []}
+    update = L.adamw_update
+
+    def recording(grads, *args, **kwargs):
+        if first["grads"] is None:
+            first["grads"] = grads
+        return update(grads, *args, **kwargs)
+
+    L.adamw_update = recording
+    try:
+        yield first
+    finally:
+        L.adamw_update = update
+
+
+def train_card_vs_cpu(dev, arch, cfg=None, *, shape=None) -> dict:
+    """Phase 7 (b): one family at full width (``_cut_config``), float32 with
+    TF32 off, seeded random weights drawn on ``dev`` and copied to the CPU,
+    ``make_token_batch``'s batch of ``shape`` (``TRAIN_CUT_SHAPE``): the
+    loss and every gradient
+    leaf of the first ``make_train_step`` call (:func:`first_gradients`),
+    then the parameters and moments after ``TRAIN_CUT_STEPS`` calls, on the
+    card against the CPU."""
+    from repro_torch.etl.batcher import make_token_batch
+    from repro_torch.models import model as M
+    from repro_torch.train import loop as L
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    cfg = cfg or _cut_config(arch)
+    shape = shape or TRAIN_CUT_SHAPE
+    tc = L.TrainConfig(batch=shape[0], seq=shape[1], opt=AdamWConfig(warmup_steps=1))
+    t0 = time.perf_counter()
+    p_dev = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    p_cpu = _to(p_dev, "cpu")
+    nb = make_token_batch(cfg, shape[0], shape[1], seed=0)
+    b_cpu = {k: torch.from_numpy(np.asarray(v)) for k, v in nb.items()}
+    b_dev = _to(b_cpu, dev)
+    sides = {}
+    for where, params, b in (("card", p_dev, b_dev), ("cpu", p_cpu, b_cpu)):
+        t1 = time.perf_counter()
+        step_fn = L.make_train_step(cfg, tc)
+        opt = adamw_init(params, tc.opt)
+        with first_gradients() as first:
+            for _ in range(TRAIN_CUT_STEPS):
+                params, opt, m = step_fn(params, opt, b)
+                if not first["loss"]:
+                    first["loss"].append(m["loss"])
+        _sync()
+        sides[where] = (first["loss"][0], first["grads"], params, opt,
+                        time.perf_counter() - t1)
+        del first
+        if where == "card":
+            del p_dev
+    (l_d, g_d, p_d, o_d, s_d), (l_c, g_c, p_c, o_c, s_c) = sides["card"], sides["cpu"]
+    res = {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
+           "params": sum(t.numel() for t in _flat_leaves(p_c).values()),
+           "shape": list(shape), "loss_card": float(l_d), "loss_cpu": float(l_c)}
+    if not (math.isfinite(res["loss_cpu"]) and abs(res["loss_card"] - res["loss_cpu"])
+            <= TRAIN_CUT_TOL[0] + TRAIN_CUT_TOL[1] * abs(res["loss_cpu"])):
+        raise AssertionError(f"{arch}: loss card {res['loss_card']} cpu {res['loss_cpu']}")
+    res["grads"] = _tree_close(f"{arch} gradients", g_d, g_c, TRAIN_CUT_TOL)
+    most = 2 * tc.opt.lr * TRAIN_CUT_STEPS
+    res["params_after"] = _tree_close(f"{arch} parameters after {TRAIN_CUT_STEPS} steps", p_d,
+                                      p_c, TRAIN_CUT_TOL, flips=(TRAIN_FLIP_SHARE, most))
+    res["moments_after"] = _tree_close(f"{arch} moments after {TRAIN_CUT_STEPS} steps",
+                                       {"m": o_d["m"], "v": o_d["v"]},
+                                       {"m": o_c["m"], "v": o_c["v"]}, TRAIN_CUT_TOL)
+    if int(o_d["step"]) != TRAIN_CUT_STEPS:
+        raise AssertionError(f"{arch}: step counter {int(o_d['step'])}")
+    res["card_s"], res["cpu_s"], res["wall_s"] = s_d, s_c, time.perf_counter() - t0
+    return res
+
+
+def train_checkpoint_round_trip(dev, cfg=None, base=None) -> dict:
+    """Phase 7 (c): ``train`` on ``dev`` writes a checkpoint at step
+    ``TRAIN_CKPT_STEPS[0]`` (bfloat16 parameters, the olmo smoke config);
+    restored on the CPU it equals the card's parameters and optimizer state
+    bit for bit; ``train`` restarted from it on ``dev`` runs the remaining
+    steps to ``TRAIN_CKPT_STEPS[1]`` and publishes that step."""
+    from repro_torch import configs
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import loop as L
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    cfg = cfg or configs.get_smoke("olmo_1b")
+    base = Path(base or REPO / "build" / "chip_smoke_ckpt")
+    shutil.rmtree(base, ignore_errors=True)
+    first, last = TRAIN_CKPT_STEPS
+    kw = dict(batch=2, seq=64, log_every=1, ckpt_every=first, ckpt_dir=str(base),
+              opt=AdamWConfig(warmup_steps=1, moment_dtype="bfloat16"))
+    out = L.train(cfg, L.TrainConfig(steps=first, **kw), device=dev)
+    if CK.latest_step(str(base)) != first:
+        raise AssertionError(f"no checkpoint at step {first} under {base}")
+    like_p = _to(out["params"], "cpu")
+    like = (like_p, adamw_init(like_p, AdamWConfig(moment_dtype="bfloat16")))
+    p, o, meta = CK.restore(str(base), first, like)
+    got, want = _flat_leaves({"p": p, "o": o}), _flat_leaves(
+        {"p": out["params"], "o": out["opt_state"]})
+    n_leaves = 0
+    for path, w in want.items():
+        g = got[path]
+        w = w.detach().cpu()
+        if g.device.type != "cpu" or g.dtype != w.dtype or not _bits_equal(g, w):
+            raise AssertionError(f"checkpoint leaf {path}: the CPU's restore != the card's")
+        n_leaves += 1
+    again = L.train(cfg, L.TrainConfig(steps=last, **{**kw, "ckpt_every": last}), device=dev)
+    steps = [m["step"] for m in again["history"]]
+    if steps != list(range(first, last)) or CK.latest_step(str(base)) != last:
+        raise AssertionError(f"restart ran steps {steps}, latest {CK.latest_step(str(base))}")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"leaves_bit_equal": n_leaves, "meta": meta, "restart_steps": steps,
+            "dtypes": sorted({str(t.dtype) for t in want.values()})}
+
+
+def train_flash_refusal(dev, cfg=None) -> dict:
+    """Phase 7 (d): a backward through ``attention_train`` with
+    ``attn_impl="pallas"`` on ``dev`` (an olmo-1b layer, bfloat16, (2, 256))
+    raises ``NotImplementedError`` before any launch: ``flash_attention``'s
+    count, zeroed just before, is still 0."""
+    from repro_torch import configs
+    from repro_torch.models import attention as A
+
+    cfg = (cfg or configs.get("olmo_1b")).replace(attn_impl="pallas")
+    p = A.attn_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    for t in p.values():
+        t.requires_grad_(True)
+    x = torch.randn(2, 256, cfg.d_model, device=dev, dtype=cfg.cdtype)
+    positions = torch.arange(256, device=dev)[None]
+    _zero_launch_counts()
+    try:
+        A.attention_train(p, x, positions, cfg).float().sum().backward()
+    except NotImplementedError as err:
+        message = str(err)
+    else:
+        raise AssertionError("a backward through flash_attention was not refused")
+    launches = _launch_counts()["flash_attention"]
+    if "no backward" not in message or launches != 0:
+        raise AssertionError(f"refusal {message!r}, flash_attention launches {launches}")
+    return {"refused": message, "flash_attention_launches": launches}
+
+
+def _free() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def training(dev) -> dict:
+    """Phase 7 (see the module docstring); every line names the card."""
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {"card": card, "olmo-1b etl": train_olmo_etl(dev)}
+    print(f"{elapsed()} training (a) olmo-1b fed by METL [{card}]: "
+          + json.dumps(out["olmo-1b etl"]), flush=True)
+    _free()
+    out["card vs cpu"] = {}
+    for arch in TRAIN_CUT_ARCHS:
+        r = train_card_vs_cpu(dev, arch)
+        out["card vs cpu"][arch] = r
+        print(f"{elapsed()} training (b) {arch} float32 card vs cpu [{card}]: "
+              + json.dumps(r), flush=True)
+        _free()
+    out["checkpoint"] = train_checkpoint_round_trip(dev)
+    print(f"{elapsed()} training (c) checkpoint [{card}]: " + json.dumps(out["checkpoint"]),
+          flush=True)
+    out["refusal"] = train_flash_refusal(dev)
+    print(f"{elapsed()} training (d) flash refusal [{card}]: " + json.dumps(out["refusal"]),
+          flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 # -- phase 6: timing of the model kernels ----------------------------------------
 
 
@@ -4403,6 +4834,7 @@ def main() -> int:
     moe_served = moe_serving(dev)
     ssm_served = ssm_serving(dev)
     av_served = av_serving(dev)
+    trained = training(dev)
 
     for pname in paths:
         name = f"cuda/{pname}"
@@ -4477,6 +4909,7 @@ def main() -> int:
     print("serving moe: " + json.dumps(moe_served), flush=True)
     print("serving ssm: " + json.dumps(ssm_served), flush=True)
     print("serving av: " + json.dumps(av_served), flush=True)
+    print("training: " + json.dumps(trained), flush=True)
     origin["flash_attention"] = ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:93", "prefill")
     origin["moe_combine"] = ("src/repro_torch/kernels/csrc/moe_combine.cu",
@@ -4498,6 +4931,12 @@ def main() -> int:
         "internvl2-1b prefill": av_served["internvl2-1b"]["prefill"][
             "prefill_flash_attention_launches"]}
     path_launches["flash_attention"] = sum(flash_by_path.values())
+    # segmented_gather: the fused host-densify consume path's and the
+    # training feed's (phase 7 (a), the same engine)
+    gather_by_path = {"cuda/host consume": path_launches["segmented_gather"],
+                      "olmo-1b training feed": trained["olmo-1b etl"]["launches"][
+                          "segmented_gather"]}
+    path_launches["segmented_gather"] = sum(gather_by_path.values())
     path_launches["moe_combine"] = 0
     kernels = []
     for name, m in meas.items():
@@ -4511,6 +4950,8 @@ def main() -> int:
         })
     kernels[[k["name"] for k in kernels].index("flash_attention")].update(
         launches_by_path=flash_by_path, other_prefills=flash_prefills)
+    kernels[[k["name"] for k in kernels].index("segmented_gather")].update(
+        launches_by_path=gather_by_path)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

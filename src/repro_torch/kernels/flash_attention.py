@@ -21,6 +21,12 @@ aligned; a call whose operands do not (a view into a larger tensor) raises
 rather than take the other kernel.  A launch error raises; nothing falls
 back.  ``launches`` counts kernel launches of either kind and nothing
 else.
+
+The kernel has no backward, as the reference's has none: a CUDA call with
+grad mode on and q, k or v requiring grad raises ``NotImplementedError``
+before any launch, rather than return a tensor cut off from the graph.
+The plain version on CPU tensors stays differentiable, as the reference's
+CPU path is.
 """
 
 from __future__ import annotations
@@ -73,6 +79,10 @@ def flash_attention(
     """
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, n_rep=n_rep)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError(
+            "the reference's flash_attention has no backward; train with attn_impl "
+            "'dense' or 'chunked'")
     global launches
     dev = q.device
     if dev.type != "cuda":

@@ -26,6 +26,7 @@ __all__ = [
     "apply_mlp",
     "embed_params",
     "lm_logits",
+    "cross_entropy",
 ]
 
 
@@ -129,7 +130,7 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> 
 
 
 # ---------------------------------------------------------------------------
-# Embeddings
+# Embeddings & loss
 # ---------------------------------------------------------------------------
 
 
@@ -149,3 +150,24 @@ def lm_logits(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> 
     else:
         w = p["head"].to(cfg.cdtype)
     return torch.matmul(x, w)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+                  weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy of ``logits`` (..., V_pad) against
+    ``labels`` (...), in float32: ``logsumexp - picked`` per token.  The
+    pad-vocab columns are masked by an additive float32 (V_pad,) vector of 0
+    and -1e9, not by a concatenation, which would materialise a second
+    float32 copy of the logits.  With ``weight`` (...), returns
+    ``sum(nll * w) / max(sum(w), 1)``."""
+    lg = logits.to(torch.float32)
+    if cfg.vocab_padded != cfg.vocab:
+        cols = torch.arange(cfg.vocab_padded, device=lg.device)
+        lg = lg + torch.where(cols < cfg.vocab, 0.0, -1e9).to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    nll = lse - picked
+    if weight is None:
+        return torch.mean(nll)
+    w = weight.to(torch.float32)
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)

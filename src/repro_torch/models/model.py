@@ -12,10 +12,13 @@ decoder layers that cross-attend its output) and ``"vlm"`` (internvl2-1b:
 stubbed ViT patch embeddings prefix the text, causal over both).  The
 reference scans stacked layers with ``lax.scan``; here ``params["layers"]``
 (and ``params["enc_layers"]``) is a list of per-layer dicts and the layers
-run in a Python loop.  The remat and sharding knobs are training-only and
-not ported.
+run in a Python loop.  ``cfg.remat`` wraps each layer of that loop in
+``torch.utils.checkpoint`` when autograd records the parameters (see
+:func:`_remat`); the sharding knobs (``sp_carry``, ``scan_unroll``,
+``dryrun_n_micro``) have no counterpart without a mesh and are ignored.
 
-Entry points: ``init_params``, ``forward`` (logits; the serving prefill),
+Entry points: ``init_params``, ``forward`` (logits; the serving prefill
+and the training forward), ``loss_fn`` (the training loss),
 ``init_decode_state`` / ``prefill_memory`` (whisper: the encoder's K/V
 into the cache) / ``decode_step`` (single-token serving).  Parameters keep
 the reference's layout, so :func:`repro_torch.core.convert.params_from_jax`
@@ -24,11 +27,18 @@ carries the reference's weights across unchanged.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..core.dmm_torch import DeviceLike, resolve_device
+from ..core.tree import tree_leaves
 from .attention import (
     attention_decode,
     attention_train,
@@ -41,6 +51,7 @@ from .config import ModelConfig
 from .layers import (
     apply_mlp,
     apply_norm,
+    cross_entropy,
     embed_params,
     lm_logits,
     mlp_params,
@@ -62,8 +73,10 @@ from .ssm import (
 )
 
 __all__ = [
+    "AUX_WEIGHT",
     "init_params",
     "forward",
+    "loss_fn",
     "init_decode_state",
     "prefill_memory",
     "decode_step",
@@ -182,6 +195,57 @@ def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
     return x + ff, aux
 
 
+def _enc_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """One pre-norm encoder layer: non-causal self-attention, then the MLP."""
+    hn = apply_norm(lp["norm1"], x, cfg)
+    x = x + attention_train(lp["attn"], hn, positions, cfg, causal=False)
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+
+
+# the products that remat "dots" keeps (JAX's checkpoint_dots_with_no_batch_dims):
+# 2-D matrix products; batched ones (bmm) are recomputed like the rest
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` (one layer) under ``cfg.remat``, the reference's ``_remat``:
+    ``"none"`` keeps every activation, ``"full"`` keeps only the layer's
+    inputs and recomputes the rest in the backward pass, ``"dots"`` keeps
+    the outputs of the 2-D matrix products (``aten.mm`` / ``aten.addmm``)
+    and recomputes the rest, batched products included.  Non-reentrant
+    ``torch.utils.checkpoint``; recomputation repeats the same operations,
+    so loss and gradients are the same bits under all three.
+
+    The reference's ``_scan_layers`` and ``_carry_barrier`` have no
+    counterpart: they are XLA's layer scan and a fusion fence that keeps
+    the scan's saved carry in the compute dtype; here the layers are a
+    Python loop and a checkpoint saves the layer's input as it is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        dots = functools.partial(create_selective_checkpoint_contexts, _save_products)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=dots)
+    if cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: expected 'none', 'full' or 'dots'")
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def _layer_fn(fn: Callable, params: Dict[str, Any], cfg: ModelConfig) -> Callable:
+    """``fn`` under remat when autograd records the parameters (grad mode
+    on and a parameter requiring grad); as it is otherwise, so serving runs
+    the layers directly."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(params)):
+        return _remat(fn, cfg)
+    return fn
+
+
 def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The token rows, then (learned positions, the encoder-decoder's
     included) the position rows, each cast to the compute dtype: the
@@ -200,10 +264,9 @@ def _encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig) -> t
     the final norm."""
     x = frames.to(cfg.cdtype) + params["enc_pos"][None].to(cfg.cdtype)
     positions = torch.arange(frames.shape[1], device=x.device)[None]
+    layer = _layer_fn(_enc_layer, params, cfg)
     for lp in params["enc_layers"]:
-        hn = apply_norm(lp["norm1"], x, cfg)
-        x = x + attention_train(lp["attn"], hn, positions, cfg, causal=False)
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+        x = layer(lp, x, positions, cfg)
     return apply_norm(params["enc_final_norm"], x, cfg)
 
 
@@ -224,13 +287,31 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
         x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     memory = _encode(params, batch["frames"], cfg) if cfg.enc_dec else None
+    layer = _layer_fn(_decoder_layer, params, cfg)
     auxs = []
     for lp in params["layers"]:
-        x, aux = _decoder_layer(lp, x, positions, cfg, memory)
+        x, aux = layer(lp, x, positions, cfg, memory)
         auxs.append(aux)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["embed"], x, cfg)
     return logits, torch.sum(torch.stack(auxs))
+
+
+AUX_WEIGHT = 0.01
+
+
+def loss_fn(params: Dict[str, Any], cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The training loss, a float32 scalar: the mean token cross-entropy of
+    ``forward``'s logits against ``batch["labels"]`` (weighted by
+    ``batch["loss_weight"]`` when present), plus ``AUX_WEIGHT`` times the
+    routers' load-balance loss.  The vlm family's logits drop the patch
+    prefix first, so the labels cover the text alone."""
+    logits, aux = forward(params, cfg, batch)
+    if cfg.family == "vlm":
+        logits = logits[:, batch["patches"].shape[1]:]
+    loss = cross_entropy(logits, batch["labels"], cfg, batch.get("loss_weight"))
+    return loss + AUX_WEIGHT * aux
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,10 @@ Counterpart of ``repro.models.ssm``.  RWKV-6 is the attention-free arch
 (rwkv6-3b); Mamba heads run in parallel with attention heads inside hymba
 layers.  The reference writes each recurrence as a ``lax.scan``; here the
 scans are Python loops over time steps (RWKV's chunked form: over chunks of
-16) into preallocated outputs, with no host sync inside them.  The work
-that does not wait on the carried state (decay factors, the intra-chunk
-products, the chunks' state updates, Mamba's outputs y_t = h_t C_t) runs
-for every step at once, outside the loop.
+16) whose step outputs are stacked once after the loop, with no host sync
+inside them.  The work that does not wait on the carried state (decay
+factors, the intra-chunk products, the chunks' state updates, Mamba's
+outputs y_t = h_t C_t) runs for every step at once, outside the loop.
 
 Numerics follow the reference on purpose, rounding where it rounds:
 
@@ -26,6 +26,9 @@ Numerics follow the reference on purpose, rounding where it rounds:
 
 Decode is a single recurrence step: state in, state out.  The states live
 on an explicit device (``rwkv_init_state`` / ``mamba_init_state``).
+
+The three loops are functional (no ``out=``, no in-place adds), so that
+autograd differentiates them for training; serving runs the same code.
 """
 
 from __future__ import annotations
@@ -151,13 +154,13 @@ def _wkv_scan(r, k, v, w, u, state0):
     # time-major, so each step reads contiguous (B, H, hd) slices
     rs, ks, vs, ws = (a.to(f32).transpose(0, 1).contiguous() for a in (r, k, v, w))
     u3 = u[:, :, None]  # (H, hd_k, 1)
-    out = torch.empty((S, B, H, 1, hd), dtype=f32, device=r.device)
+    outs = []
     St = state0
-    for r_t, k_t, v_t, w_t, o_t in zip(rs.unbind(0), ks.unbind(0), vs.unbind(0), ws.unbind(0),
-                                       out.unbind(0)):
+    for r_t, k_t, v_t, w_t in zip(rs.unbind(0), ks.unbind(0), vs.unbind(0), ws.unbind(0)):
         kv = k_t[..., None] * v_t[..., None, :]  # rank-1 update (B, H, hd, hd)
-        torch.matmul(r_t[..., None, :], St + u3 * kv, out=o_t)
+        outs.append(torch.matmul(r_t[..., None, :], St + u3 * kv))
         St = w_t[..., None] * St + kv
+    out = torch.stack(outs) if outs else rs.new_empty((S, B, H, 1, hd))
     return out.reshape(S, B, H, hd).transpose(0, 1), St
 
 
@@ -186,16 +189,17 @@ def _wkv_chunked(r, k, v, w, u, state0, chunk: int = 16):
     total = cum[:, :, :, -1:, :]  # (n, B, H, 1, hd)
     kv = torch.matmul((ks * torch.exp(total - cum)).transpose(-1, -2), vs)  # (n, B, H, hd, hd)
     decay = torch.exp(total).transpose(-1, -2)  # (n, B, H, hd, 1)
-    out = torch.empty_like(rs)
+    inters = []
     St = state0
-    for r_i, d_i, kv_i, o_i in zip(r_in.unbind(0), decay.unbind(0), kv.unbind(0), out.unbind(0)):
-        torch.matmul(r_i, St, out=o_i)  # inter-chunk: r_t . S
+    for r_i, d_i, kv_i in zip(r_in.unbind(0), decay.unbind(0), kv.unbind(0)):
+        inters.append(torch.matmul(r_i, St))  # inter-chunk: r_t . S
         St = d_i * St + kv_i
     # intra-chunk: strict lower triangle, then the bonus diagonal, added in
     # the reference's order, (inter + intra) + bonus
     tri = torch.tril(torch.ones((chunk, chunk), dtype=f32, device=r.device), -1)
-    out += torch.matmul(torch.matmul(r_in, k_dec.transpose(-1, -2)) * tri, vs)
-    out += torch.sum(rs * (u[:, None, :] * ks), dim=-1, keepdim=True) * vs
+    intra = torch.matmul(torch.matmul(r_in, k_dec.transpose(-1, -2)) * tri, vs)
+    bonus = torch.sum(rs * (u[:, None, :] * ks), dim=-1, keepdim=True) * vs
+    out = (torch.stack(inters) if inters else torch.empty_like(rs)) + intra + bonus
     o = out.permute(1, 0, 3, 2, 4).reshape(B, n * chunk, H, hd)
     return o[:, :S], St
 
@@ -316,13 +320,15 @@ def _ssm_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _selective_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor, h0: torch.Tensor):
-    """h_t = dA_t h_{t-1} + dBx_t ; y_t = h_t C_t.  dA, dBx: (S, B, Di, N),
-    both overwritten (dBx ends holding every h_t); C: (S, B, N, 1); h0 (B,
-    Di, N).  Returns (y (B, S, Di), h_S)."""
+    """h_t = dA_t h_{t-1} + dBx_t ; y_t = h_t C_t.  dA, dBx: (S, B, Di, N);
+    C: (S, B, N, 1); h0 (B, Di, N).  Returns (y (B, S, Di), h_S)."""
     h = h0
+    hs = []
     for a_t, b_t in zip(dA.unbind(0), dBx.unbind(0)):
-        h = b_t.add_(a_t.mul_(h))  # dBx_t + dA_t h, the reference's dA_t h + dBx_t
-    ys = torch.matmul(dBx, C)  # every step's h_t C_t at once
+        h = a_t * h + b_t  # the reference's dA_t h + dBx_t, two launches a step
+        hs.append(h)
+    states = torch.stack(hs) if hs else dBx
+    ys = torch.matmul(states, C)  # every step's h_t C_t at once
     return ys[..., 0].transpose(0, 1), h
 
 
