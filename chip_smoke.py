@@ -4,9 +4,11 @@ its streaming pipeline, cluster and initial load, its replicated control
 plane (leader and follower processes on the card), its olmo-1b server,
 alone and fed by the pipeline, its MoE family (qwen3-moe-30b-a3b,
 dbrx-132b), its SSM and hybrid families (rwkv6-3b, hymba-1.5b), its
-audio and VLM families (whisper-tiny, internvl2-1b) and its training path
-(olmo-1b fed by METL, every family's train step against the CPU) on one
-NVIDIA card and check them.
+audio and VLM families (whisper-tiny, internvl2-1b), its training path
+(olmo-1b fed by METL, every family's train step against the CPU) and its
+model mesh (four ranks sharing the card: sharded and data-parallel
+training, the int8 all-reduce, expert parallelism, a resharded
+checkpoint) on one NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -312,7 +314,33 @@ failure raises and the script exits non-zero):
    that restores on the CPU bit for bit, and ``train`` restarted from it
    runs on to the end step; (d) a backward through ``attention_train``
    with ``attn_impl="pallas"`` on the card raises the port's
-   ``NotImplementedError`` before any ``flash_attention`` launch.
+   ``NotImplementedError`` before any ``flash_attention`` launch;
+8. (after 7) the model mesh (``mesh`` lines, then the ``mesh:`` JSON
+   line): four processes share the card as a (2, 2) ("data", "model")
+   mesh in a gloo group (``repro_torch.launch.mesh.run_on_mesh``; NCCL
+   refuses two ranks on one card), every model at full width cut to 2
+   layers, each rank's METL feed on the card (``TrainFeed``, 8 x 512
+   tokens; the launch counts zeroed just before ``train`` and read after
+   the last batch: ``segmented_gather`` once a chunk and no other kernel,
+   printed for each rank): (a) olmo-1b in float32 (TF32 off) through
+   ``train(mesh=...)`` (parameters and moments stored as the reference's
+   specs shard them) and through ``make_dp_train_step``, each one step
+   against one process's ``make_train_step`` on the same batch (loss and
+   parameters within atol/rtol 1e-4, flips as in 7 (b)), then two warm
+   sharded steps timed; (b) 4 steps of the int8 all-reduce with error
+   feedback against 4 float32 data-parallel steps: every loss within 0.1
+   (the reference's gate at its smoke model's loss of ~10) times the
+   float32 loss over 10 where that is larger (the random full-width model
+   starts at 88), AdamW at its defaults (warm-up 100 steps); (c)
+   qwen3-moe-30b-a3b's ``moe_apply`` with
+   ``moe_impl="ep"``, its 128 experts split over ``model`` (64 a rank,
+   ``all_to_all_single`` both ways), bfloat16, capacity factor 8, on (4,
+   512, 2048) against ``dmm`` in one process (atol/rtol 3e-2, the
+   reference's gate); (d) (a)'s sharded state saved (every rank gathers,
+   rank 0 writes) and resharded onto a (4, 1) mesh, every leaf bit for
+   bit.  Each rank's line prints its step seconds (the sharded step, each
+   data-parallel step), the host seconds inside collective calls,
+   ``max_memory_allocated`` and its feed's launches.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -4496,6 +4524,319 @@ def training(dev) -> dict:
     return out
 
 
+# -- phase 8: the model mesh ------------------------------------------------------
+
+# fixed by the one-card probe (PERF.md): four gloo ranks sharing cuda:0 run
+# every collective of the mesh on CUDA tensors, where NCCL refuses two ranks
+# on one card; the four-card tests of tests/test_torch_mesh.py run NCCL
+MESH_SHAPE, MESH_BACKEND = (2, 2), "gloo"
+MESH_LAYERS = 2  # every model of the phase at full width, cut to 2 layers
+MESH_BATCH, MESH_SEQ = 8, 512  # (a), (b): olmo-1b's METL batches
+MESH_TOL = (1e-4, 1e-4)  # (a): loss and parameters after one step (atol, rtol)
+# (b): tests/test_distributed.py:74's gate, 0.1 at its smoke model's loss
+# (~10), scaled with the loss above that: the random full-width model
+# starts at a loss of 88, where the same compression moves the trajectory
+# by 0.06-0.16 (0.07-0.24 %, measured on one H100); AdamW at its defaults
+# (warm-up 100 steps, as a run starts): with warmup_steps=1 the float32
+# loss itself swings 88 -> 29 -> 114 in three steps
+MESH_INT8_STEPS, MESH_INT8_GATE, MESH_INT8_SCALE = 4, 0.1, 10.0
+MESH_EP_TOL = 3e-2  # (c): atol and rtol, tests/test_distributed.py:102-104
+MESH_EP_X = (4, 512)  # (c): moe_apply's input (B, S)
+MESH_TIMED = 2  # (a): warm sharded steps timed after the checked one
+MESH_TIMEOUT = 900
+
+
+def _mesh_cfg(arch, smoke=False, **kw):
+    from repro_torch import configs
+
+    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    return cfg.replace(**kw) if smoke else cfg.replace(n_layers=MESH_LAYERS, **kw)
+
+
+def _mesh_whole(tree):
+    from repro_torch.core.tree import tree_map
+    from repro_torch.sharding.comm import full_tensor
+    from repro_torch.sharding.specs import is_dtensor
+
+    return tree_map(lambda t: full_tensor(t) if is_dtensor(t) else t, tree)
+
+
+def _comm_reset():
+    from repro_torch.sharding import comm
+
+    comm.STATS.update(calls=0, seconds=0.0)
+
+
+def _comm_read():
+    from repro_torch.sharding import comm
+
+    return dict(comm.STATS)
+
+
+def _mesh_olmo(mesh, dev, smoke, base):
+    """(a), (b) and (d) on one rank: see ``mesh_rank``."""
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.specs import is_dtensor, make_policy
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import loop as L
+    from repro_torch.train.elastic import reshard_checkpoint
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    lead = dist.get_rank() == 0
+    on_card = dev.type == "cuda"
+    cfg = _mesh_cfg("olmo_1b", smoke, param_dtype="float32", compute_dtype="float32")
+    batch, seq = (MESH_BATCH, 16) if smoke else (MESH_BATCH, MESH_SEQ)
+    tc = L.TrainConfig(steps=1, batch=batch, seq=seq, log_every=1,
+                       opt=AdamWConfig(warmup_steps=1))
+    fresh = lambda: M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),  # noqa: E731
+                                  device=dev)
+    to_dev = lambda b: {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in b.items()}  # noqa
+    feed = TrainFeed(dev, cfg.vocab, seq, batch)
+    out = {}
+
+    # (a) train(mesh=...): one step, the METL feed inside it
+    _zero_launch_counts()
+    _comm_reset()
+    res = L.train(cfg, tc, mesh=mesh, batch_fn=feed, device=dev, params=fresh())
+    _sync()
+    out["train_first_step_s"] = res["history"][0]["wall"] - feed.seconds[0]
+    out["train_first_step_collectives"] = _comm_read()
+    batches = [feed.first[0]] + [feed(s) for s in range(1, max(MESH_INT8_STEPS, MESH_TIMED + 1))]
+    feed.close()
+    out["segmented_gather_launches"] = _launch_counts()["segmented_gather"]
+    out["etl_chunks"] = feed.app.stats["dispatches"]
+    out["launches"] = _launch_counts()
+    want_l = {n: (out["etl_chunks"] if n == "segmented_gather" and on_card else 0)
+              for n in KERNEL_NAMES}
+    if out["launches"] != want_l or out["etl_chunks"] < 1:
+        raise AssertionError(f"mesh feed launches {out['launches']}, want {want_l}")
+    out["placements"] = {"embed/tok": str(res["params"]["embed"]["tok"].placements),
+                         "layers/0/attn/wq": str(res["params"]["layers"][0]["attn"]["wq"]
+                                                 .placements)}
+    p_mesh, o_mesh = res["params"], res["opt_state"]
+    loss_mesh = res["history"][0]["loss"]
+    whole_p = _mesh_whole(p_mesh)
+    whole_o = _mesh_whole(o_mesh)
+    # a warm sharded step, timed (the same step function as train's)
+    step = L.make_train_step(cfg, tc, make_policy(mesh))
+    times, coll = [], []
+    p, o = p_mesh, o_mesh
+    for s in range(1, MESH_TIMED + 1):
+        _comm_reset()
+        _sync()
+        t0 = time.perf_counter()
+        p, o, _ = step(p, o, to_dev(batches[s]))
+        _sync()
+        times.append(time.perf_counter() - t0)
+        coll.append(_comm_read())
+    del p, o
+    out["train_step_s"] = times
+    out["train_step_collectives"] = coll
+
+    # (a) make_dp_train_step: one step on the first batch
+    _comm_reset()
+    params = fresh()
+    p_dp, _, m_dp = L.make_dp_train_step(cfg, tc, mesh)(params, adamw_init(params, tc.opt),
+                                                        to_dev(batches[0]))
+    _sync()
+    out["dp_first_collectives"] = _comm_read()
+    del params
+    if lead:  # one process's make_train_step on the same batch
+        params = fresh()
+        p_one, _, m_one = L.make_train_step(cfg, tc)(params, adamw_init(params, tc.opt),
+                                                     to_dev(batches[0]))
+        lr = tc.opt.lr
+        out["loss_one_process"] = float(m_one["loss"])
+        out["loss_train_mesh"] = loss_mesh
+        out["loss_dp"] = float(m_dp["loss"])
+        for name, got in (("loss_train_mesh", loss_mesh), ("loss_dp", float(m_dp["loss"]))):
+            if abs(got - out["loss_one_process"]) > MESH_TOL[0] + MESH_TOL[1] * abs(
+                    out["loss_one_process"]):
+                raise AssertionError(f"mesh (a) {name} {got} != one process "
+                                     f"{out['loss_one_process']}")
+        out["params_train_mesh"] = _tree_close("mesh (a) train(mesh) parameters", whole_p,
+                                               p_one, MESH_TOL, flips=(TRAIN_FLIP_SHARE, 2 * lr))
+        out["params_dp"] = _tree_close("mesh (a) make_dp_train_step parameters", p_dp, p_one,
+                                       MESH_TOL, flips=(TRAIN_FLIP_SHARE, 2 * lr))
+        del params, p_one
+    del p_dp
+    _free()
+    dist.barrier()
+
+    # (b) the int8 all-reduce against float32, MESH_INT8_STEPS steps each
+    for name, compress in (("dp_f32", False), ("dp_int8", True)):
+        tcb = L.TrainConfig(batch=batch, seq=seq, opt=AdamWConfig(compress_grads=compress))
+        step = L.make_dp_train_step(cfg, tcb, mesh)
+        params = fresh()
+        opt = adamw_init(params, tcb.opt)
+        losses, times, coll = [], [], []
+        for s in range(MESH_INT8_STEPS):
+            b = to_dev(batches[s])
+            _comm_reset()
+            _sync()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+            coll.append(_comm_read())
+        out[name] = {"losses": losses, "step_s": times, "collectives": coll}
+        del params, opt
+        _free()
+    gaps = [abs(a - b) for a, b in zip(out["dp_f32"]["losses"], out["dp_int8"]["losses"])]
+    limits = [MESH_INT8_GATE * max(1.0, abs(f) / MESH_INT8_SCALE)
+              for f in out["dp_f32"]["losses"]]
+    out["int8_loss_gaps"], out["int8_loss_limits"] = gaps, limits
+    if not all(math.isfinite(g) and g < lim for g, lim in zip(gaps, limits)):
+        raise AssertionError(f"mesh (b) int8 losses {out['dp_int8']['losses']} vs float32 "
+                             f"{out['dp_f32']['losses']}")
+
+    # (d) the checkpoint of (a)'s state, restored onto a (4, 1) mesh
+    _comm_reset()
+    t0 = time.perf_counter()
+    CK.save(base, 1, p_mesh, o_mesh, {"step": 1})
+    out["save_s"] = time.perf_counter() - t0
+    del p_mesh, o_mesh
+    m41 = make_local_mesh(4, 1, device=dev)
+    t0 = time.perf_counter()
+    p4, o4, meta = reshard_checkpoint(base, cfg, lambda m: L.init_all(cfg, tc, m,
+                                                                       device=dev)[:2], m41)
+    out["restore_s"] = time.perf_counter() - t0
+    out["checkpoint_collectives"] = _comm_read()
+    n = 0
+    for got, want in ((_flat_leaves(p4), _flat_leaves(whole_p)),
+                      (_flat_leaves(o4), _flat_leaves(whole_o))):
+        for path, w in want.items():
+            g = got[path]
+            if is_dtensor(g):  # this rank's shard against the same chunk of the saved whole
+                c = m41.get_coordinate()[0]
+                pl = g.placements[0]
+                w = w.chunk(4, dim=pl.dim)[c] if hasattr(pl, "dim") else w
+                g = g.to_local()
+            if g.dtype != w.dtype or not _bits_equal(g, w):
+                raise AssertionError(f"mesh (d) leaf {path}: restored on (4, 1) != saved")
+            n += 1
+    out["checkpoint"] = {"meta": meta, "leaves_bit_equal": n,
+                         "placements": str(p4["layers"][0]["attn"]["wq"].placements)}
+    if meta != {"step": 1}:
+        raise AssertionError(f"mesh (d) meta {meta}")
+    del p4, o4, whole_p, whole_o
+    return out
+
+
+def _mesh_ep(mesh, dev, smoke):
+    """(c) on one rank: see ``mesh_rank``."""
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding.specs import make_policy, param_spec_tree
+    from repro_torch.train.loop import place_tree
+
+    cfg = _mesh_cfg("qwen3_moe_30b_a3b", smoke, moe_impl="ep", capacity_factor=8.0)
+    sp = make_policy(mesh)
+    full = {"moe": MOE.moe_params(torch.Generator(device=dev).manual_seed(1), cfg)}
+    lp = place_tree(full, param_spec_tree(full, sp), mesh)
+    B, S = (4, 16) if smoke else MESH_EP_X
+    x = (torch.randn((B, S, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(2),
+                     device=dev) * 0.5).to(cfg.cdtype)
+    d, n = sp.data_index(), sp.data_size()
+    rows = B // n
+    mine = M._gather_layer(lp, cfg, sp)["moe"]
+    times, coll = [], []
+    for _ in range(3):
+        _comm_reset()
+        _sync()
+        t0 = time.perf_counter()
+        got, aux = MOE.moe_apply(mine, x[d * rows:(d + 1) * rows], cfg, sp)
+        _sync()
+        times.append(time.perf_counter() - t0)
+        coll.append(_comm_read())
+    outs = [None] * dist.get_world_size()
+    dist.all_gather_object(outs, got.cpu())
+    res = {"experts": cfg.n_experts, "experts_per_rank": mine["w_in"].shape[0],
+           "x": [B, S, cfg.d_model], "dtype": str(cfg.cdtype), "ep_s": times,
+           "ep_collectives": coll, "aux_shard_00": float(aux)}
+    if dist.get_rank() == 0:
+        ep = torch.cat([outs[int(r)] for r in mesh.mesh[:, 0]]).to(dev)
+        dmm, dmm_aux = MOE.moe_apply(full["moe"], x, cfg.replace(moe_impl="dmm"))
+        e, w = ep.float(), dmm.float()
+        res["max_abs_err"] = float((e - w).abs().max())
+        res["aux_dmm"] = float(dmm_aux)
+        if not torch.allclose(e, w, atol=MESH_EP_TOL, rtol=MESH_EP_TOL):
+            raise AssertionError(f"mesh (c) ep != dmm: max abs err {res['max_abs_err']}")
+    return res
+
+
+def mesh_rank(mesh, smoke=False, base=None):
+    """Phase 8 on one rank of the (2, 2) mesh: (a), (b) and (d) on olmo-1b,
+    (c) on qwen3-moe-30b-a3b; ``smoke`` runs the smoke configs (the CPU
+    tests' rehearsal).  Returns this rank's readings."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    base = base or str(REPO / "build" / "chip_smoke_mesh_ckpt")
+    t0 = time.perf_counter()
+    out = {"rank": dist.get_rank(), "coordinate": list(mesh.get_coordinate())}
+    out.update(_mesh_olmo(mesh, dev, smoke, base))
+    _free()
+    out["ep"] = _mesh_ep(mesh, dev, smoke)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+        else None
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def model_mesh(dev) -> dict:
+    """Phase 8 (see the module docstring): one spawn of four ranks on the
+    (2, 2) mesh; each rank's line, then the phase's JSON line."""
+    from repro_torch.launch.mesh import run_on_mesh
+
+    t0 = time.perf_counter()
+    card = card_line()
+    base = REPO / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    ranks = run_on_mesh(mesh_rank, *MESH_SHAPE, device=dev.type, backend=MESH_BACKEND,
+                        args=(False, str(base)), timeout=MESH_TIMEOUT)
+    shutil.rmtree(base, ignore_errors=True)
+    lead = ranks[0]
+    for r in ranks:
+        brief = {k: r[k] for k in ("coordinate", "train_step_s", "train_first_step_s",
+                                   "segmented_gather_launches", "etl_chunks",
+                                   "max_memory_allocated", "wall_s")}
+        brief["dp_f32_step_s"] = r["dp_f32"]["step_s"]
+        brief["dp_int8_step_s"] = r["dp_int8"]["step_s"]
+        brief["collective_s"] = {
+            "train_step": [c["seconds"] for c in r["train_step_collectives"]],
+            "dp_f32_step": [c["seconds"] for c in r["dp_f32"]["collectives"]],
+            "dp_int8_step": [c["seconds"] for c in r["dp_int8"]["collectives"]],
+            "ep": [c["seconds"] for c in r["ep"]["ep_collectives"]],
+            "checkpoint": r["checkpoint_collectives"]["seconds"]}
+        print(f"{elapsed()} mesh rank {r['rank']} [{card}]: " + json.dumps(brief), flush=True)
+    print(f"{elapsed()} mesh (a) olmo-1b {MESH_LAYERS} layers float32 {MESH_BATCH}x{MESH_SEQ} "
+          f"METL batches, train(mesh={MESH_SHAPE}) and make_dp_train_step vs one process "
+          f"[{card}]: " + json.dumps({k: lead[k] for k in (
+              "loss_one_process", "loss_train_mesh", "loss_dp", "params_train_mesh",
+              "params_dp", "placements")}), flush=True)
+    print(f"{elapsed()} mesh (b) int8 all-reduce vs float32, {MESH_INT8_STEPS} steps "
+          f"[{card}]: " + json.dumps({"f32": lead["dp_f32"]["losses"],
+                                      "int8": lead["dp_int8"]["losses"],
+                                      "gaps": lead["int8_loss_gaps"],
+                                      "limits": lead["int8_loss_limits"]}), flush=True)
+    print(f"{elapsed()} mesh (c) qwen3-moe ep over model vs dmm in one process [{card}]: "
+          + json.dumps(lead["ep"]), flush=True)
+    print(f"{elapsed()} mesh (d) checkpoint saved on {MESH_SHAPE}, restored on (4, 1) "
+          f"[{card}]: " + json.dumps({**lead["checkpoint"], "save_s": lead["save_s"],
+                                      "restore_s": lead["restore_s"]}), flush=True)
+    return {"card": card, "shape": list(MESH_SHAPE), "backend": MESH_BACKEND, "ranks": ranks,
+            "segmented_gather_launches": sum(r["segmented_gather_launches"] for r in ranks),
+            "wall_s": time.perf_counter() - t0}
+
+
 # -- phase 6: timing of the model kernels ----------------------------------------
 
 
@@ -4835,6 +5176,8 @@ def main() -> int:
     ssm_served = ssm_serving(dev)
     av_served = av_serving(dev)
     trained = training(dev)
+    _free()
+    meshed = model_mesh(dev)
 
     for pname in paths:
         name = f"cuda/{pname}"
@@ -4910,6 +5253,7 @@ def main() -> int:
     print("serving ssm: " + json.dumps(ssm_served), flush=True)
     print("serving av: " + json.dumps(av_served), flush=True)
     print("training: " + json.dumps(trained), flush=True)
+    print("mesh: " + json.dumps(meshed), flush=True)
     origin["flash_attention"] = ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:93", "prefill")
     origin["moe_combine"] = ("src/repro_torch/kernels/csrc/moe_combine.cu",
@@ -4931,11 +5275,13 @@ def main() -> int:
         "internvl2-1b prefill": av_served["internvl2-1b"]["prefill"][
             "prefill_flash_attention_launches"]}
     path_launches["flash_attention"] = sum(flash_by_path.values())
-    # segmented_gather: the fused host-densify consume path's and the
-    # training feed's (phase 7 (a), the same engine)
+    # segmented_gather: the fused host-densify consume path's, the training
+    # feed's (phase 7 (a), the same engine) and the model mesh's four feeds
+    # (phase 8, one a rank)
     gather_by_path = {"cuda/host consume": path_launches["segmented_gather"],
                       "olmo-1b training feed": trained["olmo-1b etl"]["launches"][
-                          "segmented_gather"]}
+                          "segmented_gather"],
+                      "olmo-1b model mesh feeds": meshed["segmented_gather_launches"]}
     path_launches["segmented_gather"] = sum(gather_by_path.values())
     path_launches["moe_combine"] = 0
     kernels = []

@@ -145,8 +145,10 @@ def attention_train(
     *,
     causal: bool = True,
     window: int = 0,
+    sh=None,
 ) -> torch.Tensor:
-    """Full-sequence attention of x (B, S, D) at ``positions``."""
+    """Full-sequence attention of x (B, S, D) at ``positions``.  ``sh``: the
+    reference's sharding policy (its ``act_heads`` is an identity here)."""
     q, k, v = _qkv(p, x, cfg)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
@@ -168,6 +170,8 @@ def attention_train(
     else:
         mask = _band_mask(S, S, 0, window, causal, x.device) if (causal or window) else None
         out = _sdpa(q, k, v, mask, cfg)
+    if sh is not None:
+        out = sh.act_heads(out)
     return torch.matmul(out, p["wo"].to(cfg.cdtype))
 
 
@@ -245,6 +249,7 @@ def cross_attention(
     mem_k: torch.Tensor,  # (B, T, KV, hd) projected encoder keys
     mem_v: torch.Tensor,
     cfg: ModelConfig,
+    sh=None,
 ) -> torch.Tensor:
     """Attention of the decoder's x over the projected encoder memory, no
     mask (every query sees every frame); the dense path whatever
@@ -253,6 +258,8 @@ def cross_attention(
     H, hd = cfg.n_heads, cfg.hd
     q = torch.matmul(x, p["wq"].to(cfg.cdtype)).reshape(B, S, H, hd)
     out = _sdpa(q, mem_k, mem_v, None, cfg)
+    if sh is not None:
+        out = sh.act_heads(out)
     return torch.matmul(out, p["wo"].to(cfg.cdtype))
 
 

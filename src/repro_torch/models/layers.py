@@ -27,6 +27,7 @@ __all__ = [
     "embed_params",
     "lm_logits",
     "cross_entropy",
+    "cross_entropy_sums",
 ]
 
 
@@ -117,15 +118,19 @@ def mlp_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor
     return p
 
 
-def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+              sh=None) -> torch.Tensor:
     """SwiGLU or GELU (tanh approximation, as ``jax.nn.gelu``'s default);
-    the activation in float32, the products in the compute dtype."""
+    the activation in float32, the products in the compute dtype.  ``sh``:
+    the reference's sharding policy (its ``act_ff`` is an identity here)."""
     h = torch.matmul(x, p["w_in"].to(cfg.cdtype))
     if cfg.activation == "swiglu":
         g = torch.matmul(x, p["w_gate"].to(cfg.cdtype))
         h = F.silu(g.to(torch.float32)).to(cfg.cdtype) * h
     else:
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(cfg.cdtype)
+    if sh is not None:
+        h = sh.act_ff(h)
     return torch.matmul(h, p["w_out"].to(cfg.cdtype))
 
 
@@ -152,6 +157,16 @@ def lm_logits(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> 
     return torch.matmul(x, w)
 
 
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    lg = logits.to(torch.float32)
+    if cfg.vocab_padded != cfg.vocab:
+        cols = torch.arange(cfg.vocab_padded, device=lg.device)
+        lg = lg + torch.where(cols < cfg.vocab, 0.0, -1e9).to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    return lse - picked
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
                   weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross-entropy of ``logits`` (..., V_pad) against
@@ -160,14 +175,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
     and -1e9, not by a concatenation, which would materialise a second
     float32 copy of the logits.  With ``weight`` (...), returns
     ``sum(nll * w) / max(sum(w), 1)``."""
-    lg = logits.to(torch.float32)
-    if cfg.vocab_padded != cfg.vocab:
-        cols = torch.arange(cfg.vocab_padded, device=lg.device)
-        lg = lg + torch.where(cols < cfg.vocab, 0.0, -1e9).to(torch.float32)
-    lse = torch.logsumexp(lg, dim=-1)
-    picked = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
-    nll = lse - picked
+    nll = _token_nll(logits, labels, cfg)
     if weight is None:
         return torch.mean(nll)
     w = weight.to(torch.float32)
     return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+                       weight: Optional[torch.Tensor] = None):
+    """The parts of :func:`cross_entropy` before its division, float32
+    scalars: ``(sum(nll * w), sum(w))``, or ``(sum(nll), token count)``
+    without ``weight`` (a data-parallel loss sums each over the ranks)."""
+    nll = _token_nll(logits, labels, cfg)
+    if weight is None:
+        return torch.sum(nll), torch.full((), float(nll.numel()), device=nll.device)
+    w = weight.to(torch.float32)
+    return torch.sum(nll * w), torch.sum(w)

@@ -14,8 +14,20 @@ reference scans stacked layers with ``lax.scan``; here ``params["layers"]``
 (and ``params["enc_layers"]``) is a list of per-layer dicts and the layers
 run in a Python loop.  ``cfg.remat`` wraps each layer of that loop in
 ``torch.utils.checkpoint`` when autograd records the parameters (see
-:func:`_remat`); the sharding knobs (``sp_carry``, ``scan_unroll``,
-``dryrun_n_micro``) have no counterpart without a mesh and are ignored.
+:func:`_remat`); ``scan_unroll`` and ``dryrun_n_micro`` steer XLA and
+have no counterpart.
+
+``forward`` and ``loss_fn`` take the reference's ``sh``, a sharding policy
+(:mod:`repro_torch.sharding.specs`).  Under a ``torch.distributed`` mesh
+the parameters are DTensors stored as the reference shards them, each rank
+holds its data rank's batch rows, and compute is data-parallel: the layer
+loop gathers each layer's weights as it reaches them (outside the remat'd
+function, so a recompute issues no collective of its own), the MoE layer
+sees the whole token axis (or runs expert parallelism under ``ep``), and
+``loss_fn`` returns the whole batch's loss on every rank with this data
+rank's share of its gradient.  ``sp_carry`` (the reference shards the
+saved residual stack over ``model``) has nothing to shard here and is
+ignored.
 
 Entry points: ``init_params``, ``forward`` (logits; the serving prefill
 and the training forward), ``loss_fn`` (the training loss),
@@ -39,6 +51,7 @@ from torch.utils.checkpoint import (
 
 from ..core.dmm_torch import DeviceLike, resolve_device
 from ..core.tree import tree_leaves
+from ..sharding import comm
 from .attention import (
     attention_decode,
     attention_train,
@@ -52,6 +65,7 @@ from .layers import (
     apply_mlp,
     apply_norm,
     cross_entropy,
+    cross_entropy_sums,
     embed_params,
     lm_logits,
     mlp_params,
@@ -164,7 +178,7 @@ def params_device(params: Dict[str, Any]) -> torch.device:
 
 
 def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
-                   cfg: ModelConfig, memory: Optional[torch.Tensor] = None,
+                   cfg: ModelConfig, memory: Optional[torch.Tensor] = None, sh=None,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer.  Returns (x, aux_loss): the MoE router's load-balance
     loss, a float32 zero for the other families.  ``memory``: the raw
@@ -178,7 +192,8 @@ def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
         cm, _ = rwkv_channel_mix(lp["cm"], apply_norm(lp["ln2"], x, cfg), zero, cfg)
         return x + cm, aux
     xn = apply_norm(lp["norm1"], x, cfg)
-    attn_out = attention_train(lp["attn"], xn, positions, cfg, causal=True, window=cfg.window)
+    attn_out = attention_train(lp["attn"], xn, positions, cfg, causal=True, window=cfg.window,
+                               sh=sh)
     if cfg.family == "hybrid":
         ssm_out, _ = mamba_train(lp["mamba"], xn, cfg)
         x = x + 0.5 * (attn_out + ssm_out)  # mean-fused parallel heads (Hymba)
@@ -186,21 +201,25 @@ def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
         x = x + attn_out
     if memory is not None:
         mem_k, mem_v = project_memory(lp["xattn"], memory, cfg)
-        x = x + cross_attention(lp["xattn"], apply_norm(lp["norm_x"], x, cfg), mem_k, mem_v, cfg)
+        x = x + cross_attention(lp["xattn"], apply_norm(lp["norm_x"], x, cfg), mem_k, mem_v, cfg,
+                                sh)
     xn2 = apply_norm(lp["norm2"], x, cfg)
     if cfg.is_moe:
-        ff, aux = moe_apply(lp["moe"], xn2, cfg)
+        ff, aux = moe_apply(lp["moe"], xn2, cfg, sh=sh)
     else:
-        ff = apply_mlp(lp["mlp"], xn2, cfg)
-    return x + ff, aux
+        ff = apply_mlp(lp["mlp"], xn2, cfg, sh=sh)
+    x = x + ff
+    if sh is not None:
+        x = sh.act_btd(x)
+    return x, aux
 
 
 def _enc_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, sh=None) -> torch.Tensor:
     """One pre-norm encoder layer: non-causal self-attention, then the MLP."""
     hn = apply_norm(lp["norm1"], x, cfg)
-    x = x + attention_train(lp["attn"], hn, positions, cfg, causal=False)
-    return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+    x = x + attention_train(lp["attn"], hn, positions, cfg, causal=False, sh=sh)
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg, sh=sh)
 
 
 # the products that remat "dots" keeps (JAX's checkpoint_dots_with_no_batch_dims):
@@ -246,6 +265,25 @@ def _layer_fn(fn: Callable, params: Dict[str, Any], cfg: ModelConfig) -> Callabl
     return fn
 
 
+def _gather(tree: Any, sh) -> Any:
+    """``tree`` with its DTensor leaves gathered (under a mesh), else as it is."""
+    return sh.gather(tree) if sh is not None and sh.sharded else tree
+
+
+def _gather_layer(lp: Dict[str, Any], cfg: ModelConfig, sh) -> Dict[str, Any]:
+    """One layer's weights for the layer loop: whole, except that under
+    expert parallelism each rank keeps its own experts (split over
+    ``model``)."""
+    if sh is None or not sh.sharded:
+        return lp
+    if not (cfg.is_moe and cfg.moe_impl == "ep"):
+        return sh.gather(lp)
+    out = sh.gather({k: v for k, v in lp.items() if k != "moe"})
+    out["moe"] = {k: sh.gather(v, keep=() if k == "router" else (sh.model_axis,))
+                  for k, v in lp["moe"].items()}
+    return out
+
+
 def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The token rows, then (learned positions, the encoder-decoder's
     included) the position rows, each cast to the compute dtype: the
@@ -257,21 +295,22 @@ def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
     return x
 
 
-def _encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig, sh=None
+            ) -> torch.Tensor:
     """The whisper encoder over stubbed conv-frontend frames (B, enc_seq,
     D): learned positions, pre-norm layers of non-causal self-attention
     (``flash_attention`` with ``attn_impl="pallas"``) and the MLP, then
     the final norm."""
-    x = frames.to(cfg.cdtype) + params["enc_pos"][None].to(cfg.cdtype)
+    x = frames.to(cfg.cdtype) + _gather(params["enc_pos"], sh)[None].to(cfg.cdtype)
     positions = torch.arange(frames.shape[1], device=x.device)[None]
     layer = _layer_fn(_enc_layer, params, cfg)
     for lp in params["enc_layers"]:
-        x = layer(lp, x, positions, cfg)
-    return apply_norm(params["enc_final_norm"], x, cfg)
+        x = layer(_gather_layer(lp, cfg, sh), x, positions, cfg, sh)
+    return apply_norm(_gather(params["enc_final_norm"], sh), x, cfg)
 
 
-def forward(params: Dict[str, Any], cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            sh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V_pad), aux_loss) for ``batch["tokens"]``
     (B, S) on the parameters' device.  ``aux_loss`` is the float32 sum of
     the layers' router load-balance losses, as the reference's layer scan
@@ -280,38 +319,60 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
     An encoder-decoder also takes ``batch["frames"]`` (B, enc_seq, D); the
     vlm family ``batch["patches"]`` (B, P, D), cast to the compute dtype
     and put before the text, so the logits are (B, P + S, V_pad) with the
-    patch positions kept, as in the reference."""
+    patch positions kept, as in the reference.
+
+    ``sh``: a sharding policy; under a mesh ``batch`` holds this data
+    rank's rows (see the module docstring)."""
     tokens = batch["tokens"]
-    x = _embed_tokens(params, tokens, cfg)
+    embed = _gather(params["embed"], sh)
+    x = _embed_tokens({"embed": embed}, tokens, cfg)
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
+    if sh is not None:
+        x = sh.act_btd(x)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    memory = _encode(params, batch["frames"], cfg) if cfg.enc_dec else None
+    memory = _encode(params, batch["frames"], cfg, sh) if cfg.enc_dec else None
     layer = _layer_fn(_decoder_layer, params, cfg)
     auxs = []
     for lp in params["layers"]:
-        x, aux = layer(lp, x, positions, cfg, memory)
+        x, aux = layer(_gather_layer(lp, cfg, sh), x, positions, cfg, memory, sh)
         auxs.append(aux)
-    x = apply_norm(params["final_norm"], x, cfg)
-    logits = lm_logits(params["embed"], x, cfg)
+    x = apply_norm(_gather(params["final_norm"], sh), x, cfg)
+    logits = lm_logits(embed, x, cfg)
+    if sh is not None:
+        logits = sh.logits(logits)
     return logits, torch.sum(torch.stack(auxs))
 
 
 AUX_WEIGHT = 0.01
 
 
-def loss_fn(params: Dict[str, Any], cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def loss_fn(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            sh=None) -> torch.Tensor:
     """The training loss, a float32 scalar: the mean token cross-entropy of
     ``forward``'s logits against ``batch["labels"]`` (weighted by
     ``batch["loss_weight"]`` when present), plus ``AUX_WEIGHT`` times the
     routers' load-balance loss.  The vlm family's logits drop the patch
-    prefix first, so the labels cover the text alone."""
-    logits, aux = forward(params, cfg, batch)
+    prefix first, so the labels cover the text alone.
+
+    Under a mesh (``sh``), ``batch`` is this data rank's rows and the loss
+    is the whole batch's, on every rank: ``sum(nll * w)`` and ``sum(w)``
+    are each summed over the data ranks before the division (METL batches
+    weight their tokens unevenly).  Its gradient is this rank's share: the
+    rank's ``sum(nll * w)`` over the global ``sum(w)``, plus its share of
+    the aux loss, so that the data ranks' gradients sum to the whole
+    batch's."""
+    logits, aux = forward(params, cfg, batch, sh)
     if cfg.family == "vlm":
         logits = logits[:, batch["patches"].shape[1]:]
-    loss = cross_entropy(logits, batch["labels"], cfg, batch.get("loss_weight"))
-    return loss + AUX_WEIGHT * aux
+    if sh is None or not sh.sharded:
+        loss = cross_entropy(logits, batch["labels"], cfg, batch.get("loss_weight"))
+        return loss + AUX_WEIGHT * aux
+    nll_w, w = cross_entropy_sums(logits, batch["labels"], cfg, batch.get("loss_weight"))
+    totals = comm.all_reduce_sum(torch.stack([nll_w.detach(), w]), sh.data_group())
+    denom = torch.clamp(totals[1], min=1.0) if "loss_weight" in batch else totals[1]
+    ce = comm.value_with_grad(totals[0] / denom, nll_w / denom)
+    return ce + AUX_WEIGHT * aux
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,26 @@ compacted index sets.  ``cfg.moe_impl`` picks the algorithm:
             (one batched product per weight tensor), not once a group.
   dmm    -- the paper's Algorithm-6 analogue on a flat token axis: compacted
             index vectors (a stable argsort by expert) and masked gathers.
-  ep     -- the reference's expert parallelism runs only under a mesh; the
-            port has no mesh yet (ROADMAP item 15), so ``ep`` takes the
-            dense path, as the reference does without one.
+  ep     -- expert parallelism under the model mesh (``sh`` with a
+            ``torch.distributed`` mesh): each rank routes its own tokens,
+            ``all_to_all_single`` over the ``model`` group carries them to
+            the ranks that own their experts and the results back.  Without
+            a mesh ``ep`` takes the dense path, as the reference does.
+
+Under the model mesh, ``moe_apply`` returns values equal to the
+reference's GSPMD values on every rank, with this data rank's share of
+their gradient (the shares summed over the data ranks are the reference's
+gradient; :func:`repro_torch.sharding.comm.value_with_grad`):
+
+  * dense and dmm run on the layer's input gathered over the data ranks, so
+    ``dmm``'s capacity and every router aux loss see the whole token axis,
+    and keep this rank's rows;
+  * ep routes the rank's own tokens, capacity ``_capacity(T_loc)`` per
+    (expert, source shard), as the reference's ``shard_map`` body.  Its aux
+    loss is the value of shard (data 0, model 0) -- the reference's
+    ``out_specs=P()`` of a per-shard scalar returns that shard's -- and its
+    gradient is the mean of the data shards' aux losses, as the
+    reference's ``shard_map`` transpose makes it.
 
 Numerics follow the reference on purpose:
 
@@ -40,8 +57,10 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..sharding import comm
 from .config import ModelConfig
 from .layers import trunc_normal
 
@@ -226,8 +245,71 @@ def _moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
     return _moe_groups(p, x, cfg)
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (B, S, D), aux_loss float32 scalar)."""
+# ---------------------------------------------------------------------------
+# ep: all-to-all expert parallelism over the model mesh's ``model`` axis
+# ---------------------------------------------------------------------------
+
+
+def _moe_ep_local(p_local: Params, x: torch.Tensor, cfg: ModelConfig, group):
+    """One rank's share of expert parallelism.  x: (T_loc, D) this rank's
+    tokens; ``p_local`` holds the full router and this rank's E_loc experts
+    (experts split over ``group``, the model axis).  Returns (out (T_loc,
+    D), probs, experts)."""
+    T, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    n_shards = dist.get_world_size(group)
+    if E % n_shards:
+        raise ValueError(f"ep: {E} experts do not split over a model axis of {n_shards}")
+    E_loc = E // n_shards
+    C = _capacity(T, cfg)  # capacity per (expert, source shard)
+    cd = cfg.cdtype
+    gates, experts, probs = _route(p_local, x, cfg)
+    slot, keep = _dispatch_indices(experts, E, C)
+    # (E, C + 1, D): a dropped choice goes to slot C, cut off
+    dst = (experts * (C + 1) + torch.where(keep, slot, C)).reshape(-1)
+    buf = torch.zeros((E * (C + 1), D), dtype=cd, device=x.device)
+    buf[dst] = x.to(cd).reshape(T, 1, D).expand(T, k, D).reshape(-1, D)
+    buf = buf.view(E, C + 1, D)[:, :C]
+    # to the expert owners: (n_shards, E_loc, C, D), chunk j to model rank j
+    recv = comm.all_to_all(buf.reshape(n_shards, E_loc, C, D), group)
+    recv = recv.permute(1, 0, 2, 3).reshape(E_loc, n_shards * C, D)
+    # every model rank of a data group sends the same tokens, so an owner's
+    # weights get their gradient n_shards times: count it once
+    ffn_p = {n: comm.scale_grad(p_local[n], 1.0 / n_shards) for n in ("w_in", "w_gate", "w_out")}
+    out_e = _expert_ffn(ffn_p, recv, cfg)  # (E_loc, n_shards*C, D)
+    send = out_e.view(E_loc, n_shards, C, D).permute(1, 0, 2, 3)
+    back = comm.all_to_all(send.contiguous(), group).reshape(E * C, D)
+    # my tokens' expert outputs; a dropped choice reads slot C - 1 times 0
+    got = back[(experts * C + torch.clamp(slot, max=C - 1)).reshape(-1)]
+    got = got * (keep * gates).reshape(-1, 1).to(got.dtype)
+    return _ordered_sum(got.view(T, k, D)), probs, experts
+
+
+def _moe_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig, sh):
+    """``moe_apply`` under the model mesh (see the module docstring): x is
+    this rank's (B_loc, S, D); ``p`` the gathered parameters (under ep the
+    experts this rank owns)."""
+    B, S, D = x.shape
+    n_data = sh.data_size()
+    data = sh.data_group()
+    if cfg.moe_impl == "ep":
+        out, probs, experts = _moe_ep_local(p, x.reshape(-1, D), cfg, sh.model_group())
+        aux = router_aux_loss(probs, experts, cfg)
+        first = comm.all_reduce_sum(aux if sh.data_index() == 0 else torch.zeros_like(aux), data)
+        return out.reshape(B, S, D), comm.value_with_grad(first, aux / n_data)
+    x_all = comm.all_gather_rows(x, data) if n_data > 1 else x
+    out, probs, experts = _moe(p, x_all, cfg)
+    aux = router_aux_loss(probs, experts, cfg)
+    d = sh.data_index()
+    return out[d * B:(d + 1) * B], comm.value_with_grad(aux, aux / n_data)
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, sh=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out (B, S, D), aux_loss float32 scalar).  ``sh``: a sharding
+    policy; under a ``torch.distributed`` mesh see the module docstring."""
+    if sh is not None and sh.sharded:
+        return _moe_sharded(p, x, cfg, sh)
     out, probs, experts = _moe(p, x, cfg)
     return out, router_aux_loss(probs, experts, cfg)
 

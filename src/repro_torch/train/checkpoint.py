@@ -28,6 +28,15 @@ writes it.
 Fault tolerance: a checkpoint is visible only once its ``.OK`` marker
 exists; an interrupted write leaves no marker, and its ``.tmp`` directory
 is removed by the next save.  Arrays are written from the host.
+
+Under a ``torch.distributed`` process group every rank calls :func:`save`:
+each DTensor leaf (a parameter or moment sharded over the model mesh) is
+gathered whole on every rank (a collective), rank 0 of the mesh (of the
+group, for plain trees) writes and publishes, and the others wait at a
+barrier until it has.  The files hold the whole arrays, so they are the
+same bytes whatever the mesh; :func:`restore` places each leaf as its
+``like`` leaf is placed, which is what lets a checkpoint saved on one mesh
+resume on another (:mod:`repro_torch.train.elastic`).
 """
 
 from __future__ import annotations
@@ -40,8 +49,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.convert import numpy_to_tensor, stack_layers, tensor_to_numpy
+from ..core.tree import tree_leaves, tree_map
+from ..sharding.comm import barrier, full_tensor, place
+from ..sharding.specs import is_dtensor
 
 __all__ = ["save", "restore", "latest_step", "save_dmm", "restore_dmm"]
 
@@ -69,10 +82,34 @@ def _step_dir(base: str, step: int) -> str:
     return os.path.join(base, f"step_{step:07d}")
 
 
+def _barrier(mesh) -> None:
+    """Every rank of ``mesh`` (of the process group when None) waits for
+    all the others."""
+    if mesh is None:
+        barrier()
+        return
+    for i in range(mesh.ndim):  # one barrier along each axis reaches every rank
+        barrier(mesh.get_group(i))
+
+
 def save(base: str, step: int, params: Any, opt_state: Any, meta: Dict, dusb=None) -> str:
     """Write (params, opt_state) at ``step`` under ``base`` and publish it;
     returns the step's directory.  ``dusb``: the mapping state to store
-    beside it (:func:`save_dmm`)."""
+    beside it (:func:`save_dmm`).  Under a process group every rank calls
+    it (see the module docstring)."""
+    if not dist.is_initialized():
+        return _write(base, step, params, opt_state, meta, dusb)
+    dts = [t for t in tree_leaves(params) + tree_leaves(opt_state) if is_dtensor(t)]
+    mesh = dts[0].device_mesh if dts else None
+    whole = lambda t: full_tensor(t) if is_dtensor(t) else t  # noqa: E731
+    params, opt_state = tree_map(whole, params), tree_map(whole, opt_state)
+    writer = (not any(mesh.get_coordinate())) if mesh is not None else dist.get_rank() == 0
+    final = _write(base, step, params, opt_state, meta, dusb) if writer else _step_dir(base, step)
+    _barrier(mesh)
+    return final
+
+
+def _write(base: str, step: int, params: Any, opt_state: Any, meta: Dict, dusb) -> str:
     os.makedirs(base, exist_ok=True)
     final = _step_dir(base, step)
     tmp = final + ".tmp"
@@ -125,8 +162,9 @@ def _load(arrays: str, dtypes: Dict[str, str], name: str) -> torch.Tensor:
 def restore(base: str, step: int, like: Tuple[Any, Any]) -> Tuple[Any, Any, Dict]:
     """Restore (params, opt_state, meta) of ``step`` with the structure of
     ``like`` (a (params, opt_state) pair of port trees): each leaf takes the
-    dtype and device of its ``like`` leaf, and a ``layers`` /
-    ``enc_layers`` list takes its layers apart from the stacked file."""
+    dtype and device of its ``like`` leaf (a DTensor ``like`` leaf: this
+    rank's shard, placed as it is), and a ``layers`` / ``enc_layers`` list
+    takes its layers apart from the stacked file."""
     final = _step_dir(base, step)
     arrays = os.path.join(final, "arrays")
     with open(os.path.join(final, "dtypes.json")) as f:
@@ -137,7 +175,8 @@ def restore(base: str, step: int, like: Tuple[Any, Any]) -> Tuple[Any, Any, Dict
         if name not in cache:
             cache[name] = _load(arrays, dtypes, name)
         t = cache[name] if layer is None else cache[name][layer]
-        return t.to(device=like_t.device, dtype=like_t.dtype).clone()
+        t = t.to(device=like_t.device, dtype=like_t.dtype).clone()
+        return place(t, like_t.device_mesh, like_t.placements) if is_dtensor(like_t) else t
 
     def build(node: Any, path: Tuple[str, ...], layer: Optional[int]) -> Any:
         if not isinstance(node, dict):

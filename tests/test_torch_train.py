@@ -540,11 +540,18 @@ def test_make_train_step_matches_the_reference(n_micro):
 
 
 def test_training_refuses_a_mesh():
+    """A mesh that is not a ``torch.distributed`` DeviceMesh is refused (the
+    mesh itself is trained on in tests/test_torch_mesh.py), and so is a
+    DeviceMesh outside a process group."""
+    from repro_torch.launch.mesh import make_local_mesh
+
     _, tcfg = _configs("olmo")
-    with pytest.raises(NotImplementedError, match="15.3"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TLOOP.init_all(tcfg, TLOOP.TrainConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="15.3"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TLOOP.train(tcfg, TLOOP.TrainConfig(steps=1), mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_local_mesh(1, 1, device="cpu")
 
 
 def test_train_entry_points_default_to_the_card():
