@@ -8,7 +8,9 @@ audio and VLM families (whisper-tiny, internvl2-1b), its training path
 (olmo-1b fed by METL, every family's train step against the CPU) and its
 model mesh (four ranks sharing the card: sharded and data-parallel
 training, the int8 all-reduce, expert parallelism, a resharded
-checkpoint) on one NVIDIA card and check them.
+checkpoint) and its launch tools (the roofline's constants measured, the
+ETL roofline, the dry run against the training step) on one NVIDIA card
+and check them.
 
 Run from the repository root with no arguments:
 
@@ -339,8 +341,28 @@ failure raises and the script exits non-zero):
    reference's gate); (d) (a)'s sharded state saved (every rank gathers,
    rank 0 writes) and resharded onto a (4, 1) mesh, every leaf bit for
    bit.  Each rank's line prints its step seconds (the sharded step, each
-   data-parallel step), the host seconds inside collective calls,
-   ``max_memory_allocated`` and its feed's launches.
+   data-parallel step), the host seconds inside collective calls and their
+   bytes by kind, ``max_memory_allocated`` and its feed's launches;
+9. (after 6's timing) the launch tools (``launch tools`` lines, each
+   naming the card, then the ``launch tools:`` JSON line): (a) HBM bytes/s
+   of a 1 GiB device-to-device copy (read plus written), PCIe bytes/s of a
+   256 MiB pinned host-to-device copy and host seconds a launch (4,096
+   empty-kernel launches from one C call), each beside
+   ``repro_torch.launch.roofline``'s constant, which must lie within a
+   factor 2 of it; (b) an ``engines`` artifact (``build/etl_roofline.json``)
+   of step 4's six consume paths -- dispatches and host-to-device bytes on
+   a chunk after the evolution, the bytes its kernels must move there (the
+   byte counts of step 6) and the measured median-chunk events/s -- and its
+   ETL roofline table: no path may map faster than 1.05 times its ceiling;
+   (c) the dry run (``repro_torch.launch.dryrun_lib.run_cell``) of phase 7
+   (a)'s own cell on a (1, 1) mesh: its argument bytes must equal the real
+   parameter, moment and batch trees' bytes, its argument plus temp bytes
+   over phase 7's ``max_memory_allocated`` must lie in [0.5, 2], and its
+   counted flops over phase 7's step are printed as TFLOP/s against 989;
+   the collective bytes by kind that each rank of phase 8 recorded over its
+   first sharded step must equal the dry run's of that step on a (2, 2)
+   shape mesh; then llama3-405b ``train_4k`` on the (16, 16) shape mesh, which must
+   complete and leave ``torch.cuda.memory_allocated()`` unchanged.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -4201,6 +4223,15 @@ def train_flop_bound(cfg, batch, seq) -> dict:
             "bound_s": flops / BF16_DENSE_PEAK, "bound_with_remat_s": remat / BF16_DENSE_PEAK}
 
 
+def olmo_train_config(batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """Phase 7 (a)'s ``TrainConfig`` (phase 9 (c) dry-runs the same step)."""
+    from repro_torch.train.loop import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    return TrainConfig(steps=TRAIN_WARMUP + TRAIN_TIMED, batch=batch, seq=seq, log_every=1,
+                       opt=AdamWConfig(warmup_steps=1))
+
+
 def train_olmo_etl(dev, cfg=None, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> dict:
     """Phase 7 (a): ``train(batch_fn=TrainFeed(...))`` of olmo-1b at full
     width and depth in bfloat16 (remat "full", dense attention) on ``dev``,
@@ -4211,12 +4242,11 @@ def train_olmo_etl(dev, cfg=None, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> dict:
     after: the feed's ``segmented_gather`` and no other kernel."""
     from repro_torch import configs
     from repro_torch.train import loop as L
-    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.optimizer import adamw_update
 
     cfg = cfg or configs.get("olmo_1b")
     on_card = torch.device(dev).type == "cuda"
-    tc = L.TrainConfig(steps=TRAIN_WARMUP + TRAIN_TIMED, batch=batch, seq=seq, log_every=1,
-                       opt=AdamWConfig(warmup_steps=1))
+    tc = olmo_train_config(batch, seq)
     feed = TrainFeed(dev, cfg.vocab, seq, batch)
     marks = []
     if on_card:
@@ -4258,6 +4288,9 @@ def train_olmo_etl(dev, cfg=None, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> dict:
     # the optimizer alone, on the last step's gradients
     params, opt_state = out["params"], out["opt_state"]
     del out
+    # the step's arguments, for phase 9 (c)'s dry run
+    res["argument_bytes"] = {"params": _nbytes(params), "opt_state": _nbytes(opt_state),
+                             "batch": sum(v.nbytes for v in feed.first[0].values())}
     first = {k: torch.as_tensor(v).to(dev) for k, v in feed.first[0].items()}
     _, grads = L.value_and_grad(params, cfg, first)
     opt_times = []
@@ -4564,13 +4597,13 @@ def _mesh_whole(tree):
 def _comm_reset():
     from repro_torch.sharding import comm
 
-    comm.STATS.update(calls=0, seconds=0.0)
+    comm.reset_stats()
 
 
 def _comm_read():
     from repro_torch.sharding import comm
 
-    return dict(comm.STATS)
+    return {**comm.STATS, "bytes": dict(comm.STATS["bytes"])}
 
 
 def _mesh_olmo(mesh, dev, smoke, base):
@@ -5014,6 +5047,228 @@ def measure_moe_combine(fp32_peak):
 # -- main --------------------------------------------------------------------------
 
 
+# -- phase 9: the launch tools ----------------------------------------------------
+
+HBM_COPY_BYTES = 1 << 30  # (a): the device-to-device copy
+PCIE_COPY_BYTES = 256 << 20  # (a): the pinned host-to-device copy
+LAUNCH_N = 4096  # (a): empty-kernel launches from one C call
+CONST_FACTOR = 2.0  # (a): each roofline constant within this factor of its measurement
+ROOF_SLACK = 1.05  # (b): no path's measured events/s above its ceiling by more
+PEAK_RATIO = (0.5, 2.0)  # (c): predicted peak over max_memory_allocated
+ETL_ARTIFACT = REPO / "build" / "etl_roofline.json"  # (b), git-ignored
+ETL_PATHS = {  # (b): the roofline's engine name, the main path, its kernel's measurement
+    "fused host densify": ("cuda/host", "segmented_gather"),
+    "fused device densify": ("cuda/device", "densify_map"),
+    "sharded host densify (4 shards)": ("cuda/sharded-host", "segmented_gather_shard"),
+    "sharded device densify (4 shards)": ("cuda/sharded-device", "densify_map_shard"),
+    "per-block gather": ("cuda/blocks-gather", "masked_gather"),
+    "per-block onehot": ("cuda/blocks-onehot", "onehot_map"),
+}
+
+
+def _event_ms(fn, reps=5) -> float:
+    """Median device ms of ``fn`` between two CUDA events, after a warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_launch_s(n=LAUNCH_N, reps=5) -> float:
+    """Host seconds a launch: ``n`` empty-kernel launches issued from one C
+    call (``metl_empty_n``, as the engines' chunk launchers issue theirs),
+    on the host clock, median of ``reps``."""
+    from repro_torch.kernels import build
+
+    fn = build.load("launch_floor").metl_empty_n
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if fn(stream, n) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+        times.append((time.perf_counter() - t0) / n)
+    torch.cuda.synchronize()
+    return statistics.median(times[1:])
+
+
+def h100_constants(dev) -> dict:
+    """Phase 9 (a): HBM bytes/s of a 1 GiB device-to-device copy (read plus
+    written), PCIe bytes/s of a 256 MiB pinned host-to-device copy, host s
+    a launch; each beside ``launch/roofline.py``'s constant, which must lie
+    within ``CONST_FACTOR`` of it."""
+    from repro_torch.launch import roofline
+
+    src = torch.empty(HBM_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    hbm = 2 * HBM_COPY_BYTES / (_event_ms(lambda: dst.copy_(src)) / 1e3)
+    del src, dst
+    host = torch.empty(PCIE_COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev_buf = torch.empty(PCIE_COPY_BYTES, dtype=torch.uint8, device=dev)
+    pcie = PCIE_COPY_BYTES / (_event_ms(lambda: dev_buf.copy_(host, non_blocking=True)) / 1e3)
+    del host, dev_buf
+    _free()
+    out = {}
+    for name, measured in (("HBM_BW", hbm), ("PCIE_BW", pcie), ("LAUNCH_S", host_launch_s())):
+        const = getattr(roofline, name)
+        out[name] = {"measured": measured, "roofline": const, "ratio": const / measured}
+    off = {k: v for k, v in out.items() if not 1 / CONST_FACTOR <= v["ratio"] <= CONST_FACTOR}
+    if off:
+        raise AssertionError(f"roofline constants off their measurements by more than "
+                             f"{CONST_FACTOR}x: {json.dumps(off)}")
+    return out
+
+
+def per_block_chunk(app, chunk, reads_all) -> dict:
+    """The per-block engine on one chunk: its dispatches (one a block the
+    chunk's groups touch), host-to-device bytes (each group's values and
+    mask) and the bytes its launches must move (``per_block_bytes`` of
+    every block)."""
+    app.reset_dedup()
+    dense = app.engine.densify(app.triage(chunk))
+    dev = app.device
+    out = {"dispatches": 0, "host_bytes": 0, "device_bytes": 0}
+    for g, ov in enumerate(dense.columns):
+        blocks = dense.plan.column(*ov)
+        if not blocks:
+            continue
+        vals, mask = dense.payload(g)
+        out["host_bytes"] += vals.nbytes + mask.nbytes
+        v, m = torch.from_numpy(vals).to(dev), torch.from_numpy(mask).to(dev)
+        for blk in blocks:
+            out["dispatches"] += 1
+            out["device_bytes"] += per_block_bytes(v, m, blk.src_dev, reads_all=reads_all)
+    return out
+
+
+def etl_roofline(runs, rates, meas, probe) -> dict:
+    """Phase 9 (b): an ``engines`` artifact from step 4's consume paths --
+    per chunk, dispatches and host-to-device bytes on the probe chunk (the
+    operands the engine copies), device bytes (the kernels' byte counts on
+    that chunk) and the measured median-chunk events/s -- written to
+    ``ETL_ARTIFACT`` and put on ``launch/roofline.py``'s ETL roofline; no
+    path may map faster than ``ROOF_SLACK`` times its ceiling."""
+    from repro_torch.launch.roofline import analyze_etl, render_etl_table
+
+    engines = []
+    for name, (run, kernel) in ETL_PATHS.items():
+        app = runs[run][3]
+        if kernel in ("masked_gather", "onehot_map"):
+            facts = per_block_chunk(app, probe, reads_all=kernel == "onehot_map")
+        else:
+            app.reset_dedup()
+            _, _, operands = main_path_operands(app, probe)
+            facts = {"dispatches": runs[run][1]["dispatches"] / CHUNKS,
+                     "host_bytes": sum(x.nbytes for x in operands),
+                     "device_bytes": meas[kernel]["bytes"]}
+        engines.append({"engine": name, "chunk_events": CHUNK_EVENTS,
+                        "events_per_s": rates[run], **facts})
+    artifact = {"card": card_line(), "engines": engines}
+    ETL_ARTIFACT.parent.mkdir(parents=True, exist_ok=True)
+    ETL_ARTIFACT.write_text(json.dumps(artifact, indent=1))
+    rows = analyze_etl(artifact)
+    print(render_etl_table(rows), flush=True)
+    for r in rows:
+        if r["measured_events_per_s"] > ROOF_SLACK * r["roof_events_per_s"]:
+            raise AssertionError(f"{r['engine']}: {r['measured_events_per_s']:.0f} ev/s measured "
+                                 f"above its roof {r['roof_events_per_s']:.0f}")
+    return {"rows": rows, "artifact": str(ETL_ARTIFACT.relative_to(REPO))}
+
+
+def dryrun_against_card(dev, trained, meshed) -> dict:
+    """Phase 9 (c): the dry run of phase 7 (a)'s own training cell on a (1,
+    1) mesh beside its real tree bytes (equal), its peak beside phase 7's
+    ``max_memory_allocated`` (ratio within ``PEAK_RATIO``) and its counted
+    flops over phase 7's measured step; the dry run of phase 8's first
+    sharded step on a (2, 2) shape mesh, whose collective bytes by kind
+    must equal what each rank's ``comm.STATS`` recorded; then llama3-405b
+    ``train_4k`` on (16, 16), which must leave the card's memory as it
+    is."""
+    from repro_torch import configs
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.dryrun_lib import ShapeMesh, production_mesh, run_cell, trace_cell
+    from repro_torch.train import loop as L
+    from repro_torch.train.optimizer import AdamWConfig
+
+    t7 = trained["olmo-1b etl"]
+    c = t7["config"]
+    cell = ShapeCell("phase7", c["seq"], c["batch"], "train")
+    t0 = time.perf_counter()
+    res = run_cell("olmo_1b", cell, ShapeMesh(1, 1), verbose=False,
+                   train_config=olmo_train_config(c["batch"], c["seq"]))
+    if not res.ok:
+        raise AssertionError(f"dry run of phase 7's cell failed: {res.error}")
+    real_args = sum(t7["argument_bytes"].values())
+    pred_args = res.memory["argument_bytes"]
+    if pred_args != real_args:
+        raise AssertionError(f"dry-run argument bytes {pred_args} != the real trees' "
+                             f"{real_args} {t7['argument_bytes']}")
+    peak = res.memory["argument_bytes"] + res.memory["temp_bytes"]
+    ratio = peak / t7["max_memory_allocated"]
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        raise AssertionError(f"dry-run peak {peak} over max_memory_allocated "
+                             f"{t7['max_memory_allocated']} = {ratio:.3f}, outside {PEAK_RATIO}")
+    step_s = t7["step_s"]["median"]
+    out = {"cell": {"arch": res.arch, "seq": c["seq"], "batch": c["batch"], "mesh": res.mesh,
+                    "remat": c["remat"], "attn_impl": c["attn_impl"], "dtype": c["dtype"]},
+           "seconds": time.perf_counter() - t0, "memory": res.memory, "cost": res.cost,
+           "argument_bytes_real": real_args, "argument_bytes_equal": True,
+           "max_memory_allocated": t7["max_memory_allocated"], "peak_ratio": ratio,
+           "step_s": step_s, "achieved_tflops": res.cost["flops"] / step_s / 1e12,
+           "peak_tflops": BF16_DENSE_PEAK / 1e12,
+           "model_flops_global": res.model_flops_global}
+    out["achieved_share"] = out["achieved_tflops"] * 1e12 / BF16_DENSE_PEAK
+    mesh_cfg = _mesh_cfg("olmo_1b", param_dtype="float32", compute_dtype="float32")
+    mesh_tc = L.TrainConfig(steps=1, batch=MESH_BATCH, seq=MESH_SEQ, log_every=1,
+                            opt=AdamWConfig(warmup_steps=1))
+    want = trace_cell(mesh_cfg, ShapeCell("phase8", MESH_SEQ, MESH_BATCH, "train"),
+                      ShapeMesh(*MESH_SHAPE), mesh_tc)["collectives"]
+    got = [r["train_first_step_collectives"]["bytes"] for r in meshed["ranks"]]
+    if any(g != want for g in got):
+        raise AssertionError(f"phase 8's collective bytes {got} != the dry run's {want}")
+    out["phase 8 collectives"] = {"dry_run": want, "ranks_equal": len(got)}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    big = run_cell("llama3_405b", "train_4k", production_mesh(), verbose=False)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if not big.ok or after != before:
+        raise AssertionError(f"llama3-405b train_4k dry run: ok {big.ok} {big.error}, "
+                             f"memory_allocated {before} -> {after}")
+    out["llama3_405b train_4k 16x16"] = {
+        "seconds": time.perf_counter() - t0, "memory": big.memory, "flops": big.cost["flops"],
+        "collectives": big.collectives, "memory_allocated_before": before,
+        "memory_allocated_after": after, "configs": len(configs.ARCHS)}
+    return out
+
+
+def launch_tools(dev, runs, rates, meas, trained, meshed, probe) -> dict:
+    """Phase 9 (see the module docstring); every line names the card."""
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {"card": card, "constants": h100_constants(dev)}
+    print(f"{elapsed()} launch tools (a) H100 constants [{card}]: "
+          + json.dumps(out["constants"]), flush=True)
+    out["etl"] = etl_roofline(runs, rates, meas, probe)
+    print(f"{elapsed()} launch tools (b) ETL roofline [{card}]: " + json.dumps(out["etl"]),
+          flush=True)
+    out["dryrun"] = dryrun_against_card(dev, trained, meshed)
+    print(f"{elapsed()} launch tools (c) dry run against phase 7 [{card}]: "
+          + json.dumps(out["dryrun"]), flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5081,7 +5336,7 @@ def main() -> int:
     cfg = _paper_config()
     stream = Stream(CHUNK_EVENTS)
     paths = MAIN_PATHS
-    runs = {}
+    runs, rates = {}, {}
     for where, device in (("cuda", dev), ("cpu", "cpu")):
         for pname, path in paths.items():
             name = f"{where}/{pname}"
@@ -5098,6 +5353,7 @@ def main() -> int:
             runs[name] = (rows, stats, launches, app)
             info = app.engine.info()
             seconds, median_s = sum(chunk_s), statistics.median(chunk_s)
+            rates[name] = CHUNK_EVENTS / median_s
             per = {k: sum(a[k] for a in per_chunk) / CHUNKS
                    for k in ("dispatches", "transfers")}
             print(f"{elapsed()} main path {name}: {CHUNKS} x {CHUNK_EVENTS} events in "
@@ -5298,6 +5554,8 @@ def main() -> int:
         launches_by_path=flash_by_path, other_prefills=flash_prefills)
     kernels[[k["name"] for k in kernels].index("segmented_gather")].update(
         launches_by_path=gather_by_path)
+    print("launch tools: " + json.dumps(launch_tools(dev, runs, rates, meas, trained, meshed, probe)),
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,8 +39,9 @@ def trunc_normal(gen: torch.Generator, shape: Sequence[int], scale: float,
     fan_in = shape[0] if len(shape) >= 1 else 1
     std = scale / math.sqrt(max(fan_in, 1))
     x = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(x, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std,
-                                generator=gen)
+    if x.device.type != "meta":  # meta: shapes alone, nothing drawn (the dry run)
+        torch.nn.init.trunc_normal_(x, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std,
+                                    generator=gen)
     return x.to(dtype)
 
 

@@ -139,6 +139,14 @@ def _enc_layer_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+class _ShapesOnly:
+    """The generator of a parameter tree on the ``meta`` device, which has
+    none: it carries the device, and ``trunc_normal`` draws nothing there."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+
 def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0, *,
                 device: DeviceLike = "cuda") -> Dict[str, Any]:
     """Random parameters for ``cfg`` on ``device`` (the card by default;
@@ -148,9 +156,12 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0, *,
     encoder-decoder then each encoder layer and the encoder positions), so
     one seed on one device always gives the same parameters; they are not
     the reference's ``PRNGKey`` draws (use ``params_from_jax`` for
-    those)."""
+    those).  On ``device="meta"`` the tree has the shapes and dtypes alone
+    and ``generator`` is not used (the dry run)."""
     dev = resolve_device(device)
-    if isinstance(generator, int):
+    if dev.type == "meta":  # shapes alone (the dry run): no generator, no draws
+        generator = _ShapesOnly(dev)
+    elif isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on {dev}")

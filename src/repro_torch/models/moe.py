@@ -57,7 +57,6 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..sharding import comm
@@ -257,7 +256,7 @@ def _moe_ep_local(p_local: Params, x: torch.Tensor, cfg: ModelConfig, group):
     D), probs, experts)."""
     T, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    n_shards = dist.get_world_size(group)
+    n_shards = comm.group_size(group)
     if E % n_shards:
         raise ValueError(f"ep: {E} experts do not split over a model axis of {n_shards}")
     E_loc = E // n_shards

@@ -18,6 +18,13 @@ same order.  DTensors only hold the parameters' shards and placements.
     their adjoints as backward;
   * :func:`value_with_grad` and :func:`scale_grad` -- a value with another
     tensor's gradient, and a gradient scaled.
+
+:data:`STATS` counts the calls, their host seconds and their bytes by kind
+(``all-gather``, ``reduce-scatter``, ``all-reduce``, ``all-to-all``): the
+result bytes of each call on this rank, the convention of the reference's
+``collective_bytes``.  A call over a :class:`DryGroup` stand-in reaches
+no ``torch.distributed``: the dry run (:mod:`repro_torch.launch.
+dryrun_lib`) counts the collectives of a step that way.
 """
 
 from __future__ import annotations
@@ -25,46 +32,78 @@ from __future__ import annotations
 import contextlib
 import time
 import warnings
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["STATS", "axes_group", "gather", "full_tensor", "place", "all_gather_rows",
-           "all_to_all", "value_with_grad", "scale_grad", "all_reduce", "all_reduce_sum",
-           "barrier"]
+__all__ = ["STATS", "reset_stats", "DryGroup", "group_size", "axes_group", "gather_plan",
+           "gather", "gather_local", "full_tensor", "place", "all_gather_rows", "all_to_all",
+           "value_with_grad", "scale_grad", "all_reduce", "all_reduce_sum", "barrier"]
 
 
-# host seconds spent inside the collective calls of this module, and their
-# count (on gloo a call returns when its data has arrived; on NCCL when it
-# is enqueued on the stream)
-STATS = {"calls": 0, "seconds": 0.0}
+# the collective calls of this module: their count, the host seconds spent
+# inside them (on gloo a call returns when its data has arrived; on NCCL when
+# it is enqueued on the stream) and their result bytes by kind
+STATS: Dict[str, Any] = {"calls": 0, "seconds": 0.0, "bytes": {}}
 
 
-@contextlib.contextmanager
-def _call():
-    """Count and time one collective call.  Newer torch deprecates
+def reset_stats() -> None:
+    STATS.update(calls=0, seconds=0.0, bytes={})
+
+
+class DryGroup:
+    """A process group stand-in of ``n`` ranks.  A collective over it
+    reaches neither ``torch.distributed`` nor :data:`STATS`: its result
+    tensor keeps the shape it was allocated with, and ``hook(kind, result,
+    args)`` sees the call (``args`` its positional arguments, the tensors it
+    would read among them): the dry run's count."""
+
+    def __init__(self, n: int, hook: Optional[Callable[[str, torch.Tensor, tuple], None]] = None):
+        self.n = n
+        self.hook = hook
+
+    def size(self) -> int:
+        return self.n
+
+
+def group_size(group) -> int:
+    """The rank count of ``group`` (a process group, None for the world, or
+    a :class:`DryGroup`)."""
+    return group.size() if isinstance(group, DryGroup) else dist.get_world_size(group)
+
+
+def _issue(kind: str, result: Optional[torch.Tensor], fn: Callable, *args, group=None,
+           **kwargs) -> None:
+    """Issue one collective call ``fn(*args, group=group, **kwargs)``,
+    counted in :data:`STATS` with ``result``'s bytes under ``kind`` (over a
+    :class:`DryGroup`, only its hook sees it).  Newer torch deprecates
     ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` for names the
     card's torch lacks: the calls stay, the warning is silenced."""
+    if isinstance(group, DryGroup):
+        if group.hook is not None:
+            group.hook(kind, result, args)
+        return
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        yield
+        fn(*args, group=group, **kwargs)
     STATS["calls"] += 1
     STATS["seconds"] += time.perf_counter() - t0
+    if result is not None:
+        STATS["bytes"][kind] = STATS["bytes"].get(kind, 0) + result.numel() * result.element_size()
 
 
 def all_reduce(x: torch.Tensor, group=None, op=None) -> torch.Tensor:
     """``dist.all_reduce`` in place (sum unless ``op``), counted in
     :data:`STATS`; returns ``x``."""
-    with _call():
-        dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    _issue("all-reduce", x, dist.all_reduce, x,
+           op=dist.ReduceOp.SUM if op is None else op, group=group)
     return x
 
 
 def barrier(group=None) -> None:
-    with _call():
-        dist.barrier(group=group)
+    _issue("barrier", None, dist.barrier, group=group)
 
 
 _GROUPS: Dict[Tuple[int, Tuple[str, ...]], Any] = {}  # (id(mesh), axes) -> group
@@ -91,40 +130,40 @@ def axes_group(mesh, axes: Sequence[str]):
 
 
 def _gather_dim(x: torch.Tensor, d: int, group) -> torch.Tensor:
-    n = dist.get_world_size(group)
+    n = group_size(group)
     # the concatenated form (gloo takes no other): (n * x0, ...)
     out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
-    with _call():
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    _issue("all-gather", out, dist.all_gather_into_tensor, out, x.contiguous(), group=group)
     if d == 0:
         return out
     return torch.cat(out.view(n, *x.shape).unbind(0), dim=d)
 
 
 def _reduce_scatter_dim(g: torch.Tensor, d: int, group) -> torch.Tensor:
-    n = dist.get_world_size(group)
+    n = group_size(group)
     parts = g.chunk(n, dim=d)
     out = torch.empty(parts[0].shape, dtype=g.dtype, device=g.device)
-    with _call():
-        dist.reduce_scatter_tensor(out, g.contiguous() if d == 0 else torch.cat(parts, 0),
-                                   group=group)
+    _issue("reduce-scatter", out, dist.reduce_scatter_tensor, out,
+           g.contiguous() if d == 0 else torch.cat(parts, 0), group=group)
     return out
 
 
-def _plan(t, keep: Sequence[str]) -> Tuple:
+def gather_plan(placements: Sequence, sizes: Sequence[int], names: Sequence[str],
+         coord: Sequence[int], keep: Sequence[str] = ()) -> Tuple:
     """(mesh dim, group size, tensor dim or None, this rank's index) for
-    every mesh axis of ``t`` not in ``keep``, outermost first."""
+    every mesh axis not in ``keep``, outermost first: how :func:`gather`
+    rebuilds a tensor placed by ``placements`` over a mesh of axis
+    ``sizes`` and ``names``, on the rank at ``coord``."""
     from torch.distributed.tensor import Shard
 
+    return tuple((i, sizes[i], pl.dim if isinstance(pl, Shard) else None, coord[i])
+                 for i, pl in enumerate(placements) if names[i] not in keep)
+
+
+def _plan(t, keep: Sequence[str]) -> Tuple:
     mesh = t.device_mesh
-    names = tuple(mesh.mesh_dim_names)
-    coord = mesh.get_coordinate()
-    out = []
-    for i, pl in enumerate(t.placements):
-        if names[i] in keep:
-            continue
-        out.append((i, mesh.size(i), pl.dim if isinstance(pl, Shard) else None, coord[i]))
-    return tuple(out)
+    return gather_plan(t.placements, [mesh.size(i) for i in range(mesh.ndim)],
+                tuple(mesh.mesh_dim_names), mesh.get_coordinate(), keep)
 
 
 class _Gather(torch.autograd.Function):
@@ -159,10 +198,17 @@ def gather(t, data_axes: Sequence[str], keep: Sequence[str] = ()) -> torch.Tenso
     in ``keep`` stay split: this rank's part along them), through autograd:
     the gradient is summed over ``data_axes`` and taken as it is over the
     other axes (see the module docstring)."""
-    plan = _plan(t, keep)
-    names = tuple(t.device_mesh.mesh_dim_names)
+    return gather_local(t.to_local(), t.device_mesh, _plan(t, keep),
+                        tuple(t.device_mesh.mesh_dim_names), data_axes)
+
+
+def gather_local(local: torch.Tensor, mesh, plan: Tuple, names: Sequence[str],
+                 data_axes: Sequence[str]) -> torch.Tensor:
+    """:func:`gather` of a shard ``local`` by its :func:`gather_plan` over
+    ``mesh``, whose ``get_group(i)`` gives mesh dim ``i``'s group (a
+    :class:`DryGroup` in the dry run)."""
     partial = tuple(names[i] in data_axes for i, _, _, _ in plan)
-    return _Gather.apply(t.to_local(), t.device_mesh, plan, partial)
+    return _Gather.apply(local, mesh, plan, partial)
 
 
 @torch.no_grad()
@@ -209,8 +255,7 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)  # contiguous, whatever x is
-    with _call():
-        dist.all_to_all_single(out, x.contiguous(), group=group)
+    _issue("all-to-all", out, dist.all_to_all_single, out, x.contiguous(), group=group)
     return out
 
 

@@ -110,7 +110,8 @@ def value_and_grad(params: Any, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
-                    sh: Optional[ShardingPolicy] = None) -> Callable:
+                    sh: Optional[ShardingPolicy] = None, *,
+                    on_micro: Optional[Callable[[int], None]] = None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics), metrics
     ``{"loss", "grad_norm", "lr"}`` as float32 scalars on the device (no
     host sync).  ``batch`` holds tensors on the parameters' device.
@@ -120,7 +121,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     the whole batch on every rank: each microbatch (the whole batch's
     split, as the reference splits it) gives this data rank its rows, and
     the step returns the whole batch's loss and the parameters the
-    reference's GSPMD step computes, on every rank."""
+    reference's GSPMD step computes, on every rank.
+
+    ``on_micro(i)``, when given, runs after microbatch ``i`` has been
+    added to the accumulators (``n_micro > 1``; the dry run counts the
+    microbatches with it)."""
     sharded = sh is not None and sh.sharded
 
     def local(b):
@@ -131,12 +136,14 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
             adt = getattr(torch, tc.accum_dtype)
             micro = _split_micro(batch, tc.n_micro)
             gsum = tree_map(lambda p: torch.zeros_like(p, dtype=adt), params)
-            lsum = None
+            lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for i in range(tc.n_micro):
                 mb = local({k: v[i] for k, v in micro.items()})
                 loss, grads = value_and_grad(params, cfg, mb, sh)
                 gsum = tree_map(lambda a, g: a + g.to(adt), gsum, grads)
-                lsum = loss if lsum is None else lsum + loss
+                lsum = lsum + loss  # from 0, as the reference's scan carry
+                if on_micro is not None:
+                    on_micro(i)
             grads = tree_map(lambda g: g / tc.n_micro, gsum)
             loss = lsum / tc.n_micro
         else:

@@ -20,6 +20,7 @@ from repro_torch.etl.batcher import make_token_batch
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import moe as TMOE
 from repro_torch.models.model import _gather_layer
+from repro_torch.sharding import comm
 from repro_torch.sharding.comm import full_tensor
 from repro_torch.sharding.specs import is_dtensor, make_policy, param_spec_tree
 from repro_torch.train import checkpoint as TCK
@@ -244,9 +245,29 @@ def elastic_restore(mesh, device, base):
     return (meta, got, placed) if _rank0() else None
 
 
+COLLECTIVE_CASES = [("olmo_1b", None), ("qwen3_moe_30b_a3b", "dmm"), ("qwen3_moe_30b_a3b", "ep")]
+
+
+def collectives_case(mesh, device):
+    """One ``train(mesh=...)`` step of each ``COLLECTIVE_CASES`` smoke
+    config (seed-0 weights, the synthetic batch): the bytes by kind that
+    ``comm.STATS`` records over the run, on rank 0."""
+    dev = _dev(device)
+    out = {}
+    for arch, impl in COLLECTIVE_CASES:
+        cfg = TC.get_smoke(arch).replace(**configs(arch, impl))
+        tc = TrainConfig(steps=1, batch=BATCH, seq=SEQ, log_every=1,
+                         opt=AdamWConfig(warmup_steps=1))
+        comm.reset_stats()
+        train(cfg, tc, mesh=mesh, device=dev)
+        out[f"{arch}/{impl}"] = dict(comm.STATS["bytes"])
+    return out if _rank0() else None
+
+
 def mesh_22(mesh, device, params, base, launcher_steps):
     """Every case of the (2, 2) mesh, in one spawn."""
     return {
+        "collectives": collectives_case(mesh, device),
         "ep": ep_case(mesh, device, params["moe"]),
         "train_olmo": train_case(mesh, device, "olmo_1b", None, params["olmo"]),
         "train_moe": train_case(mesh, device, "qwen3_moe_30b_a3b", "dmm", params["qwen3"]),

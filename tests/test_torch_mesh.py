@@ -31,7 +31,9 @@ Tolerances:
   * EP: output within atol/rtol 3e-2 of the reference's EP and of the
     port's ``dmm`` (the reference's gate, in bfloat16); aux within 1e-6
     of the reference's, which is shard (0, 0)'s;
-  * checkpoints: every restored leaf bit for bit, files byte for byte.
+  * checkpoints: every restored leaf bit for bit, files byte for byte;
+  * the collectives of one ``train(mesh=(2, 2))`` step: their bytes by
+    kind (``comm.STATS``) equal the dry run's count for that step.
 """
 
 import filecmp
@@ -515,6 +517,26 @@ def test_train_over_a_mesh_matches_mesh_free_training(runs, name, arch, impl):
     from repro_torch.core.convert import params_to_jax
 
     _trees_close(_flat(params), _flat(params_to_jax(want["params"])))
+
+
+@pytest.mark.parametrize("arch,impl", R.COLLECTIVE_CASES)
+def test_dry_run_counts_the_collectives_of_a_real_step(runs, arch, impl):
+    """The dry run's collective bytes by kind for one train step on a (2,
+    2) shape mesh (``launch.dryrun_lib``, nothing issued) equal what
+    ``comm.STATS`` recorded over one real ``train(mesh=(2, 2))`` step of
+    the same config and batch on gloo."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun_lib as D
+
+    got = runs["p22"]["collectives"][f"{arch}/{impl}"]
+    cfg = TC.get_smoke(arch).replace(**R.configs(arch, impl))
+    tc = TLOOP.TrainConfig(steps=1, batch=R.BATCH, seq=R.SEQ, log_every=1,
+                           opt=TOPT.AdamWConfig(warmup_steps=1))
+    want = D.trace_cell(cfg, ShapeCell("mesh", R.SEQ, R.BATCH, "train"), D.ShapeMesh(2, 2),
+                        tc)["collectives"]
+    assert got == want
+    assert got["all-gather"] > 0 and got["reduce-scatter"] > 0
+    assert ("all-to-all" in got) == (impl == "ep")
 
 
 def test_microbatched_step_over_a_mesh_matches_mesh_free(runs):
