@@ -362,21 +362,45 @@ failure raises and the script exits non-zero):
    the collective bytes by kind that each rank of phase 8 recorded over its
    first sharded step must equal the dry run's of that step on a (2, 2)
    shape mesh; then llama3-405b ``train_4k`` on the (16, 16) shape mesh, which must
-   complete and leave ``torch.cuda.memory_allocated()`` unchanged.
+   complete and leave ``torch.cuda.memory_allocated()`` unchanged;
+10. the examples (``examples *`` lines, each naming the card, then the
+   ``examples:`` JSON line): each port example run in process
+   (``runpy.run_path``, ``sys.argv`` set, standard output captured) on the
+   card and again with ``--device cpu``, the kernels' counts zeroed just
+   before each card run and read just after: ``quickstart`` (no device)
+   must print the reference's text (``QUICKSTART_TEXT``, held against the
+   reference example by ``tests/test_torch_examples.py``);
+   ``pipeline_stream`` fused async, ``--sync`` and ``--engine blocks``, the
+   card's lines equal to the CPU's (rows, dispatches, app stats; the
+   engine line but for its ``device``); ``schema_evolution`` with its
+   defaults and with ``--instances 4``, its asserts holding on the card and
+   its control-log lines and final stats equal to the CPU's;
+   ``etl_train`` with its defaults, its ETL stats equal to the CPU's and
+   each step's loss within ``EXAMPLE_LOSS_ATOL`` of the CPU's, then at
+   ``--model-scale 100m`` on the card alone (steps/s over the run, first
+   and last loss); ``serve_batched --arch olmo_1b``, every request complete
+   and the ``greedy_decode`` and ``Server`` tokens equal to the CPU run's
+   (a flip prints its request, position and the CPU logits' top-2 gap
+   there, and fails at a gap above ``EXAMPLE_FLIP_GAP``).  The examples'
+   ``segmented_gather`` and ``masked_gather`` launches join those kernels'
+   ``launches_by_path`` in the ``kernels`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import ctypes
 import functools
 import gc
+import io
 import json
 import math
 import os
 import re
+import runpy
 import shutil
 import socket
 import statistics
@@ -2836,6 +2860,7 @@ def check_moe_combine(device: torch.device) -> dict:
 SERVE_BATCH, PROMPT_LEN = 2, 2048
 TEACHER_STEPS = 32
 RANGE_PREFIXES = ("moe.", "ssm.", "av.")  # the record_function ranges of the profiled splits
+PROFILE_TRIES = 3  # profiled calls a flash prefill may take to give a trace that lost no event
 
 
 def _to(tree, device, dtype=None):
@@ -2969,6 +2994,38 @@ def prefill_profile(params, cfg, batch, ranges=contextlib.nullcontext) -> dict:
     return device_profile(lambda: M.forward(params, cfg, batch), ranges)
 
 
+def flash_prefill_profile(params, cfg, batch, want: int, what: str,
+                          ranges=contextlib.nullcontext) -> dict:
+    """:func:`prefill_profile` of a bf16 prefill whose ``want`` flash
+    launches must all be the tensor-core kernel.  Raises at once if the
+    wrappers count another number of launches in the profiled call, or if
+    the trace holds a flash kernel of another name or more tensor-core
+    events than launches.  A trace with fewer events than counted launches
+    lost records (the profiler has dropped such an event from a whisper
+    prefill whose every launch the wrappers counted): the call is profiled
+    again, up to ``PROFILE_TRIES`` calls in all, and only
+    a complete trace is kept (``profile_tries`` says which call gave it);
+    none complete raises."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = _launch_counts()["flash_attention"]
+        profile = prefill_profile(params, cfg, batch, ranges)
+        launched = _launch_counts()["flash_attention"] - before
+        flash = profile["flash_kernels"]
+        seen = sum(c for name, (_, c) in flash.items() if "flash_attention_wgmma_kernel" in name)
+        others = [name for name in flash if "flash_attention_wgmma_kernel" not in name]
+        if launched != want or others or seen > launched:
+            raise AssertionError(f"{what}'s bf16 prefill: {launched} flash launches counted, "
+                                 f"flash kernels in the trace {flash}: want {want} launches "
+                                 f"of the tensor-core kernel and no other")
+        if seen == want:
+            profile["profile_tries"] = tries
+            return profile
+        print(f"{elapsed()} {what} prefill profile {tries}: the trace holds {seen} of the "
+              f"{launched} tensor-core flash launches counted; profiling again", flush=True)
+    raise AssertionError(f"{what}'s bf16 prefill: no complete trace in {PROFILE_TRIES} "
+                         f"profiled calls (the last saw {seen} of {want} flash launches)")
+
+
 def run_server(params, cfg, device, sc, prompts):
     """A ``Server`` on ``device`` answering ``prompts``; returns (done,
     seconds, device steps, launch counts over the run)."""
@@ -3050,14 +3107,9 @@ def serving_path(dev: torch.device) -> dict:
     out["prefill_s"], out["prefill_dense_s"] = prefill_s, dense_s
     out["prefill_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / prefill_s
     out["prefill_dense_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / dense_s
-    out["prefill_profile"] = prefill_profile(params, fa, batch)
+    out["prefill_profile"] = flash_prefill_profile(params, fa, batch, cfg.n_layers, cfg.name)
     flash_kernels = out["prefill_profile"]["flash_kernels"]
     print(f"{elapsed()} prefill flash kernels (bf16): " + json.dumps(flash_kernels), flush=True)
-    counts = [c for name, (_, c) in flash_kernels.items()
-              if "flash_attention_wgmma_kernel" in name]
-    if len(flash_kernels) != 1 or counts != [cfg.n_layers]:
-        raise AssertionError(f"the bf16 prefill's flash kernels {flash_kernels}: want "
-                             f"{cfg.n_layers} launches of the tensor-core kernel and no other")
     print(f"{elapsed()} serving (a) bf16 prefill: " + json.dumps(
         {k: out[k] for k in ("prefill_bf16_vs_dense", "prefill_flash_attention_launches",
                              "prefill_s", "prefill_tokens_per_s", "prefill_dense_s",
@@ -3423,17 +3475,13 @@ def qwen3_moe_full(dev, cfg) -> dict:
     out["prefill_s"], out["prefill_dense_s"] = prefill_s, dense_s
     out["prefill_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / prefill_s
     out["prefill_dense_tokens_per_s"] = SERVE_BATCH * PROMPT_LEN / dense_s
-    profile = prefill_profile(params, fa, batch, ranges=moe_ranges)
+    profile = flash_prefill_profile(params, fa, batch, cfg.n_layers, cfg.name,
+                                    ranges=moe_ranges)
     out["prefill_profile"] = profile
     out["prefill_split"] = moe_split(profile)
-    flash_kernels = profile["flash_kernels"]
-    counts = [c for kname, (_, c) in flash_kernels.items() if "flash_attention_wgmma_kernel" in kname]
     print(f"{elapsed()} serving 5b prefill (bf16): " + json.dumps(
         {k: out[k] for k in ("prefill_s", "prefill_tokens_per_s", "prefill_dense_s",
                              "prefill_split", "prefill_profile")}), flush=True)
-    if len(flash_kernels) != 1 or counts != [cfg.n_layers]:
-        raise AssertionError(f"the qwen3-moe prefill's flash kernels {flash_kernels}: want "
-                             f"{cfg.n_layers} launches of the tensor-core kernel and no other")
 
     # (d) serving: 16 requests through a batch-8 server
     sc = ServeConfig(**MOE_SERVE)
@@ -4007,15 +4055,10 @@ def av_full(dev, cfg) -> dict:
     out["prefill_tokens_per_s"] = SERVE_BATCH * (text + cfg.frontend_tokens) / prefill_s
     if cfg.enc_dec:
         out["prefill_frames_per_s"] = SERVE_BATCH * cfg.enc_seq / prefill_s
-    profile = prefill_profile(params, fa, batch, ranges=av_ranges)
+    profile = flash_prefill_profile(params, fa, batch, av_flash_launches(cfg), cfg.name,
+                                    ranges=av_ranges)
     out["prefill_profile"] = profile
     out["prefill_split"] = av_split(profile, cfg)
-    flash_kernels = profile["flash_kernels"]
-    counts = [c for name, (_, c) in flash_kernels.items()
-              if "flash_attention_wgmma_kernel" in name]
-    if len(flash_kernels) != 1 or counts != [av_flash_launches(cfg)]:
-        raise AssertionError(f"{cfg.name}'s bf16 prefill flash kernels {flash_kernels}: want "
-                             f"{av_flash_launches(cfg)} launches of the tensor-core kernel")
     print(f"{elapsed()} serving 5d {cfg.name} prefill (bf16): " + json.dumps(
         {k: out[k] for k in ("prefill_s", "prefill_tokens_per_s", "prefill_split",
                              "prefill_profile")}
@@ -5269,6 +5312,218 @@ def launch_tools(dev, runs, rates, meas, trained, meshed, probe) -> dict:
     return out
 
 
+# -- phase 10: the examples ---------------------------------------------------------
+
+EXAMPLES = REPO / "examples"
+# examples/quickstart.py's output (the reference's text; the numpy core
+# prints it the same on any machine)
+QUICKSTART_TEXT = (
+    'matrix (3, 4) (12 elements) -> DPM 3 elements, DUSB 3\n'
+    "mapped message: {'Time of the payment': 1634052484031131, 'Amount': 10.0, 'Payment id': 32201}\n"
+    'auto-update: +1 blocks, shrunk=0, needs_review=False\n'
+    "mapped v2 message: {'Time of the payment': 1634052485000000, 'Amount': 20.0, 'Payment id': 99}\n"
+)
+# etl_train's bfloat16 loss, card against CPU, from the same weights (drawn
+# on the host) and the same batches: the runs differ only in the order and
+# rounding of bfloat16 arithmetic.  bfloat16 keeps 8 significant bits, so
+# one rounding moves a logit of ~10 by up to 0.02; the loss averages 256
+# tokens' log-softmax, and 30 AdamW steps at lr 1e-3 carry the drift into
+# the weights.  0.05 is 0.6 % of a loss of 8, and a thirtieth of the 1.9
+# the loss falls over the run: a run on other batches or a broken gradient
+# differs by more.
+EXAMPLE_LOSS_ATOL = 5e-2
+EXAMPLE_FLIP_GAP = 5e-2  # a serving token may flip only where the top-2 logits are this close
+EXAMPLE_100M_STEPS = 30  # etl_train --model-scale 100m on the card: its default step count
+
+
+def run_example(name, argv, *, count=False) -> dict:
+    """``examples/<name>_torch.py`` in process with ``argv``; its standard
+    output, seconds and (``count``) the kernels' launches, their counts
+    zeroed just before the run and read just after."""
+    path = EXAMPLES / f"{name}_torch.py"
+    buf, saved = io.StringIO(), sys.argv
+    sys.argv = [str(path), *argv]
+    if count:
+        _zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    finally:
+        sys.argv = saved
+    out = {"stdout": buf.getvalue(), "seconds": time.perf_counter() - t0}
+    if count:
+        out["launches"] = {k: v for k, v in _launch_counts().items() if v}
+    return out
+
+
+def _keep(text, *prefixes):
+    return [x for x in text.splitlines() if not prefixes or x.startswith(prefixes)]
+
+
+def _losses(text):
+    return [float(x.split()[-1]) for x in _keep(text, "step")]
+
+
+def _card_and_cpu(name, argv, dev):
+    return (run_example(name, [*argv, "--device", str(dev)], count=True),
+            run_example(name, [*argv, "--device", "cpu"]))
+
+
+def pipeline_examples(dev) -> dict:
+    """pipeline_stream fused async, --sync and --engine blocks: every line
+    of the card's run equal to the CPU's (the engine line but for its
+    ``device``)."""
+    out = {}
+    for label, argv in (("fused async", []), ("fused sync", ["--sync"]),
+                        ("blocks async", ["--engine", "blocks"])):
+        card, cpu = _card_and_cpu("pipeline_stream", argv, dev)
+        got, want = _keep(card["stdout"]), _keep(cpu["stdout"])
+        if len(got) != len(want) or not got:
+            raise AssertionError(f"examples pipeline_stream {label}: {len(got)} lines, cpu "
+                                 f"{len(want)}")
+        for g, w in zip(got, want):
+            if w.startswith("engine: "):
+                gi, wi = (ast.literal_eval(x[len("engine: "):]) for x in (g, w))
+                gi.pop("device"), wi.pop("device")
+                if gi != wi:
+                    raise AssertionError(f"examples pipeline_stream {label}: {g} != {w}")
+            elif g != w:
+                raise AssertionError(f"examples pipeline_stream {label}: {g!r} != cpu {w!r}")
+        kernel = "masked_gather" if "blocks" in label else "segmented_gather"
+        if torch.device(dev).type == "cuda" and (
+                card["launches"].get(kernel, 0) < 1 or set(card["launches"]) != {kernel}):
+            raise AssertionError(f"examples pipeline_stream {label}: launches "
+                                 f"{card['launches']}, want {kernel} only")
+        out[label] = {"run": _keep(card["stdout"], "run:")[0], "launches": card["launches"],
+                      "seconds": card["seconds"], "cpu_seconds": cpu["seconds"]}
+    return out
+
+
+def schema_examples(dev) -> dict:
+    """schema_evolution with its defaults and with --instances 4: its
+    asserts hold on the card (every scheduled event applied once, the
+    control-log replay bit-exact), and the control-log lines and final
+    stats equal the CPU's."""
+    keep = ("  [state", "cluster info:", "final ETL stats:", "control-log replay:")
+    out = {}
+    for label, argv in (("1 instance", []), ("4 instances", ["--instances", "4"])):
+        card, cpu = _card_and_cpu("schema_evolution", argv, dev)
+        got, want = _keep(card["stdout"], *keep), _keep(cpu["stdout"], *keep)
+        if got != want or len(_keep(card["stdout"], "  [state")) != 5:
+            raise AssertionError(f"examples schema_evolution {label}: {got} != cpu {want}")
+        out[label] = {"final": _keep(card["stdout"], "final ETL stats:")[0],
+                      "launches": card["launches"], "seconds": card["seconds"],
+                      "losses": _losses(card["stdout"]), "cpu_losses": _losses(cpu["stdout"])}
+    return out
+
+
+def train_examples(dev) -> dict:
+    """etl_train with its defaults on the card and the CPU (ETL stats equal,
+    each loss within EXAMPLE_LOSS_ATOL), then at --model-scale 100m on the
+    card alone."""
+    card, cpu = _card_and_cpu("etl_train", [], dev)
+    keep = ("model:", "ETL stats:")
+    if _keep(card["stdout"], *keep) != _keep(cpu["stdout"], *keep):
+        raise AssertionError(f"examples etl_train: {_keep(card['stdout'], *keep)} != cpu "
+                             f"{_keep(cpu['stdout'], *keep)}")
+    got, want = _losses(card["stdout"]), _losses(cpu["stdout"])
+    diff = [abs(a - b) for a, b in zip(got, want)]
+    if len(got) != len(want) or not got or not all(map(math.isfinite, got)) \
+            or max(diff) > EXAMPLE_LOSS_ATOL:
+        raise AssertionError(f"examples etl_train: losses {got} vs cpu {want}")
+    steps = EXAMPLE_100M_STEPS
+    big = run_example("etl_train", ["--model-scale", "100m", "--steps", str(steps),
+                                    "--device", str(dev)], count=True)
+    big_losses = _losses(big["stdout"])
+    if len(big_losses) < 2 or not all(map(math.isfinite, big_losses)):
+        raise AssertionError(f"examples etl_train 100m: losses {big_losses}")
+    return {"smoke": {"losses": got, "cpu_losses": want, "max_abs_diff": max(diff),
+                      "tolerance": EXAMPLE_LOSS_ATOL, "etl": _keep(card["stdout"], "ETL stats:")[0],
+                      "launches": card["launches"], "seconds": card["seconds"],
+                      "cpu_seconds": cpu["seconds"]},
+            "100m": {"model": _keep(big["stdout"], "model:")[0], "steps": steps,
+                     "steps_per_s": steps / big["seconds"], "seconds": big["seconds"],
+                     "first_loss": big_losses[0], "last_loss": big_losses[-1],
+                     "launches": big["launches"]}}
+
+
+def _token_rows(text):
+    """greedy_decode's rows and the Server's printed requests' tokens."""
+    rows = ast.literal_eval(_keep(text, "greedy_decode:")[0].split(":", 1)[1].strip())
+    reqs = [ast.literal_eval(x.split(":", 1)[1].strip())
+            for x in _keep(text, "  request ")]
+    return rows, reqs
+
+
+def _top2_gap(cfg, params, tokens) -> float:
+    """The top-2 gap of the CPU model's next-token logits after ``tokens``."""
+    from repro_torch.models import model as M
+
+    with torch.no_grad():
+        logits, _ = M.forward(params, cfg, {"tokens": torch.tensor([tokens])})
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def serve_example(dev) -> dict:
+    """serve_batched --arch olmo_1b on the card and the CPU: every request
+    completes and the tokens are equal; a flip prints its request, position
+    and the top-2 gap of the CPU's logits there, and fails above
+    EXAMPLE_FLIP_GAP."""
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+
+    card, cpu = _card_and_cpu("serve_batched", ["--arch", "olmo_1b"], dev)
+    if "completed 8/8 requests" not in card["stdout"]:
+        raise AssertionError(f"examples serve_batched: {card['stdout']}")
+    (g_rows, g_reqs), (w_rows, w_reqs) = _token_rows(card["stdout"]), _token_rows(cpu["stdout"])
+    flips = []
+    if (g_rows, g_reqs) != (w_rows, w_reqs):
+        # the example's prompts, drawn as it draws them
+        cfg = C.get_smoke("olmo_1b")
+        params = M.init_params(cfg, 0, device="cpu")
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(2, cfg.vocab, size=(2, 5)).astype(np.int32).tolist()
+        prompts += [rng.integers(2, cfg.vocab, size=int(rng.integers(2, 6))).tolist()
+                    for _ in range(8)][:len(w_reqs)]
+        for i, (g, w) in enumerate(zip(g_rows + g_reqs, w_rows + w_reqs)):
+            pos = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+            if pos is None:
+                continue
+            gap = _top2_gap(cfg, params, prompts[i] + w[:pos])
+            where = f"greedy row {i}" if i < len(w_rows) else f"request {i - len(w_rows)}"
+            flips.append({"where": where, "position": pos, "card": g[pos], "cpu": w[pos],
+                          "top2_gap": gap})
+            print(f"examples serve_batched: token flip at {where} position {pos} "
+                  f"(card {g[pos]}, cpu {w[pos]}), cpu top-2 logit gap {gap:.5f}", flush=True)
+            if gap > EXAMPLE_FLIP_GAP:
+                raise AssertionError(f"examples serve_batched: a flip at a top-2 gap {gap}")
+    return {"greedy_rows": len(g_rows), "requests_printed": len(g_reqs), "flips": flips,
+            "launches": card["launches"], "seconds": card["seconds"],
+            "cpu_seconds": cpu["seconds"]}
+
+
+def examples_phase(dev) -> dict:
+    """Phase 10 (see the module docstring); every line names the card."""
+    t0 = time.perf_counter()
+    card = card_line()
+    qs = run_example("quickstart", [])
+    if qs["stdout"] != QUICKSTART_TEXT:
+        raise AssertionError(f"examples quickstart printed {qs['stdout']!r}")
+    out = {"card": card, "quickstart": {"identical": True, "seconds": qs["seconds"]}}
+    print(f"{elapsed()} examples quickstart [{card}]: output identical to the reference's",
+          flush=True)
+    for key, fn in (("pipeline_stream", pipeline_examples), ("schema_evolution", schema_examples),
+                    ("etl_train", train_examples), ("serve_batched", serve_example)):
+        out[key] = fn(dev)
+        print(f"{elapsed()} examples {key} [{card}]: " + json.dumps(out[key]), flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5556,6 +5811,22 @@ def main() -> int:
         launches_by_path=gather_by_path)
     print("launch tools: " + json.dumps(launch_tools(dev, runs, rates, meas, trained, meshed, probe)),
           flush=True)
+    examples = examples_phase(dev)
+    print("examples: " + json.dumps(examples), flush=True)
+    # the examples' launches on the card join their kernels' paths
+    by_kernel = {"segmented_gather": gather_by_path, "masked_gather": {
+        "cuda/blocks-gather consume": path_launches["masked_gather"]}}
+    for key, runs_of in (("pipeline_stream", examples["pipeline_stream"]),
+                         ("schema_evolution", examples["schema_evolution"]),
+                         ("etl_train", examples["etl_train"]),
+                         ("serve_batched", {"olmo_1b": examples["serve_batched"]})):
+        for label, r in runs_of.items():
+            for kernel, n in r["launches"].items():
+                if kernel in by_kernel:
+                    by_kernel[kernel][f"example {key} {label}"] = n
+    for name, by_path in by_kernel.items():
+        k = kernels[[k["name"] for k in kernels].index(name)]
+        k.update(launches=sum(by_path.values()), launches_by_path=by_path)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

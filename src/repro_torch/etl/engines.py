@@ -125,7 +125,7 @@ class TriagedChunk:
         return bool(self.by_column)
 
 
-def as_triaged(groups) -> Optional[TriagedChunk]:
+def as_triaged(groups) -> Optional[TriagedChunk]:  # metl-torch: allow[hot-path-python-loop] legacy Groups lift at the consume boundary: one pass per chunk, only for dict-input callers (production consume passes TriagedChunk straight through)
     """Coerce any accepted densify input to a non-empty :class:`TriagedChunk`
     (a legacy ``Groups`` dict is columnarised once); None when there is
     nothing to map."""
@@ -459,7 +459,7 @@ def _pack_columnar(
     )
 
 
-def densify_chunk_dicts(plan: Any, groups: Groups) -> Optional[DenseChunk]:
+def densify_chunk_dicts(plan: Any, groups: Groups) -> Optional[DenseChunk]:  # metl-torch: allow[hot-path-python-loop] the pre-columnar oracle: deliberately per-event, kept as the correctness twin for the columnar densify
     """The pre-columnar densification: one python pass over every payload
     dict item, resolved through each column's ``uid_pos`` dict.
 
@@ -575,9 +575,9 @@ def _emit_cold(
         return rows
     for cd in cold:
         stats["transfers"] += 2  # the reference counts values + mask
-        vals = torch.from_numpy(cd.vals).to(device)
-        mask = torch.from_numpy(cd.mask).to(device)
-        src_flat = torch.from_numpy(cd.col.src_flat).to(device)
+        vals = torch.from_numpy(cd.vals).to(device)  # metl-torch: allow[transfer-accounting] the cold path's 3 copies a column against the 2 the reference counts: deliberate (ROADMAP queue 3, "The cold path's counts")
+        mask = torch.from_numpy(cd.mask).to(device)  # metl-torch: allow[transfer-accounting] the cold path's 3 copies a column against the 2 the reference counts: deliberate (ROADMAP queue 3, "The cold path's counts")
+        src_flat = torch.from_numpy(cd.col.src_flat).to(device)  # metl-torch: allow[transfer-accounting] the cold path's 3 copies a column against the 2 the reference counts: deliberate (ROADMAP queue 3, "The cold path's counts")
         outs, off = [], 0
         for block in cd.col.blocks:
             outs.append(dmm_apply(vals, mask, src_flat[off : off + block.n_out_pad]))
@@ -586,7 +586,7 @@ def _emit_cold(
         for block, (ov, om) in zip(cd.col.blocks, outs):
             # the documented slow path: read back block by block, into
             # memory the rows own
-            ov, om = ov.cpu().numpy(), om.cpu().numpy()
+            ov, om = ov.cpu().numpy(), om.cpu().numpy()  # metl-torch: allow[host-sync-in-hot-path] emit's sync point for the cold columns (emit calls _emit_cold after the resident readback)
             route, live = (block.key[2], block.key[3]), om.any(axis=1)
             for b, key in enumerate(keys):
                 if live[b]:  # only non-empty outgoing messages
@@ -1124,7 +1124,9 @@ class _HostArenas:
         """``(slot, turn, arena)`` of at least ``n_bytes``."""
         i, self.next = self.next, self.next ^ 1
         if self.events[i] is not None:
-            self.events[i].synchronize()  # the copies that read it have run
+            # the copies that read it have run
+            # metl-torch: allow[host-sync-in-hot-path] waits for the copies issued from this arena two chunks back, before their chunk's emit: in the pipeline that emit already waited, so the wait returns at once; it bounds the double buffer, never the current dispatch
+            self.events[i].synchronize()
             self.events[i] = None
         buf = self.bufs[i] = _grown(self.bufs[i], n_bytes, self.pin)
         self.turns[i] += 1
@@ -1159,7 +1161,9 @@ class _ReadBack:
         if raw.device.type != "cpu":
             self.buf = _grown(self.buf, n, True)
             host = self.buf[:n]
-            host.copy_(raw)  # one copy, then a wait for it (and so for the kernel)
+            # one copy, then a wait for it (and so for the kernel)
+            # metl-torch: allow[host-sync-in-hot-path] emit's one readback: the engine sync point
+            host.copy_(raw)
             raw = host
         return split_outputs(raw.numpy(), *out.shape)
 
@@ -1272,7 +1276,7 @@ class BlockDense:
     slot: int
     turn: int
 
-    def payload(self, g: int) -> Tuple[np.ndarray, np.ndarray]:
+    def payload(self, g: int) -> Tuple[np.ndarray, np.ndarray]:  # metl-torch: allow[hot-path-python-loop] not a payload-dict walk: group g's (B, N_in) values and mask as two numpy views of the host arena, for the oracles and tests
         """Group ``g``'s (B, N_in) values and mask: views of the host arena,
         valid until the arena is taken again."""
         return self.chunk.payload(g)
@@ -1376,6 +1380,7 @@ class BlocksEngine(MappingEngine):
         if not blocks.size:
             return rows
         # one readback per output kind, into memory this chunk owns
+        # metl-torch: allow[host-sync-in-hot-path] the per-block engine's sync point: one readback per output kind
         ov_all, om_all = (t.cpu().numpy() for t in handle.outputs)
         n_rows = dense.chunk.groups[:, 2].tolist()
         key_start = dense.key_start.tolist()

@@ -178,7 +178,7 @@ def _walk(plain: Callable, chunk: BlockChunk, src_flat: torch.Tensor,
     return copies, launches
 
 
-def apply_blocks(name: str, plain: Callable, chunk: BlockChunk,
+def apply_blocks(name: str, plain: Callable, chunk: BlockChunk,  # metl-torch: allow[kernel-ref-parity] the generic per-block launcher behind masked_gather_blocks / onehot_map_blocks; its plain version is the twin it is handed (masked_gather_ref / onehot_map_ref), run block by block
                  src_flat: torch.Tensor, *, fill: float = 0.0
                  ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
     """Map every block of ``chunk`` with kernel ``name`` (``"masked_gather"``

@@ -16,7 +16,8 @@ PORT = REPO / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "examples").glob("*_torch.py")))
 
 
 def _forbidden(name: str) -> bool:
@@ -185,6 +186,23 @@ def test_replication_entry_points_default_to_the_card(tmp_path):
     assert proc.returncode != 0
     assert "torch.cuda.is_available" in proc.stderr
     assert "oracle:" not in proc.stdout
+
+
+@pytest.mark.parametrize("example", ["pipeline_stream", "schema_evolution", "etl_train",
+                                     "serve_batched"])
+def test_examples_default_to_the_card(example, monkeypatch):
+    """Each port example runs on the card unless given ``--device cpu``, and
+    raises without one (``quickstart`` runs the numpy core and takes no
+    device)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists here")
+    import runpy
+
+    path = REPO / "examples" / f"{example}_torch.py"
+    monkeypatch.setattr(sys, "argv", [str(path), "--steps", "1"] if "train" in example
+                        or "schema" in example else [str(path)])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        runpy.run_path(str(path), run_name="__main__")
 
 
 def test_chip_smoke_refuses_to_run_without_the_card_or_the_repo(tmp_path):
