@@ -340,9 +340,19 @@ failure raises and the script exits non-zero):
    512, 2048) against ``dmm`` in one process (atol/rtol 3e-2, the
    reference's gate); (d) (a)'s sharded state saved (every rank gathers,
    rank 0 writes) and resharded onto a (4, 1) mesh, every leaf bit for
-   bit.  Each rank's line prints its step seconds (the sharded step, each
+   bit; (e) a second spawn of four ranks as a (1, 4) mesh: one
+   ``train(mesh=...)`` step of olmo-1b (float32, 2 layers, a weighted
+   synthetic batch), each rank computing 4 of the 16 heads, a quarter of
+   the MLP hidden and 12,576 of the 50,304 vocabulary columns, against one
+   process's step (loss and parameters within atol/rtol 1e-4, flips as in
+   7 (b)).  (a) and (e) split the compute over ``model`` as the
+   reference's sharding does (``repro_torch.sharding.specs.TensorSplit``).
+   Each rank's line prints its step seconds (the sharded step, each
    data-parallel step), the host seconds inside collective calls and their
-   bytes by kind, ``max_memory_allocated`` and its feed's launches;
+   bytes by kind (the first sharded step's), ``max_memory_allocated``
+   after the timed sharded steps and at the end, and its feed's launches;
+   each (e) rank's line its split, the seconds of ``train`` and of a warm
+   step, bytes by kind and ``max_memory_allocated``;
 9. (after 6's timing) the launch tools (``launch tools`` lines, each
    naming the card, then the ``launch tools:`` JSON line): (a) HBM bytes/s
    of a 1 GiB device-to-device copy (read plus written), PCIe bytes/s of a
@@ -2927,11 +2937,14 @@ def _trace_sums(prof):
     ~0.3 ms an event, minutes for a prefill of 10^5 launches): the device
     events by name ({name: (µs, count)}), each range's device µs (the
     kernels whose launching operator started inside one of the range's
-    intervals) and each range's own device-side span."""
+    intervals) and each range's own device-side span.  The profiler
+    schedule's ``ProfilerStep#`` annotations are left out."""
     cuda = torch.autograd.DeviceType.CUDA
     starts, intervals, spans, device, kernels = {}, {}, {}, {}, []
     for e in prof.profiler.kineto_results.events():
         name = e.name()
+        if name.startswith("ProfilerStep#"):  # the schedule's step annotation, no kernel
+            continue
         if e.device_type() == cuda:
             us = e.duration_ns() / 1e3
             if name.startswith(RANGE_PREFIXES):
@@ -2966,15 +2979,29 @@ def device_profile(fn, ranges=contextlib.nullcontext) -> dict:
     ``moe.*`` or ``ssm.*``), each range's device µs: the kernels launched
     inside it (``range_device_us``) and its span on the card's timeline
     (``range_span_us``, the range's own device-side event, which is kept
-    out of the kernels' sums)."""
-    from torch.profiler import ProfilerActivity, profile
+    out of the kernels' sums).
+
+    The profiler first runs ``fn()`` once as its warm-up step, whose events
+    it drops, and records the second call: a trace's first events can be
+    lost (the first ~40 kernels of a whisper prefill were, in 1 of 24
+    profiles on an H100, and in every try of one run), and the warm-up
+    takes that loss.  ``launches`` are the port's launch counts over the
+    recorded call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        before = _launch_counts()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        prof.step()
     device, range_us, spans = _trace_sums(prof)
     busy_us = sum(t for t, _ in device.values())
     flash = {k: v for k, v in device.items() if "flash_attention" in k}
@@ -2984,7 +3011,8 @@ def device_profile(fn, ranges=contextlib.nullcontext) -> dict:
             "flash_kernels": flash, "kernel_launches": sum(n for _, n in device.values()),
             "device_busy_share": busy_us * 1e-6 / wall if busy_us > 0 else None,
             "flash_attention_share": flash_us / busy_us if busy_us > 0 else None,
-            "top_device_us": top, "range_device_us": range_us, "range_span_us": spans}
+            "top_device_us": top, "range_device_us": range_us, "range_span_us": spans,
+            "launches": launches}
 
 
 def prefill_profile(params, cfg, batch, ranges=contextlib.nullcontext) -> dict:
@@ -3007,9 +3035,8 @@ def flash_prefill_profile(params, cfg, batch, want: int, what: str,
     a complete trace is kept (``profile_tries`` says which call gave it);
     none complete raises."""
     for tries in range(1, PROFILE_TRIES + 1):
-        before = _launch_counts()["flash_attention"]
         profile = prefill_profile(params, cfg, batch, ranges)
-        launched = _launch_counts()["flash_attention"] - before
+        launched = profile["launches"]["flash_attention"]
         flash = profile["flash_kernels"]
         seen = sum(c for name, (_, c) in flash.items() if "flash_attention_wgmma_kernel" in name)
         others = [name for name in flash if "flash_attention_wgmma_kernel" not in name]
@@ -3303,7 +3330,8 @@ def moe_split(profile: dict) -> dict:
 
 def decode_profile(params, cfg, device, batch, cache_len, fill, steps=3) -> dict:
     """:func:`device_profile` of ``steps`` batch-``batch`` serve steps on a
-    cache already holding ``fill`` positions, after one warm-up step."""
+    cache already holding ``fill`` positions, after one warm-up step (and
+    the profiler's own ``steps`` of warm-up)."""
     from repro_torch.models import model as M
     from repro_torch.serve.decode import make_serve_step
 
@@ -4620,6 +4648,10 @@ MESH_EP_TOL = 3e-2  # (c): atol and rtol, tests/test_distributed.py:102-104
 MESH_EP_X = (4, 512)  # (c): moe_apply's input (B, S)
 MESH_TIMED = 2  # (a): warm sharded steps timed after the checked one
 MESH_TIMEOUT = 900
+# (e): one ``model`` group of four ranks, so that every rank computes a
+# quarter of olmo-1b's heads (4 of 16), hidden and vocabulary (12,576 of
+# 50,304 columns)
+MESH_TP_SHAPE = (1, 4)
 
 
 def _mesh_cfg(arch, smoke=False, **kw):
@@ -4710,6 +4742,7 @@ def _mesh_olmo(mesh, dev, smoke, base):
     del p, o
     out["train_step_s"] = times
     out["train_step_collectives"] = coll
+    out["train_max_memory_allocated"] = torch.cuda.max_memory_allocated() if on_card else None
 
     # (a) make_dp_train_step: one step on the first batch
     _comm_reset()
@@ -4844,6 +4877,85 @@ def _mesh_ep(mesh, dev, smoke):
     return res
 
 
+def _weighted(batch):
+    """``batch`` with a ``loss_weight`` of 0-3 a token, from a seed: the
+    loss is then a weighted mean (a sum over ranks of unequal shares)."""
+    w = np.random.default_rng(5).integers(0, 4, batch["tokens"].shape).astype(np.float32)
+    return {**batch, "loss_weight": w}
+
+
+def mesh_tp_rank(mesh, smoke=False):
+    """Phase 8 (e) on one rank of the (1, 4) mesh: one ``train(mesh=...)``
+    step of olmo-1b (float32, ``MESH_LAYERS`` layers, a weighted synthetic
+    batch) with its heads, MLP hidden and vocabulary split over the four
+    ``model`` ranks, against one process's ``make_train_step`` on rank 0
+    (loss and parameters within ``MESH_TOL``, flips as in (a)).  Returns
+    this rank's split, the seconds of ``train`` (placing and the first
+    step) and of a warm step, ``max_memory_allocated`` after the first step
+    and its collective bytes by kind."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.etl.batcher import make_token_batch
+    from repro_torch.models import model as M
+    from repro_torch.sharding.specs import make_policy
+    from repro_torch.train import loop as L
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda" \
+        else torch.device("cpu")
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    cfg = _mesh_cfg("olmo_1b", smoke, param_dtype="float32", compute_dtype="float32")
+    batch, seq = (MESH_BATCH, 16) if smoke else (MESH_BATCH, MESH_SEQ)
+    tc = L.TrainConfig(steps=1, batch=batch, seq=seq, log_every=1,
+                       opt=AdamWConfig(warmup_steps=1))
+    b = _weighted(make_token_batch(cfg, batch, seq, step=0, seed=0))
+    fresh = lambda: M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),  # noqa: E731
+                                  device=dev)
+    ts = make_policy(mesh).tensor_split(cfg)
+    out = {"rank": dist.get_rank(), "coordinate": list(mesh.get_coordinate()),
+           "split": dataclasses.asdict(ts)}
+    _comm_reset()
+    _sync()
+    t0 = time.perf_counter()
+    res = L.train(cfg, tc, mesh=mesh, batch_fn=lambda step: b, device=dev, params=fresh())
+    _sync()
+    out["train_s"] = time.perf_counter() - t0  # placing, the first step and its warm-up
+    out["collectives"] = _comm_read()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated() if on_card else None
+    whole = _mesh_whole(res["params"])
+    loss_mesh = res["history"][0]["loss"]
+    # a warm step of the same step function, timed
+    step = L.make_train_step(cfg, tc, make_policy(mesh))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+    _comm_reset()
+    _sync()
+    t0 = time.perf_counter()
+    step(res["params"], res["opt_state"], batch)
+    _sync()
+    out["step_s"] = time.perf_counter() - t0
+    out["step_collective_s"] = _comm_read()["seconds"]
+    del res, step
+    if dist.get_rank() == 0:
+        params = fresh()
+        p_one, _, m_one = L.make_train_step(cfg, tc)(params, adamw_init(params, tc.opt), batch)
+        want = float(m_one["loss"])
+        out["loss_one_process"], out["loss_train_mesh"] = want, loss_mesh
+        if abs(loss_mesh - want) > MESH_TOL[0] + MESH_TOL[1] * abs(want):
+            raise AssertionError(f"mesh (e) train(mesh={MESH_TP_SHAPE}) loss {loss_mesh} != "
+                                 f"one process {want}")
+        out["params_train_mesh"] = _tree_close(
+            f"mesh (e) train(mesh={MESH_TP_SHAPE}) parameters", whole, p_one, MESH_TOL,
+            flips=(TRAIN_FLIP_SHARE, 2 * tc.opt.lr))
+        del params, p_one
+    del whole
+    _free()
+    return out
+
+
 def mesh_rank(mesh, smoke=False, base=None):
     """Phase 8 on one rank of the (2, 2) mesh: (a), (b) and (d) on olmo-1b,
     (c) on qwen3-moe-30b-a3b; ``smoke`` runs the smoke configs (the CPU
@@ -4869,7 +4981,8 @@ def mesh_rank(mesh, smoke=False, base=None):
 
 def model_mesh(dev) -> dict:
     """Phase 8 (see the module docstring): one spawn of four ranks on the
-    (2, 2) mesh; each rank's line, then the phase's JSON line."""
+    (2, 2) mesh for (a)-(d), one on the (1, 4) mesh for (e); each rank's
+    line, then the phase's JSON line."""
     from repro_torch.launch.mesh import run_on_mesh
 
     t0 = time.perf_counter()
@@ -4879,11 +4992,16 @@ def model_mesh(dev) -> dict:
     ranks = run_on_mesh(mesh_rank, *MESH_SHAPE, device=dev.type, backend=MESH_BACKEND,
                         args=(False, str(base)), timeout=MESH_TIMEOUT)
     shutil.rmtree(base, ignore_errors=True)
+    t1 = time.perf_counter()
+    tp_ranks = run_on_mesh(mesh_tp_rank, *MESH_TP_SHAPE, device=dev.type, backend=MESH_BACKEND,
+                           args=(False,), timeout=MESH_TIMEOUT)
+    tp_wall = time.perf_counter() - t1
     lead = ranks[0]
     for r in ranks:
         brief = {k: r[k] for k in ("coordinate", "train_step_s", "train_first_step_s",
                                    "segmented_gather_launches", "etl_chunks",
-                                   "max_memory_allocated", "wall_s")}
+                                   "train_max_memory_allocated", "max_memory_allocated",
+                                   "wall_s")}
         brief["dp_f32_step_s"] = r["dp_f32"]["step_s"]
         brief["dp_int8_step_s"] = r["dp_int8"]["step_s"]
         brief["collective_s"] = {
@@ -4892,6 +5010,7 @@ def model_mesh(dev) -> dict:
             "dp_int8_step": [c["seconds"] for c in r["dp_int8"]["collectives"]],
             "ep": [c["seconds"] for c in r["ep"]["ep_collectives"]],
             "checkpoint": r["checkpoint_collectives"]["seconds"]}
+        brief["train_first_step_bytes"] = r["train_first_step_collectives"]["bytes"]
         print(f"{elapsed()} mesh rank {r['rank']} [{card}]: " + json.dumps(brief), flush=True)
     print(f"{elapsed()} mesh (a) olmo-1b {MESH_LAYERS} layers float32 {MESH_BATCH}x{MESH_SEQ} "
           f"METL batches, train(mesh={MESH_SHAPE}) and make_dp_train_step vs one process "
@@ -4908,7 +5027,20 @@ def model_mesh(dev) -> dict:
     print(f"{elapsed()} mesh (d) checkpoint saved on {MESH_SHAPE}, restored on (4, 1) "
           f"[{card}]: " + json.dumps({**lead["checkpoint"], "save_s": lead["save_s"],
                                       "restore_s": lead["restore_s"]}), flush=True)
+    for r in tp_ranks:
+        print(f"{elapsed()} mesh (e) rank {r['rank']} [{card}]: " + json.dumps(
+            {"coordinate": r["coordinate"], "split": r["split"], "train_s": r["train_s"],
+             "step_s": r["step_s"], "step_collective_s": r["step_collective_s"],
+             "max_memory_allocated": r["max_memory_allocated"],
+             "collective_bytes": r["collectives"]["bytes"],
+             "collective_s": r["collectives"]["seconds"]}), flush=True)
+    print(f"{elapsed()} mesh (e) olmo-1b {MESH_LAYERS} layers float32 {MESH_BATCH}x{MESH_SEQ}, "
+          f"train(mesh={MESH_TP_SHAPE}) vs one process [{card}]: " + json.dumps(
+              {k: tp_ranks[0][k] for k in ("loss_one_process", "loss_train_mesh",
+                                           "params_train_mesh")} | {"wall_s": tp_wall}),
+          flush=True)
     return {"card": card, "shape": list(MESH_SHAPE), "backend": MESH_BACKEND, "ranks": ranks,
+            "tp_shape": list(MESH_TP_SHAPE), "tp_ranks": tp_ranks,
             "segmented_gather_launches": sum(r["segmented_gather_launches"] for r in ranks),
             "wall_s": time.perf_counter() - t0}
 

@@ -124,6 +124,11 @@ class TriagedChunk:
     def __bool__(self) -> bool:
         return bool(self.by_column)
 
+    def to_groups(self) -> Groups:
+        """The legacy dict-of-event-lists view (oracle tests, A/B bench)."""
+        evs = self.chunk.events
+        return {ov: [evs[int(i)] for i in idx] for ov, idx in self.by_column.items()}
+
 
 def as_triaged(groups) -> Optional[TriagedChunk]:  # metl-torch: allow[hot-path-python-loop] legacy Groups lift at the consume boundary: one pass per chunk, only for dict-input callers (production consume passes TriagedChunk straight through)
     """Coerce any accepted densify input to a non-empty :class:`TriagedChunk`
@@ -252,6 +257,11 @@ class DenseChunk:
     shard_sel: Optional[List[np.ndarray]] = None  # per shard: its global output rows
     cold: Optional[List[ColdDense]] = None  # tier-miss columns, emitted after the rest
 
+    @property
+    def epoch(self) -> Optional[int]:
+        """The state ``i`` this chunk was densified against (its plan's)."""
+        return getattr(self.plan, "state", None)
+
     def sizes(self) -> Dict[str, int]:
         """The arena's shapes, as :func:`~repro_torch.kernels.ops.
         dmm_apply_dense` takes them."""
@@ -291,6 +301,11 @@ class ColumnarDense:
     shard_sel: Optional[List[np.ndarray]] = None
     n_shards: int = 1
     cold: Optional[List[ColdDense]] = None  # tier-miss columns, emitted after the rest
+
+    @property
+    def epoch(self) -> Optional[int]:
+        """The state ``i`` this chunk was densified against (its plan's)."""
+        return getattr(self.plan, "state", None)
 
     def sizes(self) -> Dict[str, int]:
         """The packed sections' sizes, as :func:`~repro_torch.kernels.ops.

@@ -14,16 +14,17 @@ versions, as the reference's dry run does on its CPU backend; a cell with
 ``attn_impl="pallas"`` is refused with a message, not counted silently
 through another path.
 
-The port's scheme, which the per-device numbers follow (not the
-reference's GSPMD program):
+The port's scheme, which the per-device numbers follow:
 
   * parameters and optimizer state are stored as
     :func:`~repro_torch.sharding.specs.param_spec_tree` shards them;
-  * train and prefill gather each layer's weights whole before using them
-    (:func:`repro_torch.sharding.comm.gather`), split the batch over the
-    data axes and repeat the whole step on each ``model`` rank, so a
-    device's flops are its data rank's share of the batch at full width,
-    not a 1/256 slice of the step;
+  * train and prefill split the batch over the data axes and the compute
+    over ``model`` as the reference's activation constraints do
+    (:class:`~repro_torch.sharding.specs.TensorSplit`: the attention
+    heads, the MLP hidden and the vocabulary, where they divide; the rest
+    repeated on each ``model`` rank); each layer gathers its weights over
+    the data axes inside remat's checkpoint, keeping their ``model``
+    slices, so the recompute gathers them again in the backward;
   * decode has no mesh path yet: its trace is one device's
     ``decode_step`` over a data rank's rows, with whole weights.
 
@@ -59,10 +60,12 @@ Per cell, every number per device:
     ``reduce-scatter``, ``all-reduce``, ``all-to-all``) of every call that
     :mod:`repro_torch.sharding.comm` issues for the step on this mesh,
     counted by running the step over :class:`~repro_torch.sharding.comm.
-    DryGroup` stand-ins, plus the gradient norm's all-reduce over each mesh
+    DryGroup` stand-ins (the reference's ``collective_bytes`` parses them
+    out of the compiled HLO text; here the trace's ``collectives``, and
+    ``comm.STATS`` in a real step, count the calls as they are issued), plus the gradient norm's all-reduce over each mesh
     axis (:func:`repro_torch.train.optimizer.global_norm` on DTensors).  The
-    gathers sit outside remat's checkpoint, so a recompute issues none.
-    No HLO is parsed.
+    gathers sit inside remat's checkpoint, so the recompute issues them
+    again, in the trace as in the real step.  No HLO is parsed.
 
 The mesh is a :class:`ShapeMesh`: axis names and sizes, no process group
 and no device memory.
@@ -93,7 +96,7 @@ from ..train.loop import TrainConfig, make_train_step, param_spec_tree_like
 from ..train.optimizer import AdamWConfig, adamw_init
 
 __all__ = ["ShapeMesh", "production_mesh", "run_cell", "train_settings", "input_specs",
-           "decode_state_specs", "CellResult", "trace_cell"]
+           "batch_shardings", "decode_state_specs", "CellResult", "trace_cell"]
 
 META = torch.device("meta")
 TUPLE_ENTRY_BYTES = 8  # the reference's output tuple index table: one pointer an output
@@ -184,6 +187,15 @@ def _batch_pspec(sp: ShardingPolicy, b: int, ndim: int) -> P:
     dp = sp.data_axes
     lead = dp if sp.dim(b, dp) else None
     return P(lead, *([None] * (ndim - 1)))
+
+
+def batch_shardings(sp: ShardingPolicy, tree: Any) -> Any:
+    """Each batch leaf's DTensor placements over ``sp.mesh`` (a
+    ``DeviceMesh`` or a :class:`ShapeMesh`): the leading dim over the data
+    axes when it divides, the rest replicated.  The reference's
+    ``NamedSharding`` tree; the port places nothing with it (a train step
+    takes the whole batch and each rank keeps its data rank's rows)."""
+    return tree_map(lambda t: placements(_batch_pspec(sp, t.shape[0], t.dim()), sp.mesh), tree)
 
 
 def decode_state_specs(cfg: ModelConfig, sp: ShardingPolicy, state: Any) -> Any:
@@ -431,7 +443,9 @@ class _TracePolicy(ShardingPolicy):
     rank 0), every group is a :class:`~repro_torch.sharding.comm.DryGroup`
     whose calls ``hook`` counts, and :meth:`gather` rebuilds each shard
     through :func:`comm.gather_local` by its spec (found by its storage,
-    which ``detach`` keeps)."""
+    which ``detach`` keeps).  The tensor split (:meth:`ShardingPolicy.
+    tensor_split`, :meth:`~ShardingPolicy.gather_layer`) is the real
+    step's, at model rank 0."""
 
     def __init__(self, mesh: ShapeMesh, specs: Dict[int, P], hook):
         base = make_policy(mesh)
@@ -459,16 +473,26 @@ class _TracePolicy(ShardingPolicy):
     def model_group(self) -> comm.DryGroup:
         return comm.DryGroup(self.mesh.shape[self.model_axis], self.hook)
 
-    def gather(self, tree: Any, keep=()) -> Any:
+    def model_index(self) -> int:
+        return 0
+
+    def _placements(self, t: torch.Tensor) -> list:
+        return placements(self.specs[t.untyped_storage()._cdata], self.mesh)
+
+    def model_dim(self, t: torch.Tensor) -> Optional[int]:
+        pl = self._placements(t)[self.mesh.axis_names.index(self.model_axis)]
+        return getattr(pl, "dim", None)
+
+    def gather(self, tree: Any, keep=(), summed=()) -> Any:
         names = self.mesh.axis_names
+        axes = (*self.data_axes, *summed)
 
         def one(t):
             if not t.dim():
                 return t
-            spec = self.specs[t.untyped_storage()._cdata]
-            plan = comm.gather_plan(placements(spec, self.mesh), self.mesh.sizes, names,
+            plan = comm.gather_plan(self._placements(t), self.mesh.sizes, names,
                                     (0,) * len(names), keep)
-            return comm.gather_local(t, self, plan, names, self.data_axes)
+            return comm.gather_local(t, self, plan, names, axes)
 
         return tree_map(one, tree)
 

@@ -34,8 +34,8 @@ The roofline *fraction* reported is ideal/achievable:
     achievable = max(compute, memory, collective)       (the dominant wall)
 so fraction == 1.0 means the step is pure useful matmul at peak.  The
 useful-FLOPs ratio, MODEL_FLOPS over the flops of every device together,
-exposes remat, attention and repeated compute (the port repeats each step
-on every ``model`` rank, :mod:`repro_torch.launch.dryrun_lib`).
+exposes remat, attention and repeated compute (the parts of a step that
+the port does not split over ``model``, :mod:`repro_torch.launch.dryrun_lib`).
 
 **ETL mode** (``--etl ARTIFACT.json``) puts mapping-engine configurations
 on the same card.  An artifact's ``engines`` entries carry, per chunk,
@@ -96,12 +96,12 @@ def analyze(rec: Dict) -> Optional[Dict]:
     frac = ideal / achievable if achievable > 0 else 0.0
     useful = rec["model_flops_global"] / (cost["flops"] * n) if cost["flops"] else 0.0
     hints = {
-        "compute": "cut repeated and non-model FLOPs: split the products over model "
-        "instead of repeating them (ROADMAP queue 2 item G), remat policy, fused CE",
+        "compute": "cut repeated and non-model FLOPs: split what is still repeated over "
+        "model (the SSM parts, heads that do not divide), remat policy, fused CE",
         "memory": "raise arithmetic intensity: fuse elementwise chains, "
         "bf16 intermediates, flash attention in place of the score matrix",
-        "collective": "cut the bytes moved: overlap or hoist the layer gathers, "
-        "keep weights split over model (item G)",
+        "collective": "cut the bytes moved: overlap the layer gathers with compute, "
+        "sequence-parallel all-reduces, fewer microbatch regathers",
     }
     return {
         "arch": rec["arch"],

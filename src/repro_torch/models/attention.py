@@ -7,6 +7,13 @@ keys directly.  Sliding-window archs apply a band mask in training and keep
 a rolling window cache in decode.  Cross-attention (the whisper decoder
 over projected encoder memory) takes the dense path, as in the reference.
 
+Under a sharding policy that splits the heads over ``model``
+(:meth:`~repro_torch.sharding.specs.ShardingPolicy.tensor_split`), each
+rank computes its own H/M query heads and the KV heads they read, from
+its column slices of ``wq``/``wk``/``wv`` (``wk``/``wv`` whole when the
+KV heads do not split, the rank's heads picked from them), and its row
+slice of ``wo`` gives a partial output summed over the group.
+
 ``cfg.attn_impl`` picks the full-sequence algorithm: ``"dense"`` (the whole
 score matrix), ``"chunked"`` (online softmax over key chunks) or
 ``"pallas"``, the hand-written Hopper flash kernel through
@@ -22,8 +29,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels import ops as kops
+from ..sharding import comm
 from .config import ModelConfig
-from .layers import rope, trunc_normal
+from .layers import rope, split_group, trunc_normal
 
 __all__ = [
     "attn_params",
@@ -50,13 +58,33 @@ def attn_params(gen: torch.Generator, cfg: ModelConfig, d_in: Optional[int] = No
     }
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, ts=None):
+    """q (B, S, H, hd) and k, v (B, S, KV, hd) of ``x``; under a head split
+    (``ts``, a :class:`~repro_torch.sharding.specs.TensorSplit`) this
+    rank's H/M query heads and the KV heads they read."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = torch.matmul(x, p["wq"].to(cfg.cdtype)).reshape(B, S, H, hd)
-    k = torch.matmul(x, p["wk"].to(cfg.cdtype)).reshape(B, S, KV, hd)
-    v = torch.matmul(x, p["wv"].to(cfg.cdtype)).reshape(B, S, KV, hd)
-    return q, k, v
+    q = torch.matmul(x, p["wq"].to(cfg.cdtype)).reshape(B, S, -1, cfg.hd)
+    return (q, *_kv_proj(p, x, cfg, ts))
+
+
+def _kv_proj(p: Params, x: torch.Tensor, cfg: ModelConfig,
+             ts=None) -> Tuple[torch.Tensor, ...]:
+    """K, V (B, T, KV, hd) of ``x``.  Under a head split (``ts``), this
+    rank's (B, T, KV_loc, hd): from its column slices of ``wk``/``wv`` when
+    the KV heads split, else from the columns of the KV heads its query
+    heads read (``TensorSplit.kv_heads``)."""
+    B, T, _ = x.shape
+    hd = cfg.hd
+    out = []
+    for name in ("wk", "wv"):
+        w = p[name]
+        if ts is not None and not ts.kv:
+            heads, _ = ts.kv_heads(cfg.n_heads, cfg.n_kv_heads)
+            w = w.reshape(w.shape[0], cfg.n_kv_heads, hd)
+            w = (w[:, heads[0]:heads[-1] + 1] if heads == list(range(heads[0], heads[-1] + 1))
+                 else w[:, torch.tensor(heads, device=w.device)]).reshape(w.shape[0], -1)
+        out.append(torch.matmul(x, w.to(cfg.cdtype)).reshape(B, T, -1, hd))
+    return tuple(out)
 
 
 def _band_mask(S: int, T: int, offset: int, window: int, causal: bool,
@@ -147,9 +175,14 @@ def attention_train(
     window: int = 0,
     sh=None,
 ) -> torch.Tensor:
-    """Full-sequence attention of x (B, S, D) at ``positions``.  ``sh``: the
-    reference's sharding policy (its ``act_heads`` is an identity here)."""
-    q, k, v = _qkv(p, x, cfg)
+    """Full-sequence attention of x (B, S, D) at ``positions``.  ``sh``: a
+    sharding policy (module docstring: the heads split over ``model``)."""
+    group = split_group(sh, cfg, "heads")
+    if group is None:
+        q, k, v = _qkv(p, x, cfg)
+    else:
+        x = comm.copy_to_model(x, group)
+        q, k, v = _qkv(p, x, cfg, sh.tensor_split(cfg))
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -158,7 +191,8 @@ def attention_train(
         B, _, H, hd = q.shape
         KV = k.shape[2]
         # interleave query-head groups so the heads sharing a KV head are
-        # adjacent, where the kernel's h // n_rep finds their KV head
+        # adjacent, where the kernel's h // n_rep finds their KV head (on a
+        # rank of a head split: its own heads and KV heads)
         qf = q.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4).reshape(B * H, S, hd)
         kf = k.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
         vf = v.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
@@ -172,7 +206,8 @@ def attention_train(
         out = _sdpa(q, k, v, mask, cfg)
     if sh is not None:
         out = sh.act_heads(out)
-    return torch.matmul(out, p["wo"].to(cfg.cdtype))
+    out = torch.matmul(out, p["wo"].to(cfg.cdtype))
+    return out if group is None else comm.reduce_from_model(out, group)
 
 
 # ---------------------------------------------------------------------------
@@ -253,22 +288,27 @@ def cross_attention(
 ) -> torch.Tensor:
     """Attention of the decoder's x over the projected encoder memory, no
     mask (every query sees every frame); the dense path whatever
-    ``cfg.attn_impl`` is, as in the reference (S != T)."""
+    ``cfg.attn_impl`` is, as in the reference (S != T).  Under a head split
+    (``sh``), ``mem_k``/``mem_v`` are this rank's (:func:`project_memory`
+    with the same ``sh``)."""
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.hd
-    q = torch.matmul(x, p["wq"].to(cfg.cdtype)).reshape(B, S, H, hd)
+    group = split_group(sh, cfg, "heads")
+    if group is not None:
+        x = comm.copy_to_model(x, group)
+    q = torch.matmul(x, p["wq"].to(cfg.cdtype)).reshape(B, S, -1, cfg.hd)
     out = _sdpa(q, mem_k, mem_v, None, cfg)
     if sh is not None:
         out = sh.act_heads(out)
-    return torch.matmul(out, p["wo"].to(cfg.cdtype))
+    out = torch.matmul(out, p["wo"].to(cfg.cdtype))
+    return out if group is None else comm.reduce_from_model(out, group)
 
 
-def project_memory(p: Params, mem: torch.Tensor,
-                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def project_memory(p: Params, mem: torch.Tensor, cfg: ModelConfig,
+                   sh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder output (B, T, D) projected once to K, V (B, T, KV, hd);
-    reused by every decode step."""
-    B, T, _ = mem.shape
-    KV, hd = cfg.n_kv_heads, cfg.hd
-    k = torch.matmul(mem, p["wk"].to(cfg.cdtype)).reshape(B, T, KV, hd)
-    v = torch.matmul(mem, p["wv"].to(cfg.cdtype)).reshape(B, T, KV, hd)
-    return k, v
+    reused by every decode step.  Under a head split (``sh``), this rank's
+    KV heads (KV_loc)."""
+    group = split_group(sh, cfg, "heads")
+    if group is None:
+        return _kv_proj(p, mem, cfg)
+    return _kv_proj(p, comm.copy_to_model(mem, group), cfg, sh.tensor_split(cfg))

@@ -13,8 +13,10 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..sharding import comm
 from .config import ModelConfig
 
 __all__ = [
@@ -28,6 +30,8 @@ __all__ = [
     "lm_logits",
     "cross_entropy",
     "cross_entropy_sums",
+    "split_group",
+    "vocab_start",
 ]
 
 
@@ -119,11 +123,25 @@ def mlp_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor
     return p
 
 
+def split_group(sh, cfg: ModelConfig, part: str):
+    """The model group when the sharding policy ``sh`` (or None) splits
+    ``part`` of ``cfg`` over ``model`` (:meth:`~repro_torch.sharding.specs.
+    ShardingPolicy.split_group`), else None."""
+    return None if sh is None else sh.split_group(cfg, part)
+
+
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
               sh=None) -> torch.Tensor:
     """SwiGLU or GELU (tanh approximation, as ``jax.nn.gelu``'s default);
     the activation in float32, the products in the compute dtype.  ``sh``:
-    the reference's sharding policy (its ``act_ff`` is an identity here)."""
+    a sharding policy; where it splits the hidden over ``model``, ``p``
+    holds this rank's column slices of ``w_in``/``w_gate`` and row slice
+    of ``w_out`` (:meth:`~repro_torch.sharding.specs.ShardingPolicy.
+    gather_layer`), the activation runs on the F/M hidden and the partial
+    outputs are summed over the group."""
+    group = split_group(sh, cfg, "ff")
+    if group is not None:
+        x = comm.copy_to_model(x, group)
     h = torch.matmul(x, p["w_in"].to(cfg.cdtype))
     if cfg.activation == "swiglu":
         g = torch.matmul(x, p["w_gate"].to(cfg.cdtype))
@@ -132,7 +150,8 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(cfg.cdtype)
     if sh is not None:
         h = sh.act_ff(h)
-    return torch.matmul(h, p["w_out"].to(cfg.cdtype))
+    out = torch.matmul(h, p["w_out"].to(cfg.cdtype))
+    return out if group is None else comm.reduce_from_model(out, group)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +169,22 @@ def embed_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tens
     return p
 
 
-def lm_logits(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def vocab_start(cfg: ModelConfig, sh) -> int:
+    """The first vocabulary row (embedding) or column (head, logits) this
+    rank holds: 0 unless ``sh`` splits the vocabulary over ``model``."""
+    ts = sh.tensor_split(cfg) if sh is not None else None
+    return ts.rank * (cfg.vocab_padded // ts.size) if ts is not None and ts.vocab else 0
+
+
+def lm_logits(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+              sh=None) -> torch.Tensor:
+    """The logits of ``x`` against the head (or the tied embedding).
+    Where ``sh`` splits the vocabulary, ``p`` holds this rank's rows of
+    ``tok`` / columns of ``head`` and the result is this rank's vocabulary
+    columns (..., V_pad/M)."""
+    group = split_group(sh, cfg, "vocab")
+    if group is not None:
+        x = comm.copy_to_model(x, group)
     if cfg.tie_embeddings:
         w = p["tok"].to(cfg.cdtype).t()
     else:
@@ -158,25 +192,56 @@ def lm_logits(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> 
     return torch.matmul(x, w)
 
 
-def _token_nll(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    lg = logits.to(torch.float32)
-    if cfg.vocab_padded != cfg.vocab:
-        cols = torch.arange(cfg.vocab_padded, device=lg.device)
-        lg = lg + torch.where(cols < cfg.vocab, 0.0, -1e9).to(torch.float32)
+def _pad_mask(lg: torch.Tensor, cfg: ModelConfig, start: int) -> torch.Tensor:
+    """``lg`` (float32, columns ``start`` on) with the pad-vocab columns
+    pushed to -1e9 by an additive vector, by their global index."""
+    if cfg.vocab_padded == cfg.vocab:
+        return lg
+    cols = torch.arange(start, start + lg.shape[-1], device=lg.device)
+    return lg + torch.where(cols < cfg.vocab, 0.0, -1e9).to(torch.float32)
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+               sh=None) -> torch.Tensor:
+    group = split_group(sh, cfg, "vocab")
+    if group is not None:
+        return _token_nll_split(logits, labels, cfg, vocab_start(cfg, sh), group)
+    lg = _pad_mask(logits.to(torch.float32), cfg, 0)
     lse = torch.logsumexp(lg, dim=-1)
     picked = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
     return lse - picked
 
 
+def _token_nll_split(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+                     start: int, group) -> torch.Tensor:
+    """:func:`_token_nll` of vocabulary-split logits (..., V_pad/M),
+    columns ``start`` on: the row maximum is all-reduced (max) over the
+    group, then the sums of exponentials and the picked logits (each taken
+    on the rank that owns the label, 0 elsewhere) in one summing
+    all-reduce.  The maximum carries no gradient: ``lse`` does not depend
+    on the shift."""
+    lg = _pad_mask(logits.to(torch.float32), cfg, start)
+    mx = comm.all_reduce(torch.amax(lg.detach(), dim=-1), group, op=dist.ReduceOp.MAX)
+    sums = torch.sum(torch.exp(lg - mx[..., None]), dim=-1)
+    local = labels.long() - start
+    mine = (local >= 0) & (local < lg.shape[-1])
+    picked = torch.gather(lg, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    picked = torch.where(mine, picked, 0.0)
+    sums, picked = comm.reduce_from_model(torch.stack([sums, picked]), group).unbind(0)
+    return torch.log(sums) + mx - picked
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
-                  weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  weight: Optional[torch.Tensor] = None, sh=None) -> torch.Tensor:
     """Mean token cross-entropy of ``logits`` (..., V_pad) against
     ``labels`` (...), in float32: ``logsumexp - picked`` per token.  The
     pad-vocab columns are masked by an additive float32 (V_pad,) vector of 0
     and -1e9, not by a concatenation, which would materialise a second
     float32 copy of the logits.  With ``weight`` (...), returns
-    ``sum(nll * w) / max(sum(w), 1)``."""
-    nll = _token_nll(logits, labels, cfg)
+    ``sum(nll * w) / max(sum(w), 1)``.  Where ``sh`` splits the vocabulary
+    over ``model``, ``logits`` are this rank's columns (:func:`lm_logits`)
+    and every rank of the group gets the same loss."""
+    nll = _token_nll(logits, labels, cfg, sh)
     if weight is None:
         return torch.mean(nll)
     w = weight.to(torch.float32)
@@ -184,11 +249,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
 
 
 def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
-                       weight: Optional[torch.Tensor] = None):
+                       weight: Optional[torch.Tensor] = None, sh=None):
     """The parts of :func:`cross_entropy` before its division, float32
     scalars: ``(sum(nll * w), sum(w))``, or ``(sum(nll), token count)``
     without ``weight`` (a data-parallel loss sums each over the ranks)."""
-    nll = _token_nll(logits, labels, cfg)
+    nll = _token_nll(logits, labels, cfg, sh)
     if weight is None:
         return torch.sum(nll), torch.full((), float(nll.numel()), device=nll.device)
     w = weight.to(torch.float32)

@@ -20,14 +20,18 @@ have no counterpart.
 ``forward`` and ``loss_fn`` take the reference's ``sh``, a sharding policy
 (:mod:`repro_torch.sharding.specs`).  Under a ``torch.distributed`` mesh
 the parameters are DTensors stored as the reference shards them, each rank
-holds its data rank's batch rows, and compute is data-parallel: the layer
-loop gathers each layer's weights as it reaches them (outside the remat'd
-function, so a recompute issues no collective of its own), the MoE layer
-sees the whole token axis (or runs expert parallelism under ``ep``), and
-``loss_fn`` returns the whole batch's loss on every rank with this data
-rank's share of its gradient.  ``sp_carry`` (the reference shards the
-saved residual stack over ``model``) has nothing to shard here and is
-ignored.
+holds its data rank's batch rows, and compute splits over ``model`` as the
+reference's activation constraints split it: each layer gathers its
+weights over the data axes inside the function that remat checkpoints
+(:meth:`~repro_torch.sharding.specs.ShardingPolicy.gather_layer`, so the
+recompute gathers again in the backward and no layer's gathered weights
+live from forward to backward), attention runs on the rank's query heads
+and the MLP on its slice of the hidden, the embedding, head and loss on
+its slice of the vocabulary, and the MoE layer sees the whole token axis
+(or runs expert parallelism under ``ep``).  ``loss_fn`` returns the whole
+batch's loss on every rank with this data rank's share of its gradient.
+``sp_carry`` (the reference shards the saved residual stack over
+``model``) has nothing to shard here and is ignored.
 
 Entry points: ``init_params``, ``forward`` (logits; the serving prefill
 and the training forward), ``loss_fn`` (the training loss),
@@ -70,7 +74,9 @@ from .layers import (
     lm_logits,
     mlp_params,
     norm_params,
+    split_group,
     trunc_normal,
+    vocab_start,
 )
 from .moe import moe_apply, moe_ffn, moe_params
 from .ssm import (
@@ -194,7 +200,9 @@ def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
     """One layer.  Returns (x, aux_loss): the MoE router's load-balance
     loss, a float32 zero for the other families.  ``memory``: the raw
     encoder output of an encoder-decoder, which the layer projects with its
-    own cross-attention weights."""
+    own cross-attention weights.  Under a mesh (``sh``) ``lp`` holds the
+    stored shards, gathered here (:func:`_gather_layer`)."""
+    lp = _gather_layer(lp, cfg, sh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         h, _ = rwkv_train(lp["tm"], apply_norm(lp["ln1"], x, cfg), cfg, impl=cfg.rwkv_impl)
@@ -211,7 +219,7 @@ def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
     else:
         x = x + attn_out
     if memory is not None:
-        mem_k, mem_v = project_memory(lp["xattn"], memory, cfg)
+        mem_k, mem_v = project_memory(lp["xattn"], memory, cfg, sh)
         x = x + cross_attention(lp["xattn"], apply_norm(lp["norm_x"], x, cfg), mem_k, mem_v, cfg,
                                 sh)
     xn2 = apply_norm(lp["norm2"], x, cfg)
@@ -227,7 +235,9 @@ def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
 
 def _enc_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, sh=None) -> torch.Tensor:
-    """One pre-norm encoder layer: non-causal self-attention, then the MLP."""
+    """One pre-norm encoder layer: non-causal self-attention, then the MLP
+    (``lp`` gathered here under a mesh, as in :func:`_decoder_layer`)."""
+    lp = _gather_layer(lp, cfg, sh)
     hn = apply_norm(lp["norm1"], x, cfg)
     x = x + attention_train(lp["attn"], hn, positions, cfg, causal=False, sh=sh)
     return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg, sh=sh)
@@ -282,24 +292,40 @@ def _gather(tree: Any, sh) -> Any:
 
 
 def _gather_layer(lp: Dict[str, Any], cfg: ModelConfig, sh) -> Dict[str, Any]:
-    """One layer's weights for the layer loop: whole, except that under
-    expert parallelism each rank keeps its own experts (split over
-    ``model``)."""
+    """One layer's weights for its compute on this rank (under a mesh, by
+    :meth:`~repro_torch.sharding.specs.ShardingPolicy.gather_layer`: the
+    split leaves keep their ``model`` slices, under expert parallelism each
+    rank its own experts, the rest whole); as they are otherwise."""
     if sh is None or not sh.sharded:
         return lp
-    if not (cfg.is_moe and cfg.moe_impl == "ep"):
-        return sh.gather(lp)
-    out = sh.gather({k: v for k, v in lp.items() if k != "moe"})
-    out["moe"] = {k: sh.gather(v, keep=() if k == "router" else (sh.model_axis,))
-                  for k, v in lp["moe"].items()}
-    return out
+    return sh.gather_layer(lp, cfg)
 
 
-def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _gather_embed(embed: Dict[str, Any], cfg: ModelConfig, sh) -> Dict[str, Any]:
+    """The embedding and head: under a mesh gathered over the data axes,
+    and where the vocabulary splits over ``model``,
+    ``tok``'s rows and ``head``'s columns keep this rank's slice."""
+    if sh is None or not sh.sharded:
+        return embed
+    if split_group(sh, cfg, "vocab") is None:
+        return sh.gather(embed)
+    dims = {"tok": 0, "head": 1}  # (V/M, D) rows, (D, V/M) columns
+    return {k: sh.gather_split(v, dims[k], k) if k in dims else sh.gather(v)
+            for k, v in embed.items()}
+
+
+def _embed_tokens(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+                  sh=None) -> torch.Tensor:
     """The token rows, then (learned positions, the encoder-decoder's
     included) the position rows, each cast to the compute dtype: the
-    reference's order, which adds the encoder-decoder's in ``forward``."""
-    x = params["embed"]["tok"][tokens.long()].to(cfg.cdtype)
+    reference's order, which adds the encoder-decoder's in ``forward``.
+    Where ``sh`` splits the vocabulary, ``tok`` is this rank's rows and the
+    lookup is :func:`~repro_torch.sharding.comm.vocab_lookup`."""
+    tok = params["embed"]["tok"]
+    group = split_group(sh, cfg, "vocab")
+    x = tok[tokens.long()] if group is None else comm.vocab_lookup(tok, tokens,
+                                                                    vocab_start(cfg, sh), group)
+    x = x.to(cfg.cdtype)
     if cfg.pos == "learned":
         S = tokens.shape[1]
         x = x + params["embed"]["pos"][:S][None].to(cfg.cdtype)
@@ -316,8 +342,33 @@ def _encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig, sh=N
     positions = torch.arange(frames.shape[1], device=x.device)[None]
     layer = _layer_fn(_enc_layer, params, cfg)
     for lp in params["enc_layers"]:
-        x = layer(_gather_layer(lp, cfg, sh), x, positions, cfg, sh)
+        x = layer(lp, x, positions, cfg, sh)
     return apply_norm(_gather(params["enc_final_norm"], sh), x, cfg)
+
+
+def _forward(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+             sh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`forward`, with this rank's vocabulary columns of the logits
+    where ``sh`` splits the vocabulary."""
+    tokens = batch["tokens"]
+    embed = _gather_embed(params["embed"], cfg, sh)
+    x = _embed_tokens({"embed": embed}, tokens, cfg, sh)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
+    if sh is not None:
+        x = sh.act_btd(x)
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    memory = _encode(params, batch["frames"], cfg, sh) if cfg.enc_dec else None
+    layer = _layer_fn(_decoder_layer, params, cfg)
+    auxs = []
+    for lp in params["layers"]:
+        x, aux = layer(lp, x, positions, cfg, memory, sh)
+        auxs.append(aux)
+    x = apply_norm(_gather(params["final_norm"], sh), x, cfg)
+    logits = lm_logits(embed, x, cfg, sh)
+    if sh is not None:
+        logits = sh.logits(logits)
+    return logits, torch.sum(torch.stack(auxs))
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -333,26 +384,11 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Ten
     patch positions kept, as in the reference.
 
     ``sh``: a sharding policy; under a mesh ``batch`` holds this data
-    rank's rows (see the module docstring)."""
-    tokens = batch["tokens"]
-    embed = _gather(params["embed"], sh)
-    x = _embed_tokens({"embed": embed}, tokens, cfg)
-    if cfg.family == "vlm":
-        x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
-    if sh is not None:
-        x = sh.act_btd(x)
-    positions = torch.arange(x.shape[1], device=x.device)[None]
-    memory = _encode(params, batch["frames"], cfg, sh) if cfg.enc_dec else None
-    layer = _layer_fn(_decoder_layer, params, cfg)
-    auxs = []
-    for lp in params["layers"]:
-        x, aux = layer(_gather_layer(lp, cfg, sh), x, positions, cfg, memory, sh)
-        auxs.append(aux)
-    x = apply_norm(_gather(params["final_norm"], sh), x, cfg)
-    logits = lm_logits(embed, x, cfg)
-    if sh is not None:
-        logits = sh.logits(logits)
-    return logits, torch.sum(torch.stack(auxs))
+    rank's rows (see the module docstring), and the vocabulary shards of
+    the logits are joined over ``model`` (one all-gather)."""
+    logits, aux = _forward(params, cfg, batch, sh)
+    group = split_group(sh, cfg, "vocab")
+    return (logits if group is None else comm.all_gather_cols(logits, group)), aux
 
 
 AUX_WEIGHT = 0.01
@@ -373,13 +409,13 @@ def loss_fn(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Ten
     rank's ``sum(nll * w)`` over the global ``sum(w)``, plus its share of
     the aux loss, so that the data ranks' gradients sum to the whole
     batch's."""
-    logits, aux = forward(params, cfg, batch, sh)
+    logits, aux = _forward(params, cfg, batch, sh)
     if cfg.family == "vlm":
         logits = logits[:, batch["patches"].shape[1]:]
     if sh is None or not sh.sharded:
         loss = cross_entropy(logits, batch["labels"], cfg, batch.get("loss_weight"))
         return loss + AUX_WEIGHT * aux
-    nll_w, w = cross_entropy_sums(logits, batch["labels"], cfg, batch.get("loss_weight"))
+    nll_w, w = cross_entropy_sums(logits, batch["labels"], cfg, batch.get("loss_weight"), sh)
     totals = comm.all_reduce_sum(torch.stack([nll_w.detach(), w]), sh.data_group())
     denom = torch.clamp(totals[1], min=1.0) if "loss_weight" in batch else totals[1]
     ce = comm.value_with_grad(totals[0] / denom, nll_w / denom)

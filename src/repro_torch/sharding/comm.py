@@ -7,17 +7,31 @@ through DTensor's own redistribution: the same code then runs on gloo
 (CPU) and on NCCL (the card), and every rank issues the same calls in the
 same order.  DTensors only hold the parameters' shards and placements.
 
-  * :func:`gather` -- a DTensor's full value on this rank, differentiable:
-    its backward reduce-scatters over the data axes (the data ranks'
-    gradients are shares of one loss) and takes this rank's chunk over the
-    others (compute over ``model`` is repeated, so its gradient is whole on
-    every model rank and summing it would count it ``model``-size times);
+  * :func:`gather` -- a DTensor's full value on this rank (or its slice
+    along the axes kept split), differentiable: its backward reduce-scatters
+    over the data axes (the data ranks' gradients are shares of one loss)
+    and takes this rank's chunk over the others (a leaf gathered whole over
+    ``model`` feeds compute that every model rank repeats, so its gradient
+    is whole on every model rank and summing it would count it
+    ``model``-size times);
   * :func:`full_tensor` -- the same without autograd (checkpoints);
   * :func:`place` -- this rank's shard of a full tensor, as a DTensor;
   * :func:`all_gather_rows` / :func:`all_to_all` -- activations, with
     their adjoints as backward;
   * :func:`value_with_grad` and :func:`scale_grad` -- a value with another
-    tensor's gradient, and a gradient scaled.
+    tensor's gradient, and a gradient scaled;
+  * :func:`copy_to_model` / :func:`reduce_from_model` -- the two ends of
+    a tensor-parallel region over ``model``: the input of a column-split
+    product (identity forward, its gradient summed over the group) and the
+    output of a row-split one (summed over the group forward, identity
+    backward); :func:`vocab_lookup` is the embedding whose rows are split
+    over ``model``, and :func:`all_gather_cols` joins the vocabulary
+    shards of the logits.
+
+:func:`gather`'s backward sums over the axes it is given as
+``data_axes``: the data axes, and ``model`` too for a weight gathered
+whole for a computation split over ``model`` (each rank's gradient of it
+is then a share; ``ShardingPolicy.gather(..., summed=...)``).
 
 :data:`STATS` counts the calls, their host seconds and their bytes by kind
 (``all-gather``, ``reduce-scatter``, ``all-reduce``, ``all-to-all``): the
@@ -39,7 +53,8 @@ import torch.distributed as dist
 
 __all__ = ["STATS", "reset_stats", "DryGroup", "group_size", "axes_group", "gather_plan",
            "gather", "gather_local", "full_tensor", "place", "all_gather_rows", "all_to_all",
-           "value_with_grad", "scale_grad", "all_reduce", "all_reduce_sum", "barrier"]
+           "value_with_grad", "scale_grad", "all_reduce", "all_reduce_sum", "barrier",
+           "copy_to_model", "reduce_from_model", "vocab_lookup", "all_gather_cols"]
 
 
 # the collective calls of this module: their count, the host seconds spent
@@ -196,8 +211,9 @@ class _Gather(torch.autograd.Function):
 def gather(t, data_axes: Sequence[str], keep: Sequence[str] = ()) -> torch.Tensor:
     """DTensor ``t``'s full value as a plain tensor on this rank (mesh axes
     in ``keep`` stay split: this rank's part along them), through autograd:
-    the gradient is summed over ``data_axes`` and taken as it is over the
-    other axes (see the module docstring)."""
+    the gradient is summed over ``data_axes`` (the axes whose ranks hold
+    shares of it) and taken as it is over the other axes (see the module
+    docstring)."""
     return gather_local(t.to_local(), t.device_mesh, _plan(t, keep),
                         tuple(t.device_mesh.mesh_dim_names), data_axes)
 
@@ -312,3 +328,74 @@ def scale_grad(x: torch.Tensor, factor: float) -> torch.Tensor:
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``, a new tensor (no autograd)."""
     return all_reduce(x.detach().clone(), group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (the same on every rank of ``group``) unchanged; its gradient
+    summed over ``group``.  The input of a column-split product: each rank's
+    gradient of ``x`` comes from its own columns alone."""
+    return _CopyToModel.apply(x, group)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, a new tensor; the gradient passes
+    as it is (it is the same on every rank).  The output of a row-split
+    product, whose ranks each hold a partial sum."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, start: int, group) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding whose rows ``start`` to ``start +
+    len(table)`` this rank holds (``table``): each rank looks up the tokens
+    in its range, writes zeros for the others, and the sum over ``group``
+    (one all-reduce) is every token's row, exact since one rank adds a
+    non-zero.  Each rank's rows get the gradient of their own tokens."""
+    local = tokens.long() - start
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(mine, local, 0)] * mine[..., None].to(table.dtype)
+    return reduce_from_model(rows, group)
+
+
+class _AllGatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = group_size(group)
+        ctx.index = _group_rank(group)
+        out = _gather_dim(x.movedim(-1, 0), 0, group)
+        return out.movedim(0, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, dim=-1)[ctx.index].contiguous(), None
+
+
+def _group_rank(group) -> int:
+    return 0 if isinstance(group, DryGroup) else dist.get_rank(group)
+
+
+def all_gather_cols(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's ``x`` joined along its last dim in group-rank order (the
+    vocabulary shards of the logits); the backward takes this rank's
+    columns of the whole's gradient, which every rank holds alike."""
+    return _AllGatherCols.apply(x, group)

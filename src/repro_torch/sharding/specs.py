@@ -21,13 +21,23 @@ stacks them on a leading L axis, so a layer leaf's spec here is the
 reference's without its leading ``None``.
 
 In the port a spec decides *storage*: :func:`placements` turns it into
-DTensor placements over a ``torch.distributed`` :class:`DeviceMesh`, and
-:meth:`ShardingPolicy.gather` rebuilds the full tensor where the layer
-loop needs it.  Compute is data-parallel (the batch over the data axes,
-repeated on each ``model`` rank), so the reference's activation
-constraints (``act_*``, ``logits``) return their input unchanged: they
-only steer GSPMD's placement of the same values.  Splitting the products
-over ``model`` is ROADMAP queue 2 item G.
+DTensor placements over a ``torch.distributed`` :class:`DeviceMesh`.
+Compute follows the reference's activation constraints: the batch is
+split over the data axes, and the MLP hidden, the attention heads and the
+vocabulary over ``model`` (Megatron's column- and row-split products).
+:meth:`ShardingPolicy.gather_layer` gathers a layer's leaves over the data
+axes and keeps the ``model`` split that the spec gives, so each rank holds
+column slices (D, D_out/M) of ``wq``/``wk``/``wv``/``w_in``/``w_gate`` and
+row slices (D_in/M, D) of ``wo``/``w_out``; :meth:`ShardingPolicy.
+tensor_split` states which parts split (:class:`TensorSplit`, one rule
+for the real step and the dry run).  The reference's ``act_*`` and
+``logits`` constraints then have nothing to move: each rank's tensor is
+already its slice, and they return their input.
+
+The reference's ``dmm_table_sharding`` (an XLA ``NamedSharding`` of the
+sharded mapping engine's block table over ``data``) has no counterpart
+here: the port's sharded engine places shard ``s`` of the table on
+``devices[s]`` of :func:`repro_torch.launch.mesh.make_etl_mesh`.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from .comm import axes_group, gather
 __all__ = [
     "P",
     "ShardingPolicy",
+    "TensorSplit",
     "make_policy",
     "param_spec_tree",
     "lax_axis_size",
@@ -102,6 +113,52 @@ def _axis_size(mesh, name: str) -> int:
     return mesh.shape[name]
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorSplit:
+    """How one rank's compute splits over ``model`` (``size`` ranks, this
+    rank ``rank``), for a model config.  The rule, stated once here:
+
+      * ``heads``: attention splits its query heads when ``n_heads`` divides
+        by the axis (whole heads: a hand-written split cannot cut a head,
+        where the reference's guard only asks that H * hd divide).  Then
+        ``wq`` and ``wo`` are split leaves, and ``kv`` says whether the KV
+        heads split too (``n_kv_heads`` divides); when they do not,
+        ``wk``/``wv`` are gathered whole over ``model`` and each rank keeps
+        the KV heads its query heads read (head ``h // n_rep``).  When the
+        query heads do not divide, the layer's attention gathers its four
+        projections whole and every rank repeats it;
+      * ``ff``: the MLP splits its hidden when ``d_ff`` divides (exactly
+        when the spec stores ``w_in``/``w_gate``/``w_out`` split);
+      * ``vocab``: the embedding rows, the head's columns and the loss split
+        when the padded vocabulary divides (exactly when the spec stores
+        them split).
+
+    The SSM parts (Mamba, RWKV) and the MoE experts are not split here:
+    they are gathered whole (experts stay split under ``ep``)."""
+
+    size: int
+    rank: int
+    heads: bool
+    kv: bool
+    ff: bool
+    vocab: bool
+
+    def kv_heads(self, n_heads: int, n_kv_heads: int) -> Tuple[Sequence[int], int]:
+        """(the KV heads this rank's query heads read, in order, and how
+        many adjacent query heads share each) when the query heads split:
+        this rank's query heads are ``rank * H/M`` to ``(rank + 1) * H/M``
+        and head ``h`` reads KV head ``h // n_rep``.  A share that is not
+        uniform gives one KV head a query head, repeated as needed."""
+        hl, n_rep = n_heads // self.size, n_heads // n_kv_heads
+        first = self.rank * hl
+        idx = [(first + j) // n_rep for j in range(hl)]
+        heads = sorted(set(idx))
+        rep = hl // len(heads)
+        if rep * len(heads) == hl and idx == [h for h in heads for _ in range(rep)]:
+            return heads, rep
+        return idx, 1
+
+
 @dataclasses.dataclass
 class ShardingPolicy:
     mesh: Optional[Any]
@@ -137,27 +194,31 @@ class ShardingPolicy:
         """axis name if it divides dim_size, else None (replicate)."""
         return axis if self._fits(dim_size, axis) else None
 
-    # ---- activation constraints: identities (compute is data-parallel) -------
+    # ---- activation constraints: identities (each rank already holds its slice)
     def act_btd(self, x):
         """(B, S, D) residual stream.  The reference pins batch over DP;
         here each rank holds its own batch rows already: returns ``x``."""
         return x
 
     def act_ff(self, x):
-        """(..., F) MLP hidden.  The reference shards F over model; the
-        port computes it whole on each model rank: returns ``x``."""
+        """(..., F/M) MLP hidden.  The reference shards F over model; here
+        the column-split ``w_in``/``w_gate`` give each rank its F/M slice
+        already (:meth:`tensor_split`): returns ``x``."""
         return x
 
     def act_heads(self, x):
-        """(B, S, H*hd) attention output: returns ``x`` (see :meth:`act_ff`)."""
+        """(B, S, H/M * hd) attention output: each rank's query heads
+        already (whole heads; see :class:`TensorSplit`): returns ``x``."""
         return x
 
     def act_expert_ff(self, x):
-        """(E, C, F) expert hidden: returns ``x`` (see :meth:`act_ff`)."""
+        """(E/M, C, F) expert hidden: under ``ep`` each rank runs its own
+        experts already: returns ``x``."""
         return x
 
     def logits(self, x):
-        """(B, S, V) logits: returns ``x`` (see :meth:`act_ff`)."""
+        """(B, S, V/M) logits: the vocab-split head gives each rank its
+        columns already: returns ``x``."""
         return x
 
     def batch_spec(self, ndim: int) -> P:
@@ -184,15 +245,89 @@ class ShardingPolicy:
     def model_group(self):
         return self.mesh.get_group(self.model_axis)
 
-    def gather(self, tree: Any, keep: Sequence[str] = ()) -> Any:
-        """Each DTensor leaf of ``tree`` as a plain full tensor on this rank
-        (other leaves as they are), through autograd: the backward sums the
-        data ranks' gradients into each shard (a reduce-scatter) and takes
-        the model ranks' gradient as it is, since compute over ``model`` is
-        repeated, not split (:func:`repro_torch.sharding.comm.gather`).
-        Mesh axes in ``keep`` stay split (expert parallelism keeps the
-        experts over ``model``)."""
-        return tree_map(lambda t: gather(t, self.data_axes, keep) if is_dtensor(t) else t, tree)
+    def model_index(self) -> int:
+        """This rank's position along ``model``."""
+        return axes_index(self.mesh, (self.model_axis,))
+
+    def tensor_split(self, cfg) -> Optional[TensorSplit]:
+        """How compute splits over ``model`` for ``cfg`` (:class:`TensorSplit`),
+        or None off a mesh or on a ``model`` axis of one rank."""
+        if not self.sharded:
+            return None
+        m = self.axis_size(self.model_axis)
+        if m == 1:
+            return None
+        return TensorSplit(size=m, rank=self.model_index(),
+                           heads=self._fits(cfg.n_heads, self.model_axis),
+                           kv=self._fits(cfg.n_kv_heads, self.model_axis),
+                           ff=self._fits(cfg.d_ff, self.model_axis),
+                           vocab=self._fits(cfg.vocab_padded, self.model_axis))
+
+    def split_group(self, cfg, part: str):
+        """The ``model`` group when :meth:`tensor_split` splits ``part``
+        (``"heads"``, ``"ff"`` or ``"vocab"``) of ``cfg``, else None."""
+        ts = self.tensor_split(cfg)
+        return self.model_group() if ts is not None and getattr(ts, part) else None
+
+    def gather(self, tree: Any, keep: Sequence[str] = (), summed: Sequence[str] = ()) -> Any:
+        """Each DTensor leaf of ``tree`` as a plain tensor on this rank
+        (other leaves as they are), through autograd: whole, except along
+        the mesh axes in ``keep``, which stay split.  The backward sums the
+        data ranks' gradients into each shard (a reduce-scatter), and those
+        of the axes in ``summed`` (a leaf gathered whole for a computation
+        split over them); over the other axes compute is repeated and the
+        gradient is taken as it is (:func:`repro_torch.sharding.comm.
+        gather`)."""
+        axes = (*self.data_axes, *summed)
+        return tree_map(lambda t: gather(t, axes, keep) if is_dtensor(t) else t, tree)
+
+    def model_dim(self, t: Any) -> Optional[int]:
+        """The dim of leaf ``t`` that its placement splits over ``model``,
+        or None."""
+        pl = t.placements[axis_names(self.mesh).index(self.model_axis)]
+        return getattr(pl, "dim", None)
+
+    def gather_layer(self, lp: Any, cfg) -> Any:
+        """One layer's (or encoder layer's) weights for its compute on this
+        rank, by :meth:`tensor_split`'s rule: the split leaves gathered over
+        the data axes alone (column slices of ``wq``/``wk``/``wv``/``w_in``/
+        ``w_gate``, row slices of ``wo``/``w_out``), ``wk``/``wv`` whole
+        with their gradient summed over ``model`` when the KV heads do not
+        split, under ``ep`` each rank's own experts, the rest whole.  A
+        leaf the rule splits whose spec does not split it so raises."""
+        ts = self.tensor_split(cfg)
+        m = (self.model_axis,)
+        out = {}
+        for name, block in lp.items():
+            if name in ("attn", "xattn") and ts is not None and ts.heads:
+                out[name] = {k: self.gather_split(v, self._split_dim(k), k)
+                             if k in ("wq", "wo") or ts.kv else self.gather(v, summed=m)
+                             for k, v in block.items()}
+            elif name == "mlp" and ts is not None and ts.ff:
+                out[name] = {k: self.gather_split(v, self._split_dim(k), k)
+                             for k, v in block.items()}
+            elif name == "moe" and cfg.moe_impl == "ep":
+                out[name] = {k: self.gather(v, keep=() if k == "router" else m)
+                             for k, v in block.items()}
+            else:
+                out[name] = self.gather(block)
+        return out
+
+    @staticmethod
+    def _split_dim(name: str) -> int:
+        """Row slices (D_in/M, D) of ``wo``/``w_out``, column slices (D,
+        D_out/M) of the other projections."""
+        return 0 if name in ("wo", "w_out") else 1
+
+    def gather_split(self, t: Any, dim: int, name: str = "leaf") -> Any:
+        """Leaf ``t`` gathered over the data axes, its ``model`` split on
+        ``dim`` kept (this rank's slice); raises when its placement does
+        not split ``dim`` over ``model``."""
+        got = self.model_dim(t)
+        if got != dim:
+            raise ValueError(f"{name}: the tensor split needs it split over "
+                             f"{self.model_axis!r} on dim {dim}, its spec splits dim {got}")
+        return self.gather(t, keep=(self.model_axis,))
 
 
 def axes_index(mesh, axes: Sequence[str]) -> int:

@@ -11,8 +11,9 @@ Counterpart of ``repro.train.loop``:
     ``cfg.remat``.  Given a sharding policy over a ``torch.distributed``
     mesh it computes the reference's GSPMD step -- the whole batch's loss
     and gradients -- with DTensor parameters and moments stored as
-    :func:`~repro_torch.sharding.specs.param_spec_tree` shards them and
-    data-parallel compute (:mod:`repro_torch.models.model`);
+    :func:`~repro_torch.sharding.specs.param_spec_tree` shards them, the
+    batch split over the data axes and the products over ``model``
+    (:mod:`repro_torch.models.model`);
   * :func:`make_dp_train_step` -- the explicit data-parallel step:
     replicated parameters and state, each rank its batch rows, gradients
     averaged over the data axes in float32 or through the int8 all-reduce

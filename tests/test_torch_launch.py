@@ -15,11 +15,11 @@ What is held, and how closely:
     ``experiments/dryrun/olmo_1b.*.16x16.json`` (a reference run of this
     tree gives the same four fields; its ``temp_bytes`` and ``cost`` have
     moved since those files were written, so they are not compared);
-  * counted flops of olmo-1b ``train_4k``, over every data rank (the
-    port's per-device flops times the data ranks, since the ``model``
-    ranks repeat them): at least ``model_flops_global`` (the 6ND floor,
-    which every step must do) and at most 1.1 times the reference's HLO
-    flops over all devices.  The port counts matrix products alone
+  * counted flops of olmo-1b ``train_4k``, over every device (the port's
+    per-device flops times the device count: the ``model`` ranks split
+    the products, as the reference's GSPMD program does): at least
+    ``model_flops_global`` (the 6ND floor, which every step must do) and
+    at most 1.1 times the reference's HLO flops over all devices.  The port counts matrix products alone
     (``FlopCounterMode``'s rules) where XLA counts elementwise work too,
     and both recompute the layers under remat "full"; 1.1 leaves room for
     the port's dense attention over the full score matrix;
@@ -266,8 +266,7 @@ def test_olmo_16x16_equals_the_checked_in_artifacts(shape):
 def test_olmo_train_flops_lie_between_6nd_and_the_reference_hlo():
     got = D.run_cell("olmo_1b", "train_4k", D.production_mesh(), verbose=False)
     want = _olmo_artifact("train_4k")
-    data_ranks = 16  # the model ranks repeat each data rank's step
-    counted = got.cost["flops"] * data_ranks
+    counted = got.cost["flops"] * got.n_devices  # the model ranks split the products
     hlo = want["cost"]["flops"] * want["n_devices"]
     print(f"olmo-1b train_4k: counted {counted:.6e} flops, 6ND {got.model_flops_global:.6e}, "
           f"reference HLO {hlo:.6e}, ratio to HLO {counted / hlo:.4f}")
@@ -327,12 +326,17 @@ def test_llama3_405b_train_allocates_nothing_and_takes_seconds():
     """Seconds of this process's CPU time: a loaded test run's wall clock
     would count the other workers' time too."""
     t0, c0 = time.perf_counter(), time.process_time()
-    got = D.trace_cell(TC.get("llama3_405b"), TC.SHAPES["train_4k"], D.production_mesh())
+    cfg, cell, mesh = TC.get("llama3_405b"), TC.SHAPES["train_4k"], D.production_mesh()
+    got = D.trace_cell(cfg, cell, mesh)
     seconds, wall = time.process_time() - c0, time.perf_counter() - t0
     print(f"llama3-405b train_4k on 16x16: {seconds:.2f} CPU s ({wall:.2f} s wall), "
-          f"{json.dumps(got['memory'])}")
+          f"{json.dumps(got['memory'])}, flops {got['cost']['flops']:.6e}")
     assert got["trace"].devices == {"meta"}  # every result of every operation
-    assert got["memory"]["argument_bytes"] > 9e9 and got["cost"]["flops"] > 1e17
+    # the whole step was counted: each device's flops lie between its share
+    # of 6ND and 1.6 times it (the model ranks split the products)
+    share = D._model_flops(cfg, cell) / mesh.n_devices
+    assert got["memory"]["argument_bytes"] > 9e9
+    assert share <= got["cost"]["flops"] <= 1.6 * share
     assert seconds < 20
 
 
