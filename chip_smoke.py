@@ -128,7 +128,7 @@ failure raises and the script exits non-zero):
    the card equal to the CPU's for six ETL flag combinations; then the
    ``pipeline rates`` line: events/s of sync, async and the densify thread
    over chunks 33-63 of fused host, fused device and sharded host densify,
-   5 interleaved passes each on a fresh app (median, min, max), and the
+   3 interleaved passes each on a fresh app (median, min, max), and the
    device busy share of one async pass under ``torch.profiler``;
 4d. the replicated control plane (``repro_torch.etl.replication``), its
    processes sharing the card: (a) an in-process ``LeaderNode`` on slot 0
@@ -139,7 +139,7 @@ failure raises and the script exits non-zero):
    host-densify rows and phase 4c's cluster rows in order (as
    ``row_to_wire`` lists), every follower ends at the leader's term and
    log offset with no stale record, and the leader's plane launches
-   ``segmented_gather`` once an owned chunk; 5 passes, each beside a pass
+   ``segmented_gather`` once an owned chunk; 2 passes, each beside a pass
    of the in-process 4-instance ``Cluster``; (b) the four acts of
    ``scripts/replication_smoke.py`` through the port's command line on the
    card (the paper's 128 schemas, 64 chunks of 512): the oracle, a leader
@@ -188,21 +188,22 @@ failure raises and the script exits non-zero):
    ``pin_memory`` and ``.to`` of four arrays, ``ops.dmm_apply_fused`` /
    ``dmm_apply_sharded`` and two ``.cpu()`` (``host-densify host``);
 5b. serve the MoE family, olmo-1b's parameters freed first (``serving 5b``
-   lines): (a) qwen3-moe-30b-a3b at full width and all 48 layers, seeded
+   lines): (a) qwen3-moe-30b-a3b at full width cut to 12 of its 48 layers
+   (``SERVE_DEPTH``), seeded
    random bfloat16 weights from a ``torch.Generator`` on the card (parameter
    bytes and ``max_memory_allocated`` printed); (b) its prefill ``forward``
-   with ``attn_impl="pallas"`` over a (2, 2048) batch: 48 launches of
-   ``flash_attention`` and no other kernel of the port, all 48 to the
+   with ``attn_impl="pallas"`` over a (2, 2048) batch: 12 launches of
+   ``flash_attention`` and no other kernel of the port, all 12 to the
    tensor-core kernel (the profiler's device events), each launch within
    the bfloat16 limit of the plain version on that layer's own q, k and v,
    two identical calls bit-identical in logits and aux loss; against the
    dense-attention prefill in bfloat16 (max abs error, argmax agreement,
    the share of (token, layer) routings that differ), also with the dense
    prefill's routing pinned to the flash prefill's, beside a control with
-   no kernel (chunked against dense attention, routing pinned): at 48
-   layers a bfloat16 perturbation of any kind reroutes most tokens of this
+   no kernel (chunked against dense attention, routing pinned): deep in
+   the model a bfloat16 perturbation of any kind reroutes most tokens of this
    random-weight model, so the agreement >= 0.9 is required of the first 2
-   layers' prefill (the same parameters) and printed for all 48; (c) at full
+   layers' prefill (the same parameters) and printed for all 12; (c) at full
    width cut to 2 layers in float32, with capacity factor E / k (C >= T: the
    prefill drops no token), 32 ``decode_step`` logits against the prefill's
    (teacher forcing, atol 2e-3 / rtol 1e-3); (d) a batch-8 ``Server``
@@ -216,13 +217,15 @@ failure raises and the script exits non-zero):
    ``flash_attention`` (n_rep 6, hd 128) checked as in (b), agreement >= 0.9
    included, and greedy decoding; (h) the serving launcher in process,
    ``--arch qwen3_moe_30b_a3b --etl`` at full width and ``--arch dbrx_132b
-   --smoke``, every request answered; then qwen3-moe's prefill tokens/s, decode ms per step at batch
+   --smoke``, every request answered (qwen3-moe at all 48 layers); then
+   qwen3-moe's prefill tokens/s, decode ms per step at batch
    8 beside its byte bound, and from ``torch.profiler`` the device busy
    share of a prefill and its device time split into the expert products,
    the router, dispatch and combine, ``flash_attention`` and the rest, and
    the phase's wall time;
 5c. serve the SSM and hybrid families (``serving 5c`` lines), each at full
-   width and all 32 layers in bfloat16 with seeded random weights: rwkv6-3b
+   width in bfloat16, cut to 8 of their 32 layers (``SERVE_DEPTH``), with
+   seeded random weights: rwkv6-3b
    (``rwkv_impl="chunked"``) and hymba-1.5b (window 1024).  No kernel of
    the port lies on these paths (rwkv6 has no attention, hymba's is
    windowed), and the prefill must launch none.  Each: the (2, 2048)
@@ -243,7 +246,7 @@ failure raises and the script exits non-zero):
    against the CPU at (1, 256) and (1, 250), equal ``Server`` tokens (atol
    2e-3 / rtol 1e-3 between two algorithms, 1e-3 / 1e-3 card against
    CPU); and the launcher in process at full width, ``--arch rwkv6_3b`` and
-   ``--arch hymba_1_5b --etl``, every request answered; then the
+   ``--arch hymba_1_5b --etl``, every request answered (all 32 layers); then the
    ``serving ssm:`` line;
 5d. serve the audio and VLM families (``serving 5d`` lines), at full width
    and depth in bfloat16 with seeded random weights and ``attn_impl=
@@ -306,9 +309,9 @@ failure raises and the script exits non-zero):
    kernel); every loss finite, 10 steps on one fixed batch lower the loss,
    and the feed's first 2 batches equal a CPU feed's token for token; (b)
    each family at full width in float32 with TF32 off, cut to 2 layers
-   (whisper-tiny at full depth), (2, 128) tokens: the loss and every
+   (whisper-tiny at full depth, qwen3-moe-30b-a3b to 1), (2, 128) tokens: the loss and every
    gradient leaf of the first ``make_train_step`` on the card against the
-   CPU, then the parameters and moments after 3 steps (atol and rtol
+   CPU, then the parameters and moments after 2 steps (atol and rtol
    1e-4; a parameter may leave that only as one of at most 1e-5 of the
    elements, within 2 lr a step: Adam's normalised step flips where a
    gradient is at float32 noise); (c) ``train`` on the card writes a
@@ -318,9 +321,11 @@ failure raises and the script exits non-zero):
    with ``attn_impl="pallas"`` on the card raises the port's
    ``NotImplementedError`` before any ``flash_attention`` launch;
 8. (after 7) the model mesh (``mesh`` lines, then the ``mesh:`` JSON
-   line): four processes share the card as a (2, 2) ("data", "model")
-   mesh in a gloo group (``repro_torch.launch.mesh.run_on_mesh``; NCCL
-   refuses two ranks on one card), every model at full width cut to 2
+   line): one spawn of four processes that share the card in a gloo group
+   (``repro_torch.launch.mesh.run_on_mesh``; NCCL refuses two ranks on one
+   card), first as a (2, 2) ("data", "model") mesh for (a)-(d) and (f)'s
+   (2, 2) gate, then as a (1, 4) mesh for (e) and the rest of (f)
+   (``mesh_phase_rank``), every model at full width cut to 2
    layers, each rank's METL feed on the card (``TrainFeed``, 8 x 512
    tokens; the launch counts zeroed just before ``train`` and read after
    the last batch: ``segmented_gather`` once a chunk and no other kernel,
@@ -340,7 +345,7 @@ failure raises and the script exits non-zero):
    512, 2048) against ``dmm`` in one process (atol/rtol 3e-2, the
    reference's gate); (d) (a)'s sharded state saved (every rank gathers,
    rank 0 writes) and resharded onto a (4, 1) mesh, every leaf bit for
-   bit; (e) a second spawn of four ranks as a (1, 4) mesh: one
+   bit; (e) the same four ranks as a (1, 4) mesh: one
    ``train(mesh=...)`` step of olmo-1b (float32, 2 layers, a weighted
    synthetic batch), each rank computing 4 of the 16 heads, a quarter of
    the MLP hidden and 12,576 of the 50,304 vocabulary columns, against one
@@ -352,7 +357,22 @@ failure raises and the script exits non-zero):
    bytes by kind (the first sharded step's), ``max_memory_allocated``
    after the timed sharded steps and at the end, and its feed's launches;
    each (e) rank's line its split, the seconds of ``train`` and of a warm
-   step, bytes by kind and ``max_memory_allocated``;
+   step, bytes by kind and ``max_memory_allocated``; (f) decode over the
+   mesh, on (1, 4): olmo-1b at full width and depth in
+   bfloat16 -- the (2, 2048) prefill through ``forward(sh)`` with
+   ``attn_impl="pallas"`` (4 heads a rank through ``flash_attention``;
+   the counts zeroed just before and read just after, one launch a layer
+   a rank and no other kernel, each launch held to its plain version on
+   its own layer's q, k and v), decode at batch 8 (median ms of 20 steps
+   at position 512, with the host ms and calls inside ``comm``) and a
+   16-request ``Server`` over the mesh (its token agreement with one
+   process printed, not gated: bf16 at full depth is chaotic with random
+   weights) -- then float32 gates, 2 layers at full width: olmo-1b (heads
+   and KV heads split), hymba-1.5b (its 1,024-slot window split in time,
+   Mamba over Di) and rwkv6-3b (wkv heads and the channel mix's hidden
+   split) on (1, 4), and olmo-1b on (2, 2); on each,
+   every decode step's logits within 1e-4 relative of one process on the
+   card, the greedy tokens and a 6-request ``Server``'s ``done`` equal;
 9. (after 6's timing) the launch tools (``launch tools`` lines, each
    naming the card, then the ``launch tools:`` JSON line): (a) HBM bytes/s
    of a 1 GiB device-to-device copy (read plus written), PCIe bytes/s of a
@@ -1348,7 +1368,7 @@ PIPELINE_CASES = [("host", "sync"), ("host", "async"), ("host", "thread"),
                   ("device", "async"), ("sharded-host", "async"),
                   ("sharded-device", "async"), ("blocks-gather", "async")]
 RATE_PATHS = ("host", "device", "sharded-host")
-RATE_PASSES = 5
+RATE_PASSES = 3  # each rotation of the three modes once
 LOAD_EVENTS, LOAD_INSTANCES = 8192, 4
 # the launcher's ETL flag combinations, as _etl_prompts keywords
 SERVE_ETL_FLAGS = {
@@ -1644,7 +1664,7 @@ def streaming_pipeline(dev, cfg, stream, runs) -> list:
 # -- phase 4d: the replicated control plane ---------------------------------------
 
 REPL_INSTANCES = 4  # (a) and (c): the leader's slot 0 and three follower processes
-REPL_PASSES = 5
+REPL_PASSES = 2
 # (b): scripts/replication_smoke.py's schedule on the paper's schema count and
 # step 4's chunks; FAILOVER_FAST_GRID is that script's --fast grid
 _FAILOVER_SCHEDULE = ["--seed", "7", "--stream-seed", "7", "--churn", "3",
@@ -3210,6 +3230,10 @@ def serving_path(dev: torch.device) -> dict:
 # -- phase 5b: serving the MoE family -----------------------------------------------
 
 CUT_LAYERS = 2  # dbrx-132b (263 GB in bf16) and the float32 checks, at full width
+# the bfloat16 measurements of 5b and 5c, at full width and a quarter of
+# the depth, to keep the whole run near half its time limit; the launchers
+# of 5b (h) and 5c still serve qwen3-moe, rwkv6 and hymba at all their layers
+SERVE_DEPTH = {"qwen3_moe_30b_a3b": 12, "rwkv6_3b": 8, "hymba_1_5b": 8}
 CARD_CPU_PROMPT = 64  # the float32 card-vs-CPU prefill: its CPU side well under a minute
 DMM_PROMPT = 256
 MOE_SERVE = dict(batch=8, cache_len=256, max_new=16, eos=-1)
@@ -3471,7 +3495,7 @@ def moe_prefill_checks(name, params, cfg, batch, *, agree_gate=True) -> dict:
 
 def qwen3_moe_full(dev, cfg) -> dict:
     """(a)-(b), (d) and the timings: ``cfg`` is qwen3-moe-30b-a3b at full
-    width and all 48 layers in bfloat16."""
+    width in bfloat16, cut to ``SERVE_DEPTH`` layers."""
     from repro_torch.models import model as M
     from repro_torch.serve.decode import ServeConfig
 
@@ -3490,7 +3514,7 @@ def qwen3_moe_full(dev, cfg) -> dict:
     tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))).to(dev)
     batch = {"tokens": tokens}
 
-    # at 48 layers a bf16 perturbation reroutes most tokens (PERF.md §6):
+    # deep in the model a bf16 perturbation reroutes most tokens (PERF.md §6):
     # the end-to-end agreement is printed there and checked on the first
     # CUT_LAYERS layers, which share these parameters
     out["prefill"] = moe_prefill_checks("(b) qwen3-moe", params, cfg, batch, agree_gate=False)
@@ -3694,7 +3718,8 @@ def moe_serving(dev) -> dict:
     t0 = time.perf_counter()
     qwen3 = configs.get("qwen3_moe_30b_a3b")
     torch.cuda.empty_cache()
-    out = {"qwen3-moe": qwen3_moe_full(dev, qwen3)}
+    out = {"qwen3-moe": qwen3_moe_full(dev, qwen3.replace(
+        n_layers=SERVE_DEPTH["qwen3_moe_30b_a3b"]))}
     torch.cuda.empty_cache()
     out["qwen3-moe f32 cut"] = qwen3_moe_cut_f32(dev, qwen3.replace(
         n_layers=CUT_LAYERS, param_dtype="float32", compute_dtype="float32"))
@@ -3819,7 +3844,8 @@ def server_summary(params, cfg, dev, sc) -> dict:
 
 
 def ssm_full(dev, cfg) -> dict:
-    """rwkv6-3b or hymba-1.5b at full width and all layers in bfloat16: the
+    """rwkv6-3b or hymba-1.5b at full width in bfloat16, cut to
+    ``SERVE_DEPTH`` layers: the
     (2, 2048) prefill's checks, tokens/s (median of 3), profile and split;
     for rwkv6 the scan prefill beside the chunked one (report only); decode
     at batch 8 beside its byte bound; a 16-request ``Server`` run."""
@@ -3839,7 +3865,7 @@ def ssm_full(dev, cfg) -> dict:
     tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))).to(dev)
     batch = {"tokens": tokens}
     out["prefill"] = ssm_prefill_checks(cfg.name, params, cfg, batch)
-    if cfg.family == "ssm":  # report only: bf16 noise through 32 layers
+    if cfg.family == "ssm":  # report only: bf16 noise through the layers
         head = {"tokens": tokens[:, :SSM_SCAN_PROMPT]}
         chunked, _ = M.forward(params, cfg, head)
         scan, _ = M.forward(params, cfg.replace(rwkv_impl="scan"), head)
@@ -3927,7 +3953,7 @@ def ssm_serving(dev) -> dict:
     for arch in ("rwkv6_3b", "hymba_1_5b"):
         cfg = configs.get(arch)
         torch.cuda.empty_cache()
-        out[cfg.name] = ssm_full(dev, cfg)
+        out[cfg.name] = ssm_full(dev, cfg.replace(n_layers=SERVE_DEPTH[arch]))
         torch.cuda.empty_cache()
         teacher = HYMBA_TEACHER if cfg.window else TEACHER_STEPS
         out[f"{cfg.name} f32 cut"] = ssm_cut_f32(dev, cfg.replace(
@@ -4223,14 +4249,17 @@ TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FIXED = 1, 5, 10  # (a): steps
 TRAIN_FEED_CHECKED = 2  # (a): the card's first batches held against the CPU feed's
 TRAIN_OPT_REPS = 3  # (a): adamw_update timed alone
 # (b): each family at full width, float32, cut to 2 layers (whisper-tiny at
-# full depth), the batch (B, S) and the steps compared
+# full depth; qwen3-moe to 1, whose CPU side took ~117 s at 2 layers on
+# the H100's host, to keep the whole run inside its limit beside phase 8
+# (f)), the batch (B, S) and the steps compared
 TRAIN_CUT_ARCHS = ("olmo_1b", "qwen3_moe_30b_a3b", "rwkv6_3b", "hymba_1_5b", "whisper_tiny",
                    "internvl2_1b")
 TRAIN_CUT_LAYERS = 2
+TRAIN_CUT_DEPTH = {"qwen3_moe_30b_a3b": 1}
 TRAIN_CUT_SHAPE = (2, 128)
-TRAIN_CUT_STEPS = 3
+TRAIN_CUT_STEPS = 2
 TRAIN_CUT_TOL = (1e-4, 1e-4)  # atol, rtol: loss, gradients, parameters and moments
-# (b): after 3 AdamW steps at most this share of a family's parameters may
+# (b): after 2 AdamW steps at most this share of a family's parameters may
 # lie outside TRAIN_CUT_TOL, each within 2 lr a step: where a gradient is at
 # float32 noise, Adam's normalised step is +-lr either way
 TRAIN_FLIP_SHARE = 1e-5
@@ -4406,7 +4435,8 @@ def _cut_config(arch):
     from repro_torch import configs
 
     cfg = configs.get(arch).replace(param_dtype="float32", compute_dtype="float32")
-    return cfg if cfg.enc_dec else cfg.replace(n_layers=TRAIN_CUT_LAYERS)
+    return cfg if cfg.enc_dec else cfg.replace(n_layers=TRAIN_CUT_DEPTH.get(arch,
+                                                                           TRAIN_CUT_LAYERS))
 
 
 def _flat_leaves(tree, prefix=""):
@@ -4979,23 +5009,332 @@ def mesh_rank(mesh, smoke=False, base=None):
     return out
 
 
+# (f): decode, the Server and the prefill over the model mesh.  The bf16
+# part runs olmo-1b at full width and depth on (1, 4) (4 of 16 heads a
+# rank); the float32 gates cut every model to MESH_LAYERS layers, never in
+# width: olmo-1b on (1, 4) and (2, 2) (heads and KV heads split), hymba-1.5b
+# on (1, 4) (5 KV heads: the 1,024-slot window split in time, 256 a rank;
+# Mamba's Di 400 a rank) and rwkv6-3b on (1, 4) (10 wkv heads and 2,240 of
+# the channel mix's hidden a rank)
+MESH_DECODE_GATES = {(1, 4): ("olmo_1b", "hymba_1_5b", "rwkv6_3b"), (2, 2): ("olmo_1b",)}
+MESH_DECODE_TOL = 1e-4  # every step's logits: |mesh - one process| <= tol * (1 + |one process|)
+# four processes time-share the card, so a gloo call there costs ~7-10 ms
+# (~0.3 s a decode step on (1, 4), ~1 s on (2, 2), where each step also
+# gathers the layers' weights over ``data``; measured on one H100 80GB
+# HBM3 at 700 W): the step counts below keep the sub-phase near two minutes
+MESH_DECODE_GATE = dict(batch=8, prompt=3, max_new=6, cache_len=64)
+MESH_DECODE_SERVE = dict(batch=4, cache_len=64, max_new=3, eos=-1)  # the gates' Server
+MESH_DECODE_SERVE_PROMPTS = (6, 1, 3)  # requests, shortest and longest prompt
+MESH_DECODE_TIMING = dict(batch=8, cache_len=1024, fill=512, steps=20, warm=5)  # bf16 decode
+MESH_DECODE_BF16_SERVE = dict(batch=8, cache_len=1024, max_new=8, eos=-1)
+MESH_DECODE_BF16_PROMPTS = (16, 1, 3)
+
+
+def _rank_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _placed_params(cfg, mesh, dev, keep_whole: bool):
+    """Seeded parameters of ``cfg`` on ``dev`` placed on ``mesh`` as the
+    specs store them, and (``keep_whole``) the whole tree too."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.specs import make_policy, param_spec_tree
+    from repro_torch.train.loop import place_tree
+
+    whole = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    placed = place_tree(whole, param_spec_tree(whole, make_policy(mesh)), mesh)
+    return placed, (whole if keep_whole else None)
+
+
+def _gather_whole(x, sh, cfg, rows_split: bool):
+    """Step logits (B_loc, V/M) of this rank joined to (B, V_pad) on every
+    rank: the vocabulary over ``model``, the rows over ``data``."""
+    from repro_torch.models.layers import split_group
+    from repro_torch.sharding import comm
+
+    group = split_group(sh, cfg, "vocab")
+    if group is not None:
+        x = comm.all_gather_cols(x, group)
+    if rows_split:
+        x = comm.all_gather_rows(x, sh.data_group())
+    return x
+
+
+def _decode_logits(params, cfg, sh, dev, prompt, max_new, cache_len):
+    """Greedy decoding through ``make_serve_step(cfg, sh)`` (``sh`` None:
+    one process), stepped as ``greedy_decode`` steps: every step's whole
+    logits (steps, B, V_pad) on the host, and the generated tokens."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import make_serve_step
+    from repro_torch.sharding import comm
+
+    B, S0 = prompt.shape
+    rows = sh.data_rows(B) if sh is not None else slice(0, B)
+    split = rows != slice(0, B)
+    state = M.init_decode_state(cfg, B, cache_len, device=dev, sh=sh)
+    step = make_serve_step(cfg, sh)
+    logits, outs = [], []
+    tok = prompt[:, 0]
+    for t in range(1, S0 + max_new):
+        nxt, lg, state = step(params, state, tok[rows])
+        if sh is not None:
+            lg = _gather_whole(lg, sh, cfg, split)
+            if split:
+                nxt = comm.all_gather_rows(nxt, sh.data_group())
+        logits.append(lg.float().cpu())
+        tok = prompt[:, t] if t < S0 else nxt
+        if t >= S0:
+            outs.append(nxt.cpu())
+    return torch.stack(logits), torch.stack(outs, 1)
+
+
+def mesh_decode_gates(mesh, smoke=False) -> dict:
+    """Phase 8 (f)'s float32 gates on one rank, for each model that
+    ``MESH_DECODE_GATES`` gives this mesh's shape (``smoke``: their smoke
+    configs, rwkv6 with 4 heads so that they split): greedy decoding over
+    the mesh, stepped as ``greedy_decode`` steps, against one process on
+    rank 0 -- every step's logits within ``MESH_DECODE_TOL`` and the
+    greedy tokens equal -- and a 6-request ``Server``'s ``done`` equal, on
+    every rank.  Raises on a failed gate; returns each model's readings."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.serve.decode import Server, ServeConfig
+    from repro_torch.sharding.specs import make_policy
+
+    dev = _rank_device(mesh)
+    sh = make_policy(mesh)
+    rank0 = dist.get_rank() == 0
+    g = MESH_DECODE_GATE
+    out = {}
+    for arch in MESH_DECODE_GATES[(mesh.size(0), mesh.size(1))]:
+        kw = dict(param_dtype="float32", compute_dtype="float32")
+        if smoke and arch == "rwkv6_3b":
+            kw["ssm_heads"] = 4
+        cfg = _mesh_cfg(arch, smoke, **kw)
+        cache_len = max(g["cache_len"], cfg.window)  # hymba: its whole window, split in time
+        placed, whole = _placed_params(cfg, mesh, dev, rank0)
+        prompt = torch.from_numpy(np.random.default_rng(3).integers(
+            2, cfg.vocab, (g["batch"], g["prompt"]))).to(dev)
+        t0 = time.perf_counter()
+        logits, toks = _decode_logits(placed, cfg, sh, dev, prompt, g["max_new"], cache_len)
+        r = {"split": dataclasses.asdict(sh.tensor_split(cfg)), "cache_len": cache_len,
+             "steps": logits.shape[0], "loop_s": time.perf_counter() - t0}
+        sc = ServeConfig(**MESH_DECODE_SERVE)
+        prompts = _prompts(cfg.vocab, *MESH_DECODE_SERVE_PROMPTS, seed=4)
+        server = Server(placed, cfg, sc, sh, device=dev)
+        for p in prompts:
+            server.submit(p)
+        server.run(n_steps=len(prompts) * (sc.max_new + 8))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, server.done)
+        if any(d != every[0] for d in every):
+            raise AssertionError(f"mesh (f) {cfg.name}: the ranks' Server.done differ")
+        if rank0:
+            want, want_toks = _decode_logits(whole, cfg, None, dev, prompt, g["max_new"], cache_len)
+            free = Server(whole, cfg, sc, device=dev)
+            for p in prompts:
+                free.submit(p)
+            free.run(n_steps=len(prompts) * (sc.max_new + 8))
+            d = (logits - want).abs()
+            r.update(max_abs_err=float(d.max()), max_abs_logit=float(want.abs().max()),
+                     max_rel_err=float((d / (1 + want.abs())).max()),
+                     tokens_equal=bool(torch.equal(toks, want_toks)),
+                     server_equal=server.done == free.done, server_requests=len(free.done))
+            if not (r["max_rel_err"] <= MESH_DECODE_TOL and r["tokens_equal"]
+                    and r["server_equal"]
+                    and len(free.done) == len(prompts)):
+                raise AssertionError(f"mesh (f) {cfg.name} float32 on "
+                                     f"{(mesh.size(0), mesh.size(1))}: {r}")
+        out[cfg.name] = r
+        del placed, whole
+        _free()
+    return out
+
+
+def _mesh_decode_bf16(mesh, dev, smoke) -> dict:
+    """Phase 8 (f)'s bf16 part on one rank of the (1, 4) mesh: olmo-1b at
+    full width and depth (its smoke config with ``smoke``)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import Server, ServeConfig, make_serve_step
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.specs import make_policy
+
+    cfg = configs.get_smoke("olmo_1b") if smoke else configs.get("olmo_1b")  # bfloat16
+    fa = cfg.replace(attn_impl="pallas")
+    sh = make_policy(mesh)
+    rank0 = dist.get_rank() == 0
+    on_card = dev.type == "cuda"
+    placed, whole = _placed_params(cfg, mesh, dev, rank0)
+    B, S = SERVE_BATCH, (64 if smoke else PROMPT_LEN)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab, (B, S))).to(dev)
+    batch = {"tokens": tokens[sh.data_rows(B)]}
+    out = {}
+
+    # the prefill: forward(sh) with flash_attention, the counts zeroed just
+    # before and read just after, every launch held to its plain version
+    _zero_launch_counts()
+    with flash_against_plain() as shares, torch.no_grad():
+        logits, _ = M.forward(placed, fa, batch, sh)
+    _sync()
+    launches = _launch_counts()
+    want = {n: (cfg.n_layers if n == "flash_attention" and on_card else 0) for n in KERNEL_NAMES}
+    pre = {"flash_attention_launches": launches["flash_attention"],
+           "flash_launches_checked": len(shares),
+           "flash_vs_plain_by_layer_max_share": max(shares, default=None),
+           "shape_ok": tuple(logits.shape) == (B, S, cfg.vocab_padded),
+           "finite": bool(torch.isfinite(logits).all())}
+    if launches != want or not (pre["shape_ok"] and pre["finite"]
+                                and len(shares) == cfg.n_layers and max(shares) < 1):
+        raise AssertionError(f"mesh (f) prefill over the mesh: launches {launches}, "
+                             f"want {want}; {pre}")
+
+    def prefill():
+        with torch.no_grad():
+            return M.forward(placed, fa, batch, sh)[0]
+
+    pre["prefill_s"], _ = _timed(prefill, reps=1)
+    pre["prefill_tokens_per_s"] = B * S / pre["prefill_s"]
+    if rank0:
+        with torch.no_grad():
+            one, _ = M.forward(whole, fa, {"tokens": tokens})
+        pre["vs_one_process"] = _logit_stats(logits, one)
+        del one
+    del logits
+    out["prefill"] = pre
+    _free()
+
+    # decode at batch 8: ms a step, host seconds and calls inside comm
+    t = MESH_DECODE_TIMING
+    rows = sh.data_rows(t["batch"])
+    step = make_serve_step(cfg, sh)
+    state = M.init_decode_state(cfg, t["batch"], t["cache_len"], device=dev, sh=sh)
+    state["pos"] = t["fill"]
+    tok = torch.full((rows.stop - rows.start,), 7, dtype=torch.int32, device=dev)
+    times, comm_s, calls = [], [], []
+    for i in range(t["warm"] + t["steps"]):
+        comm.reset_stats()
+        _sync()
+        t0 = time.perf_counter()
+        tok, _, state = step(placed, state, tok)
+        _sync()
+        if i >= t["warm"]:
+            times.append(time.perf_counter() - t0)
+            comm_s.append(comm.STATS["seconds"])
+            calls.append(comm.STATS["calls"])
+    out["decode"] = {"batch": t["batch"], "cache_len": t["cache_len"], "fill": t["fill"],
+                     "ms_per_step_median": statistics.median(times) * 1e3,
+                     "ms_per_step_range": [min(times) * 1e3, max(times) * 1e3],
+                     "comm_ms_per_step_median": statistics.median(comm_s) * 1e3,
+                     "comm_calls_per_step": calls[-1],
+                     "comm_bytes_per_step": dict(comm.STATS["bytes"])}
+    del state
+    _free()
+
+    # a 16-request Server over the mesh; its tokens against one process's
+    # (bf16 at full depth is chaotic with random weights: reported)
+    sc = ServeConfig(**MESH_DECODE_BF16_SERVE)
+    prompts = _prompts(cfg.vocab, *MESH_DECODE_BF16_PROMPTS, seed=1)
+    server = Server(placed, cfg, sc, sh, device=dev)
+    for p in prompts:
+        server.submit(p)
+    _sync()
+    t0 = time.perf_counter()
+    server.run(n_steps=len(prompts) * (sc.max_new + 20))
+    _sync()
+    seconds = time.perf_counter() - t0
+    got = [server.done.get(i, []) for i in range(len(prompts))]
+    if any(len(g) != sc.max_new for g in got):
+        raise AssertionError(f"mesh (f) Server over the mesh: {[len(g) for g in got]} tokens")
+    srv = {"requests": len(prompts), "steps": server.steps, "seconds": seconds,
+           "ms_per_step": seconds / server.steps * 1e3,
+           "new_tokens_per_s": len(prompts) * sc.max_new / seconds}
+    if rank0:
+        free = Server(whole, cfg, sc, device=dev)
+        for p in prompts:
+            free.submit(p)
+        free.run(n_steps=len(prompts) * (sc.max_new + 20))
+        same = sum(a == b for i in range(len(prompts))
+                   for a, b in zip(got[i], free.done[i]))
+        srv["token_agreement_vs_one_process"] = same / (len(prompts) * sc.max_new)
+    out["server"] = srv
+    del placed, whole
+    _free()
+    return out
+
+
+def mesh_decode_rank(mesh, smoke=False) -> dict:
+    """Phase 8 (f) on one rank of the (1, 4) mesh: the bf16 olmo-1b part
+    (:func:`_mesh_decode_bf16`), then the float32 gates
+    (:func:`mesh_decode_gates`).  Returns this rank's readings."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.sharding.specs import make_policy
+
+    dev = _rank_device(mesh)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = configs.get_smoke("olmo_1b") if smoke else configs.get("olmo_1b")
+    out = {"rank": dist.get_rank(), "coordinate": list(mesh.get_coordinate()),
+           "split": dataclasses.asdict(make_policy(mesh).tensor_split(cfg))}
+    out["bf16"] = _mesh_decode_bf16(mesh, dev, smoke)
+    out["gates"] = mesh_decode_gates(mesh, smoke)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+        else None
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_phase_rank(mesh, smoke=False, base=None) -> dict:
+    """Phase 8 on one rank, in one spawn: (a)-(d) (:func:`mesh_rank`) and
+    (f)'s float32 gates (:func:`mesh_decode_gates`) on the (2, 2)
+    ``mesh``, then (e) (:func:`mesh_tp_rank`) and (f)
+    (:func:`mesh_decode_rank`) on a (1, 4) mesh over the same four ranks.
+    Returns each part's result and the seconds it took on this rank."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    out, seconds = {}, {}
+    for key, part in (("ad", lambda m: mesh_rank(m, smoke, base)),
+                      ("f22", lambda m: mesh_decode_gates(m, smoke)),
+                      ("e", lambda m: mesh_tp_rank(m, smoke)),
+                      ("f14", lambda m: mesh_decode_rank(m, smoke))):
+        if key == "e":
+            mesh = make_local_mesh(*MESH_TP_SHAPE, device=mesh.device_type)
+        t0 = time.perf_counter()
+        out[key] = part(mesh)
+        seconds[key] = time.perf_counter() - t0
+        _free()
+    out["seconds"] = seconds
+    return out
+
+
 def model_mesh(dev) -> dict:
-    """Phase 8 (see the module docstring): one spawn of four ranks on the
-    (2, 2) mesh for (a)-(d), one on the (1, 4) mesh for (e); each rank's
-    line, then the phase's JSON line."""
+    """Phase 8 (see the module docstring): one spawn of four ranks
+    (:func:`mesh_phase_rank`), (a)-(d) and (f)'s (2, 2) gates on the (2, 2)
+    mesh, (e) and the rest of (f) on (1, 4); each rank's line, then the
+    phase's JSON line."""
     from repro_torch.launch.mesh import run_on_mesh
 
     t0 = time.perf_counter()
     card = card_line()
     base = REPO / "build" / "chip_smoke_mesh_ckpt"
     shutil.rmtree(base, ignore_errors=True)
-    ranks = run_on_mesh(mesh_rank, *MESH_SHAPE, device=dev.type, backend=MESH_BACKEND,
+    parts = run_on_mesh(mesh_phase_rank, *MESH_SHAPE, device=dev.type, backend=MESH_BACKEND,
                         args=(False, str(base)), timeout=MESH_TIMEOUT)
     shutil.rmtree(base, ignore_errors=True)
-    t1 = time.perf_counter()
-    tp_ranks = run_on_mesh(mesh_tp_rank, *MESH_TP_SHAPE, device=dev.type, backend=MESH_BACKEND,
-                           args=(False,), timeout=MESH_TIMEOUT)
-    tp_wall = time.perf_counter() - t1
+    ranks, tp_ranks = [p["ad"] for p in parts], [p["e"] for p in parts]
+    dec_ranks, dec_22 = [p["f14"] for p in parts], [p["f22"] for p in parts]
+    part_s = parts[0]["seconds"]
+    tp_wall, dec_wall = part_s["e"], part_s["f22"] + part_s["f14"]
+    print(f"{elapsed()} mesh parts on rank 0, seconds: {json.dumps(part_s)}", flush=True)
     lead = ranks[0]
     for r in ranks:
         brief = {k: r[k] for k in ("coordinate", "train_step_s", "train_first_step_s",
@@ -5039,9 +5378,35 @@ def model_mesh(dev) -> dict:
               {k: tp_ranks[0][k] for k in ("loss_one_process", "loss_train_mesh",
                                            "params_train_mesh")} | {"wall_s": tp_wall}),
           flush=True)
+    for r in dec_ranks:
+        print(f"{elapsed()} mesh (f) rank {r['rank']} [{card}]: " + json.dumps(
+            {"coordinate": r["coordinate"], "split": r["split"],
+             "prefill_flash_attention_launches": r["bf16"]["prefill"]["flash_attention_launches"],
+             "prefill_s": r["bf16"]["prefill"]["prefill_s"],
+             "decode_ms_per_step_median": r["bf16"]["decode"]["ms_per_step_median"],
+             "decode_comm_ms_per_step_median": r["bf16"]["decode"]["comm_ms_per_step_median"],
+             "decode_comm_calls_per_step": r["bf16"]["decode"]["comm_calls_per_step"],
+             "server_ms_per_step": r["bf16"]["server"]["ms_per_step"],
+             "max_memory_allocated": r["max_memory_allocated"], "wall_s": r["wall_s"]}),
+              flush=True)
+    lead = dec_ranks[0]["bf16"]
+    print(f"{elapsed()} mesh (f) olmo-1b bf16 16 layers on {MESH_TP_SHAPE}: prefill "
+          f"{SERVE_BATCH}x{PROMPT_LEN} through forward(sh) and flash_attention (4 heads a "
+          f"rank, every launch held to its plain version), decode at batch "
+          f"{MESH_DECODE_TIMING['batch']}, a 16-request Server [{card}]: " + json.dumps(lead),
+          flush=True)
+    for shape, gates in ((MESH_TP_SHAPE, dec_ranks[0]["gates"]), (MESH_SHAPE, dec_22[0])):
+        print(f"{elapsed()} mesh (f) float32 {MESH_LAYERS} layers, decode over {shape} vs one "
+              f"process, logits within {MESH_DECODE_TOL} relative, tokens and Server.done "
+              f"equal [{card}]: " + json.dumps(gates), flush=True)
+    print(f"{elapsed()} mesh (f) wall {dec_wall:.1f} s on rank 0", flush=True)
     return {"card": card, "shape": list(MESH_SHAPE), "backend": MESH_BACKEND, "ranks": ranks,
             "tp_shape": list(MESH_TP_SHAPE), "tp_ranks": tp_ranks,
+            "decode_ranks": dec_ranks, "decode_gates_22": dec_22[0], "decode_wall_s": dec_wall,
+            "part_s": part_s,
             "segmented_gather_launches": sum(r["segmented_gather_launches"] for r in ranks),
+            "decode_flash_attention_launches": sum(
+                r["bf16"]["prefill"]["flash_attention_launches"] for r in dec_ranks),
             "wall_s": time.perf_counter() - t0}
 
 
@@ -5674,7 +6039,8 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}", flush=True)
+          f"python {sys.version.split()[0]} threads {torch.get_num_threads()} "
+          f"cpus {os.cpu_count()}", flush=True)
 
     t0 = time.perf_counter()
     secs = build.build(build.KERNELS + ("launch_floor",))
@@ -5903,7 +6269,8 @@ def main() -> int:
                              "src/repro/kernels/moe_combine.py:53", None)
     # launches on the main paths: the consume paths' runs, the prefills'
     # (one a layer: olmo-1b 16, qwen3-moe 48, dbrx cut to 2 layers 2,
-    # whisper-tiny 4 + 4 and its prefill_memory 4, internvl2-1b 24);
+    # whisper-tiny 4 + 4 and its prefill_memory 4, internvl2-1b 24; over
+    # the (1, 4) mesh 16 a rank, phase 8 (f));
     # moe_combine is on no path (op only; the reference's MoE never calls it)
     path_launches = {name: runs[run][2][name] for name, (_, _, run) in origin.items()
                      if run in runs}
@@ -5916,7 +6283,9 @@ def main() -> int:
         "whisper-tiny prefill_memory": av_served["whisper-tiny"]["prefill_memory"][
             "flash_attention_launches"],
         "internvl2-1b prefill": av_served["internvl2-1b"]["prefill"][
-            "prefill_flash_attention_launches"]}
+            "prefill_flash_attention_launches"],
+        "olmo-1b prefill over the (1, 4) mesh, 4 ranks": meshed[
+            "decode_flash_attention_launches"]}
     path_launches["flash_attention"] = sum(flash_by_path.values())
     # segmented_gather: the fused host-densify consume path's, the training
     # feed's (phase 7 (a), the same engine) and the model mesh's four feeds

@@ -8,7 +8,7 @@ tensor has a shape, a dtype and no storage, so nothing is allocated
 whatever the model's size, and counts what the step does as it runs.
 
 The step is the port's own: ``make_train_step`` for train,
-``forward`` for prefill, ``decode_step`` and an argmax for decode.  Kernel
+``forward`` for prefill, ``make_serve_step``'s step for decode.  Kernel
 wrappers cannot run on meta tensors, so the trace takes the plain
 versions, as the reference's dry run does on its CPU backend; a cell with
 ``attn_impl="pallas"`` is refused with a message, not counted silently
@@ -25,8 +25,12 @@ The port's scheme, which the per-device numbers follow:
     repeated on each ``model`` rank); each layer gathers its weights over
     the data axes inside remat's checkpoint, keeping their ``model``
     slices, so the recompute gathers them again in the backward;
-  * decode has no mesh path yet: its trace is one device's
-    ``decode_step`` over a data rank's rows, with whole weights.
+  * decode runs one rank's split serving step (``make_serve_step`` over
+    the policy): the state is this rank's shard of the reference's
+    ``decode_state_specs`` placement (``init_decode_state(..., sh=...)``),
+    each layer gathers its weights for the split (the caches' too: KV
+    heads, or time slots whose partial softmaxes combine over ``model``),
+    and the greedy token comes from the vocabulary shards.
 
 Per cell, every number per device:
 
@@ -90,8 +94,17 @@ from ..configs import ShapeCell
 from ..core.tree import tree_leaves, tree_map
 from ..models import model as M
 from ..models.config import ModelConfig
+from ..serve.decode import make_serve_step
 from ..sharding import comm
-from ..sharding.specs import P, ShardingPolicy, make_policy, param_spec_tree, placements
+from ..sharding.specs import (
+    P,
+    ShardingPolicy,
+    decode_state_specs,
+    local_shape,
+    make_policy,
+    param_spec_tree,
+    placements,
+)
 from ..train.loop import TrainConfig, make_train_step, param_spec_tree_like
 from ..train.optimizer import AdamWConfig, adamw_init
 
@@ -198,48 +211,8 @@ def batch_shardings(sp: ShardingPolicy, tree: Any) -> Any:
     return tree_map(lambda t: placements(_batch_pspec(sp, t.shape[0], t.dim()), sp.mesh), tree)
 
 
-def decode_state_specs(cfg: ModelConfig, sp: ShardingPolicy, state: Any) -> Any:
-    """Specs of the serving cache tree (``models.model.init_decode_state``).
-
-    KV caches (L, B, T, KV, hd): batch over DP; KV heads over model when
-    divisible, otherwise the *time* axis over model.  The port's ``pos`` is
-    a host int; its spec is the reference's int32 scalar's, ``P()``."""
-    dp = sp.data_axes
-    m = sp.model_axis
-
-    def spec(name: str, shp) -> P:
-        if name == "pos":
-            return P()
-        b = dp if len(shp) > 1 and sp.dim(shp[1], dp) else None
-        if name in ("k", "v", "xk", "xv"):  # (L, B, T, KV, hd)
-            if sp.dim(shp[3], m):
-                return P(None, b, None, m, None)
-            return P(None, b, sp.dim(shp[2], m), None, None)
-        if name == "wkv":  # (L, B, H, hd, hd)
-            return P(None, b, sp.dim(shp[2], m), None, None)
-        if name in ("x_tm", "x_cm"):  # (L, B, 1, D)
-            return P(None, b, None, None)
-        if name == "h":  # mamba (L, B, Di, N)
-            return P(None, b, sp.dim(shp[2], m), None)
-        if name == "conv":  # (L, B, 3, Di)
-            return P(None, b, None, sp.dim(shp[3], m))
-        return P(*([None] * len(shp)))
-
-    def walk(node: Any, name: str) -> Any:
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        return spec(name, tuple(getattr(node, "shape", ())))
-
-    return walk(state, "")
-
-
 def _local_shape(shape, spec, mesh) -> Tuple[int, ...]:
-    """``shape`` divided along every dim ``spec`` shards."""
-    out = list(shape)
-    for d, entry in enumerate(spec):
-        for a in (() if entry is None else entry if isinstance(entry, tuple) else (entry,)):
-            out[d] //= mesh.shape[a]
-    return tuple(out)
+    return local_shape(shape, spec, make_policy(mesh))
 
 
 def _leaf_bytes(leaf: Any, spec, mesh) -> int:
@@ -614,16 +587,15 @@ def trace_cell(cfg: ModelConfig, cell: ShapeCell, mesh: ShapeMesh,
         rows = B // dp if B % dp == 0 else B
         state = M.init_decode_state(cfg, B, cell.seq_len, device=META)
         token = _meta((B,), torch.int32)
-        args = [_Arg(params, params, pspecs),
-                _Arg(M.init_decode_state(cfg, rows, cell.seq_len, device=META), state,
-                     decode_state_specs(cfg, sp, state), True),
+        local = M.init_decode_state(cfg, B, cell.seq_len, device=META, sh=pol)
+        args = [sharded(params, pspecs), _Arg(local, state, decode_state_specs(cfg, sp, state),
+                                              True),
                 batch_arg({"token": token}, rows)]
         n_out = 1 + len(tree_leaves(state))
+        step = make_serve_step(cfg, pol)
 
         def run():
-            with torch.no_grad():
-                logits, _ = M.decode_step(params, cfg, args[1].traced, args[2].traced["token"])
-                return torch.argmax(logits, dim=-1).to(torch.int32)
+            return step(args[0].traced, args[1].traced, args[2].traced["token"])[0]
 
         def outputs(nxt):
             return args[2].bytes(mesh, tr.read) + TUPLE_ENTRY_BYTES * n_out

@@ -12,7 +12,13 @@ Under a sharding policy that splits the heads over ``model``
 rank computes its own H/M query heads and the KV heads they read, from
 its column slices of ``wq``/``wk``/``wv`` (``wk``/``wv`` whole when the
 KV heads do not split, the rank's heads picked from them), and its row
-slice of ``wo`` gives a partial output summed over the group.
+slice of ``wo`` gives a partial output summed over the group.  Decode
+follows its cache's split (``kv_split``, :meth:`~repro_torch.sharding.
+specs.TensorSplit.kv_cache`): ``"heads"`` as above; ``"time"``, where each
+rank holds a slice of the slots of every KV head, attends every query head
+over its own slots and combines the ranks' partial softmaxes
+(:func:`~repro_torch.sharding.comm.softmax_combine`), then takes ``wo``'s
+rows of its query heads where they split; ``"whole"`` repeats it all.
 
 ``cfg.attn_impl`` picks the full-sequence algorithm: ``"dense"`` (the whole
 score matrix), ``"chunked"`` (online softmax over key chunks) or
@@ -225,6 +231,47 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int, layers: int,
     }
 
 
+def _attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], cfg: ModelConfig, group=None) -> torch.Tensor:
+    """:func:`_sdpa` of q (B, S, H, hd) over a cache k, v (B, T, KV, hd);
+    with ``group``, the cache is this rank's slice of the time axis and the
+    ranks' partial softmaxes are combined (float32 throughout)."""
+    if group is None:
+        return _sdpa(q, k, v, mask, cfg)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bsghd,btgd->bghst", qg, k).to(torch.float32) / math.sqrt(hd)
+    if mask is not None:
+        s = s + (mask if mask.dim() == 3 else mask[None])[:, None, None, :, :]
+    m = torch.amax(s, dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bghst,btgd->bghsd", p, v.to(torch.float32))
+    out = comm.softmax_combine(m, torch.sum(p, dim=-1), o, group)  # (B, KV, Hg, S, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd).to(cfg.cdtype)
+
+
+def _split_mode(sh, cfg: ModelConfig, kv_split: Optional[str]):
+    """(the tensor split or None, the attention's mode): off a split the
+    mode is ``"whole"``; under one, ``kv_split`` (decode's cache split) or
+    the training rule (``"heads"`` when the heads split)."""
+    ts = sh.tensor_split(cfg) if sh is not None else None
+    if ts is None:
+        return None, "whole"
+    return ts, kv_split or ("heads" if ts.heads else "whole")
+
+
+def _out_proj(out: torch.Tensor, p: Params, cfg: ModelConfig, ts, mode: str, group):
+    """``out`` (B, S, H * hd) through ``wo``: this rank's query heads'
+    rows summed over ``model`` where the heads split (a ``"time"`` split's
+    ``out`` holds every head: this rank's columns are taken first)."""
+    split = ts is not None and (mode == "heads" or (mode == "time" and ts.heads))
+    if split and mode == "time":
+        out = out[..., ts.part(out.shape[-1])]
+    out = torch.matmul(out, p["wo"].to(cfg.cdtype))
+    return comm.reduce_from_model(out, group) if split else out
+
+
 def attention_decode(
     p: Params,
     x: torch.Tensor,  # (B, 1, D) the new token's activation
@@ -234,6 +281,8 @@ def attention_decode(
     cfg: ModelConfig,
     *,
     window: int = 0,
+    sh=None,
+    kv_split: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode step.  Returns (out, cache_k, cache_v).
 
@@ -247,19 +296,32 @@ def attention_decode(
     and key positions are reconstructed from the rolling layout, so memory
     is O(window) however long the stream.  ``pos`` is a host int, so no
     step waits on the device for it.
+
+    ``sh``: a sharding policy; under a split over ``model``, ``kv_split``
+    says how the cache splits (module docstring) and is required.  Under a
+    ``"time"`` split ``T`` is the whole cache's length, this rank's slice
+    ``T/M`` slots from ``rank * T/M``: only the rank that holds the write
+    slot writes it, and key validity comes from each slot's global index.
     """
-    T = cache_k.shape[1]
-    q, k, v = _qkv(p, x, cfg)  # (B, 1, ...)
+    ts, mode = _split_mode(sh, cfg, kv_split)
+    if ts is not None and kv_split is None:
+        raise ValueError("attention_decode over a model split needs kv_split, the cache's "
+                         "split (TensorSplit.kv_cache)")
+    group = sh.model_group() if ts is not None else None
+    q, k, v = _qkv(p, x, cfg, ts if mode == "heads" else None)  # (B, 1, ...)
     if cfg.pos == "rope":
         posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
         q = rope(q, posv, cfg.rope_theta)
         k = rope(k, posv, cfg.rope_theta)
+    T_loc = cache_k.shape[1]
+    first, T = (ts.rank * T_loc, T_loc * ts.size) if mode == "time" else (0, T_loc)
     slot = (pos % T) if window else min(max(pos, 0), T - 1)
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
+    if first <= slot < first + T_loc:  # this rank holds the write slot
+        cache_k[:, slot - first] = k[:, 0]
+        cache_v[:, slot - first] = v[:, 0]
     # key validity: slot j holds absolute position (for rolling buffers the
     # newest T positions), attendable iff its absolute position <= pos
-    j = torch.arange(T, device=x.device)
+    j = torch.arange(first, first + T_loc, device=x.device)
     if window:
         # rolling: absolute position of slot j is the largest value <= pos
         # congruent to j (mod T); valid once written (pos - abs < window <= T)
@@ -268,9 +330,8 @@ def attention_decode(
     else:
         valid = j <= pos
     mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, None, :]
-    out = _sdpa(q, cache_k, cache_v, mask, cfg)
-    out = torch.matmul(out, p["wo"].to(cfg.cdtype))
-    return out, cache_k, cache_v
+    out = _attend_cache(q, cache_k, cache_v, mask, cfg, group if mode == "time" else None)
+    return _out_proj(out, p, cfg, ts, mode, group), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -285,22 +346,24 @@ def cross_attention(
     mem_v: torch.Tensor,
     cfg: ModelConfig,
     sh=None,
+    kv_split: Optional[str] = None,
 ) -> torch.Tensor:
     """Attention of the decoder's x over the projected encoder memory, no
     mask (every query sees every frame); the dense path whatever
     ``cfg.attn_impl`` is, as in the reference (S != T).  Under a head split
     (``sh``), ``mem_k``/``mem_v`` are this rank's (:func:`project_memory`
-    with the same ``sh``)."""
+    with the same ``sh``); in decode ``kv_split`` is the memory cache's
+    split, as in :func:`attention_decode`."""
     B, S, _ = x.shape
-    group = split_group(sh, cfg, "heads")
-    if group is not None:
+    ts, mode = _split_mode(sh, cfg, kv_split)
+    group = sh.model_group() if ts is not None else None
+    if mode == "heads":
         x = comm.copy_to_model(x, group)
     q = torch.matmul(x, p["wq"].to(cfg.cdtype)).reshape(B, S, -1, cfg.hd)
-    out = _sdpa(q, mem_k, mem_v, None, cfg)
+    out = _attend_cache(q, mem_k, mem_v, None, cfg, group if mode == "time" else None)
     if sh is not None:
         out = sh.act_heads(out)
-    out = torch.matmul(out, p["wo"].to(cfg.cdtype))
-    return out if group is None else comm.reduce_from_model(out, group)
+    return _out_proj(out, p, cfg, ts, mode, group)
 
 
 def project_memory(p: Params, mem: torch.Tensor, cfg: ModelConfig,

@@ -54,8 +54,9 @@ from torch.utils.checkpoint import (
 )
 
 from ..core.dmm_torch import DeviceLike, resolve_device
-from ..core.tree import tree_leaves
+from ..core.tree import tree_leaves, tree_map
 from ..sharding import comm
+from ..sharding.specs import decode_state_specs, local_shape
 from .attention import (
     attention_decode,
     attention_train,
@@ -205,16 +206,17 @@ def _decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
     lp = _gather_layer(lp, cfg, sh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        h, _ = rwkv_train(lp["tm"], apply_norm(lp["ln1"], x, cfg), cfg, impl=cfg.rwkv_impl)
+        h, _ = rwkv_train(lp["tm"], apply_norm(lp["ln1"], x, cfg), cfg, impl=cfg.rwkv_impl,
+                          sh=sh)
         x = x + h
         zero = torch.zeros((x.shape[0], 1, x.shape[2]), dtype=x.dtype, device=x.device)
-        cm, _ = rwkv_channel_mix(lp["cm"], apply_norm(lp["ln2"], x, cfg), zero, cfg)
+        cm, _ = rwkv_channel_mix(lp["cm"], apply_norm(lp["ln2"], x, cfg), zero, cfg, sh)
         return x + cm, aux
     xn = apply_norm(lp["norm1"], x, cfg)
     attn_out = attention_train(lp["attn"], xn, positions, cfg, causal=True, window=cfg.window,
                                sh=sh)
     if cfg.family == "hybrid":
-        ssm_out, _ = mamba_train(lp["mamba"], xn, cfg)
+        ssm_out, _ = mamba_train(lp["mamba"], xn, cfg, sh=sh)
         x = x + 0.5 * (attn_out + ssm_out)  # mean-fused parallel heads (Hymba)
     else:
         x = x + attn_out
@@ -291,14 +293,16 @@ def _gather(tree: Any, sh) -> Any:
     return sh.gather(tree) if sh is not None and sh.sharded else tree
 
 
-def _gather_layer(lp: Dict[str, Any], cfg: ModelConfig, sh) -> Dict[str, Any]:
+def _gather_layer(lp: Dict[str, Any], cfg: ModelConfig, sh,
+                  caches: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
     """One layer's weights for its compute on this rank (under a mesh, by
     :meth:`~repro_torch.sharding.specs.ShardingPolicy.gather_layer`: the
     split leaves keep their ``model`` slices, under expert parallelism each
-    rank its own experts, the rest whole); as they are otherwise."""
+    rank its own experts, the rest whole; ``caches``: decode's cache
+    splits); as they are otherwise."""
     if sh is None or not sh.sharded:
         return lp
-    return sh.gather_layer(lp, cfg)
+    return sh.gather_layer(lp, cfg, caches)
 
 
 def _gather_embed(embed: Dict[str, Any], cfg: ModelConfig, sh) -> Dict[str, Any]:
@@ -428,7 +432,7 @@ def loss_fn(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Ten
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
-                      device: DeviceLike = "cuda") -> Dict[str, Any]:
+                      device: DeviceLike = "cuda", sh=None) -> Dict[str, Any]:
     """Cache for one-token-at-a-time serving, on ``device`` (the card by
     default; raises when there is none).
 
@@ -439,8 +443,27 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
     conv tail, float32).  ``state["pos"]`` is a host int, one position for
     the whole batch, as in the reference.  An encoder-decoder's cache also
     holds the cross-attention memory ``"xk"`` / ``"xv"`` (L, B, enc_seq,
-    KV, hd), zeros until :func:`prefill_memory` writes them."""
+    KV, hd), zeros until :func:`prefill_memory` writes them.
+
+    ``sh``: a sharding policy; under a mesh the state is this rank's shard
+    of the whole one, each leaf as :func:`~repro_torch.sharding.specs.
+    decode_state_specs` places it (this data rank's rows, and over
+    ``model`` its KV heads or time slots, ``wkv`` heads or Mamba
+    channels), and each KV cache carries its split (``cache_split``, the
+    rule of :meth:`~repro_torch.sharding.specs.TensorSplit.kv_cache`) for
+    :func:`decode_step`."""
     dev = resolve_device(device)
+    if sh is not None and sh.sharded:
+        whole = init_decode_state(cfg, batch, cache_len, device="meta")
+        specs = decode_state_specs(cfg, sh, whole)
+        state = tree_map(lambda t, s: t if isinstance(t, int) else torch.zeros(
+            local_shape(t.shape, s, sh), dtype=t.dtype, device=dev), whole, specs)
+        ts = sh.tensor_split(cfg)
+        for name in ("k", "xk"):
+            if name in state:
+                state[name].cache_split = "whole" if ts is None else ts.kv_cache(
+                    whole[name].shape[2])
+        return state
     L = cfg.n_layers
     if cfg.family == "ssm":
         return {"pos": 0, "rwkv": rwkv_init_state(cfg, batch, L, dev)}
@@ -454,42 +477,122 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
     return state
 
 
+def _cache_splits(state: Dict[str, Any], cfg: ModelConfig, sh) -> Optional[Dict[str, str]]:
+    """How the state's KV caches split over ``model`` under ``sh`` (the
+    marks :func:`init_decode_state` leaves): ``{"attn": ..., "xattn":
+    ...}``, or None off a tensor split.  A state that holds no mark raises:
+    it was not made for this mesh."""
+    if sh is None or sh.tensor_split(cfg) is None or "k" not in state:
+        return None
+    out = {}
+    for block, name in (("attn", "k"), ("xattn", "xk")):
+        if name in state:
+            split = getattr(state[name], "cache_split", None)
+            if split is None:
+                raise ValueError("decode over a model split needs a state from "
+                                 "init_decode_state(..., sh=sh)")
+            out[block] = split
+    return out
+
+
 def prefill_memory(params: Dict[str, Any], cfg: ModelConfig, frames: torch.Tensor,
-                   state: Dict[str, Any]) -> Dict[str, Any]:
+                   state: Dict[str, Any], sh=None) -> Dict[str, Any]:
     """Whisper: run the encoder once over ``frames`` (B, enc_seq, D) and
     write each decoder layer's projected cross K/V into ``state["xk"]`` /
     ``["xv"]`` IN PLACE (the reference returns new arrays); returns the
-    state."""
-    enc = _encode(params, frames, cfg)
-    for layer, lp in enumerate(params["layers"]):
-        k, v = project_memory(lp["xattn"], enc, cfg)
-        if k.shape != state["xk"][layer].shape:
-            raise ValueError(f"memory K/V {tuple(k.shape)} do not fit the cache's "
-                             f"{tuple(state['xk'][layer].shape)}")
-        state["xk"][layer].copy_(k)
-        state["xv"][layer].copy_(v)
+    state.  Under a mesh (``sh``), ``frames`` are this data rank's rows and
+    the state this rank's (:func:`init_decode_state` with the same ``sh``):
+    the memory is projected for this rank's KV heads, or its time slots,
+    as the cache splits."""
+    if sh is not None and not sh.sharded:
+        sh = None
+    splits = _cache_splits(state, cfg, sh)
+    mode = splits["xattn"] if splits else "whole"
+    with torch.no_grad():
+        enc = _encode(params, frames, cfg, sh)
+        if mode == "time":
+            enc = enc[:, sh.tensor_split(cfg).part(cfg.enc_seq)]
+        for layer, lp in enumerate(params["layers"]):
+            xattn = _gather_layer({"xattn": lp["xattn"]}, cfg, sh, splits)["xattn"]
+            k, v = project_memory(xattn, enc, cfg, sh if mode == "heads" else None)
+            if k.shape != state["xk"][layer].shape:
+                raise ValueError(f"memory K/V {tuple(k.shape)} do not fit the cache's "
+                                 f"{tuple(state['xk'][layer].shape)}")
+            state["xk"][layer].copy_(k)
+            state["xv"][layer].copy_(v)
     return state
 
 
 def _rwkv_layer_step(lp: Dict[str, Any], x: torch.Tensor, st: Dict[str, torch.Tensor],
-                     layer: int, cfg: ModelConfig) -> torch.Tensor:
+                     layer: int, cfg: ModelConfig, sh=None) -> torch.Tensor:
     """One ssm layer of a decode step; the layer's state in ``st`` is
     overwritten with the next one (the normed inputs ``hn`` and ``hn2`` as
     the token shifts, as the reference stores them)."""
     hn = apply_norm(lp["ln1"], x, cfg)
     tm_out, ns = rwkv_decode(lp["tm"], hn, {"x_tm": st["x_tm"][layer], "wkv": st["wkv"][layer]},
-                             cfg)
+                             cfg, sh)
     x = x + tm_out
     hn2 = apply_norm(lp["ln2"], x, cfg)
-    cm_out, x_cm = rwkv_channel_mix(lp["cm"], hn2, st["x_cm"][layer], cfg)
+    cm_out, x_cm = rwkv_channel_mix(lp["cm"], hn2, st["x_cm"][layer], cfg, sh)
     st["wkv"][layer].copy_(ns["wkv"])
     st["x_tm"][layer].copy_(hn)
     st["x_cm"][layer].copy_(x_cm)
     return x + cm_out
 
 
+def _decode_step(params: Dict[str, Any], cfg: ModelConfig, state: Dict[str, Any],
+                 token: torch.Tensor, sh=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """:func:`decode_step`, with this rank's vocabulary columns of the
+    logits where ``sh`` splits the vocabulary."""
+    if sh is not None and not sh.sharded:
+        sh = None
+    splits = _cache_splits(state, cfg, sh)
+    pos = state["pos"]
+    embed = _gather_embed(params["embed"], cfg, sh)
+    group = split_group(sh, cfg, "vocab")
+    tok = embed["tok"]
+    x = (tok[token.long()[:, None]] if group is None
+         else comm.vocab_lookup(tok, token[:, None], vocab_start(cfg, sh), group)).to(cfg.cdtype)
+    if cfg.pos == "learned":
+        x = x + embed["pos"][pos][None, None].to(cfg.cdtype)
+    new_state = {**state, "pos": pos + 1}
+    for layer, lp in enumerate(params["layers"]):
+        if cfg.enc_dec:  # the memory cache stands for the cross K/V projections
+            lp = {**lp, "xattn": {k: lp["xattn"][k] for k in ("wq", "wo")}}
+        lp = _gather_layer(lp, cfg, sh, splits)
+        if cfg.family == "ssm":
+            x = _rwkv_layer_step(lp, x, state["rwkv"], layer, cfg, sh)
+            continue
+        hn = apply_norm(lp["norm1"], x, cfg)
+        attn_out, _, _ = attention_decode(
+            lp["attn"], hn, state["k"][layer], state["v"][layer], pos, cfg, window=cfg.window,
+            sh=sh, kv_split=splits and splits["attn"])
+        if cfg.family == "hybrid":
+            mh, mc = state["mamba"]["h"][layer], state["mamba"]["conv"][layer]
+            ssm_out, ns = mamba_decode(lp["mamba"], hn, {"h": mh, "conv": mc}, cfg, sh)
+            x = x + 0.5 * (attn_out + ssm_out)
+            mh.copy_(ns["h"])
+            mc.copy_(ns["conv"])
+        else:
+            x = x + attn_out
+        if cfg.enc_dec:
+            x = x + cross_attention(lp["xattn"], apply_norm(lp["norm_x"], x, cfg),
+                                    state["xk"][layer], state["xv"][layer], cfg, sh,
+                                    kv_split=splits and splits["xattn"])
+        hn2 = apply_norm(lp["norm2"], x, cfg)
+        if cfg.is_moe:
+            ff = moe_ffn(lp["moe"], hn2, cfg) if sh is None else moe_apply(lp["moe"], hn2, cfg,
+                                                                           sh=sh)[0]
+        else:
+            ff = apply_mlp(lp["mlp"], hn2, cfg, sh=sh)
+        x = x + ff
+    x = apply_norm(_gather(params["final_norm"], sh), x, cfg)
+    logits = lm_logits(embed, x, cfg, sh)[:, 0]
+    return logits, new_state
+
+
 def decode_step(params: Dict[str, Any], cfg: ModelConfig, state: Dict[str, Any],
-                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                token: torch.Tensor, sh=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serving step: consume ``token`` (B,), return (logits (B, V_pad),
     state').
 
@@ -498,33 +601,19 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, state: Dict[str, Any],
     :func:`~repro_torch.models.attention.attention_decode`), and the ssm and
     Mamba states are overwritten with the next ones, so a state is not
     reusable after the step that consumed it.  An encoder-decoder's layers
-    cross-attend ``state["xk"]`` / ``["xv"]``, which carry over unchanged."""
-    pos = state["pos"]
-    x = params["embed"]["tok"][token.long()[:, None]].to(cfg.cdtype)
-    if cfg.pos == "learned":
-        x = x + params["embed"]["pos"][pos][None, None].to(cfg.cdtype)
-    new_state = {**state, "pos": pos + 1}
-    for layer, lp in enumerate(params["layers"]):
-        if cfg.family == "ssm":
-            x = _rwkv_layer_step(lp, x, state["rwkv"], layer, cfg)
-            continue
-        hn = apply_norm(lp["norm1"], x, cfg)
-        attn_out, _, _ = attention_decode(
-            lp["attn"], hn, state["k"][layer], state["v"][layer], pos, cfg, window=cfg.window
-        )
-        if cfg.family == "hybrid":
-            mh, mc = state["mamba"]["h"][layer], state["mamba"]["conv"][layer]
-            ssm_out, ns = mamba_decode(lp["mamba"], hn, {"h": mh, "conv": mc}, cfg)
-            x = x + 0.5 * (attn_out + ssm_out)
-            mh.copy_(ns["h"])
-            mc.copy_(ns["conv"])
-        else:
-            x = x + attn_out
-        if cfg.enc_dec:
-            x = x + cross_attention(lp["xattn"], apply_norm(lp["norm_x"], x, cfg),
-                                    state["xk"][layer], state["xv"][layer], cfg)
-        hn2 = apply_norm(lp["norm2"], x, cfg)
-        x = x + (moe_ffn(lp["moe"], hn2, cfg) if cfg.is_moe else apply_mlp(lp["mlp"], hn2, cfg))
-    x = apply_norm(params["final_norm"], x, cfg)
-    logits = lm_logits(params["embed"], x, cfg)[:, 0]
-    return logits, new_state
+    cross-attend ``state["xk"]`` / ``["xv"]``, which carry over unchanged.
+
+    ``sh``: a sharding policy.  Under a mesh ``token`` holds this data
+    rank's rows and ``state`` is this rank's (:func:`init_decode_state`
+    with the same ``sh``); each layer's weights are gathered for this
+    rank's split (:meth:`~repro_torch.sharding.specs.ShardingPolicy.
+    gather_layer`, with the caches' splits), no gradient is recorded, and
+    the vocabulary shards of the logits are joined over ``model`` (one
+    all-gather; the serving step's argmax reads the shards instead,
+    :func:`repro_torch.serve.decode.make_serve_step`)."""
+    if sh is None or not sh.sharded:
+        return _decode_step(params, cfg, state, token)
+    with torch.no_grad():
+        logits, state = _decode_step(params, cfg, state, token, sh)
+        group = split_group(sh, cfg, "vocab")
+        return (logits if group is None else comm.all_gather_cols(logits, group)), state

@@ -27,6 +27,21 @@ Numerics follow the reference on purpose, rounding where it rounds:
 Decode is a single recurrence step: state in, state out.  The states live
 on an explicit device (``rwkv_init_state`` / ``mamba_init_state``).
 
+``sh``, a sharding policy, splits the blocks over ``model`` where its
+:class:`~repro_torch.sharding.specs.TensorSplit` says (``mamba``, ``wkv``,
+``ff``; the weights come from ``ShardingPolicy.gather_layer``):
+
+- Mamba runs this rank's Di/M inner channels (its slices of ``in_proj``'s
+  x and z, the conv, ``dt_proj``, ``A_log``, ``D``, the state): the
+  ``x_proj`` product is a partial sum over Di/M, summed over ``model``
+  (dt_in, B and C are needed whole), and so is ``out_proj``'s;
+- RWKV's time mix runs this rank's heads (the channels of its ``r``,
+  ``k``, ``v``, ``g`` and decay, from the whole projections' columns; its
+  ``wkv`` state and group norm are per head), and ``wo``'s rows of its
+  heads give a partial output summed over ``model``;
+- the channel mix runs this rank's F/M of the hidden (``wk``'s columns,
+  ``wv``'s rows), its output summed over ``model``; the gate ``r`` whole.
+
 The three loops are functional (no ``out=``, no in-place adds), so that
 autograd differentiates them for training; serving runs the same code.
 """
@@ -39,8 +54,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding import comm
 from .config import ModelConfig
-from .layers import trunc_normal
+from .layers import split_group, trunc_normal
 
 __all__ = [
     "rwkv_params",
@@ -96,20 +112,23 @@ def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev, x[:, :-1]], dim=1) - x
 
 
-def _rwkv_inputs(p: Params, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelConfig):
+def _rwkv_inputs(p: Params, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelConfig,
+                 cols: slice = slice(None)):
     """Token shift + projections.  x: (B, S, D); x_prev: (B, 1, D) carry.
-    Returns (r, k, v, g, w, logw)."""
+    Returns (r, k, v, g, w, logw) on channels ``cols`` (a head split's;
+    every channel by default)."""
     cd = cfg.cdtype
     xx = _shift(x, x_prev)
     mu = p["mu"].to(cd)
     xr, xk, xv, xw, xg = (x + xx * mu[i] for i in range(5))
-    r = torch.matmul(xr, p["wr"].to(cd))
-    k = torch.matmul(xk, p["wk"].to(cd))
-    v = torch.matmul(xv, p["wv"].to(cd))
-    g = F.silu(torch.matmul(xg, p["wg"].to(cd)).to(f32))
+    r = torch.matmul(xr, p["wr"][:, cols].to(cd))
+    k = torch.matmul(xk, p["wk"][:, cols].to(cd))
+    v = torch.matmul(xv, p["wv"][:, cols].to(cd))
+    g = F.silu(torch.matmul(xg, p["wg"][:, cols].to(cd)).to(f32))
     # data-dependent decay (f32 for stability)
-    lora = torch.matmul(torch.tanh(torch.matmul(xw, p["wA"].to(cd))).to(cd), p["wB"].to(cd))
-    logw = -torch.exp(p["w0"].to(f32) + lora.to(f32))  # < 0
+    lora = torch.matmul(torch.tanh(torch.matmul(xw, p["wA"].to(cd))).to(cd),
+                        p["wB"][:, cols].to(cd))
+    logw = -torch.exp(p["w0"][cols].to(f32) + lora.to(f32))  # < 0
     # the reference's clamp: keeps the chunked form's exp(-cum) factors
     # inside float32 range (chunk 16 * 4.0 << 88)
     logw = torch.clamp(logw, min=-4.0)
@@ -206,28 +225,39 @@ def _wkv_chunked(r, k, v, w, u, state0, chunk: int = 16):
 
 def rwkv_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
                state: Optional[Dict[str, torch.Tensor]] = None, *,
-               impl: str = "scan") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               impl: str = "scan", sh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Time-mix block.  x: (B, S, D) (already normed).  Returns (out,
-    state); ``state`` ({"x_tm", "wkv"}) is read, never written."""
+    state); ``state`` ({"x_tm", "wkv"}) is read, never written.  Under a
+    head split (``sh``) the ``wkv`` state is this rank's heads' (module
+    docstring)."""
     B, S, D = x.shape
     H = cfg.n_rwkv_heads
     hd = D // H
+    group = split_group(sh, cfg, "wkv")
+    cols = slice(None)
+    if group is not None:
+        x = comm.copy_to_model(x, group)
+        ts = sh.tensor_split(cfg)
+        H, cols = H // ts.size, ts.part(D)
     x_prev = state["x_tm"] if state else torch.zeros((B, 1, D), dtype=x.dtype, device=x.device)
     S0 = state["wkv"] if state else torch.zeros((B, H, hd, hd), dtype=f32, device=x.device)
-    r, k, v, g, w, _ = _rwkv_inputs(p, x, x_prev, cfg)
+    r, k, v, g, w, _ = _rwkv_inputs(p, x, x_prev, cfg, cols)
     rh, kh, vh, wh = (_heads(a, H) for a in (r, k, v, w))
-    u = p["u"].to(f32).reshape(H, hd)
+    u = p["u"][cols].to(f32).reshape(H, hd)
     wkv = _wkv_chunked if impl == "chunked" else _wkv_scan
     o, S1 = wkv(rh, kh, vh, wh, u, S0)
-    o = _group_norm(o, p["gn_scale"].to(f32), H)
+    o = _group_norm(o, p["gn_scale"][cols].to(f32), H)
     o = (o * g).to(cfg.cdtype)
-    out = torch.matmul(o, p["wo"].to(cfg.cdtype))
+    out = torch.matmul(o, p["wo"][cols].to(cfg.cdtype))
+    if group is not None:
+        out = comm.reduce_from_model(out, group)
     return out, {"x_tm": x[:, -1:], "wkv": S1}
 
 
-def rwkv_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg: ModelConfig):
+def rwkv_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg: ModelConfig,
+                sh=None):
     """One-token step; x: (B, 1, D).  O(1) in stream length."""
-    return rwkv_train(p, x, cfg, state=state, impl="scan")
+    return rwkv_train(p, x, cfg, state=state, impl="scan", sh=sh)
 
 
 def rwkv_channel_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -240,16 +270,25 @@ def rwkv_channel_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
-def rwkv_channel_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelConfig):
+def rwkv_channel_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelConfig,
+                     sh=None):
     """Channel mix of x (B, S, D) with the carried shift x_prev (B, 1, D).
-    Returns (out, x[:, -1:])."""
+    Returns (out, x[:, -1:]).  Under a hidden split (``sh``), ``wk``/``wv``
+    are this rank's F/M columns/rows (module docstring)."""
     cd = cfg.cdtype
     xx = _shift(x, x_prev)
     mu = p["mu"].to(cd)
     xk, xr = x + xx * mu[0], x + xx * mu[1]
+    group = split_group(sh, cfg, "ff")
+    if group is not None:
+        xk = comm.copy_to_model(xk, group)
     k = torch.matmul(xk, p["wk"].to(cd))
     k = torch.square(F.relu(k.to(f32))).to(cd)
+    if sh is not None:
+        k = sh.act_ff(k)
     kv = torch.matmul(k, p["wv"].to(cd))
+    if group is not None:
+        kv = comm.reduce_from_model(kv, group)
     r = torch.sigmoid(torch.matmul(xr, p["wr"].to(cd)).to(f32))
     return (r * kv.to(f32)).to(cd), x[:, -1:]
 
@@ -302,13 +341,18 @@ def _causal_conv(x: torch.Tensor, conv_prev: torch.Tensor, conv_w: torch.Tensor)
     return F.silu(y), xc[:, -(CONV_W - 1):].to(f32)
 
 
-def _ssm_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def _ssm_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig, group=None):
     """x_proj (compute dtype), dt and the discretisation (float32) of the
     conv output x (B, S, Di).  Returns time-major dA, dBx (S, B, Di, N) and
-    C (S, B, N, 1)."""
+    C (S, B, N, 1).  With ``group`` (a Di split), x and ``x_proj``'s rows
+    are this rank's, and their product's partial sums are summed over it
+    (its gradient too: each rank's Di/M channels read dt_in, B and C)."""
     N = cfg.ssm_state
     dt_rank = p["dt_proj"].shape[0]
-    proj = torch.matmul(x.to(cfg.cdtype), p["x_proj"].to(cfg.cdtype)).to(f32)
+    proj = torch.matmul(x.to(cfg.cdtype), p["x_proj"].to(cfg.cdtype))
+    if group is not None:
+        proj = comm.copy_to_model(comm.reduce_from_model(proj, group), group)
+    proj = proj.to(f32)
     dt_in, Bc, Cc = torch.split(proj, [dt_rank, N, N], dim=-1)
     dt = F.softplus(torch.matmul(dt_in, p["dt_proj"].to(f32)) + p["dt_bias"].to(f32))  # (B, S, Di)
     A = -torch.exp(p["A_log"].to(f32))  # (Di, N)
@@ -333,32 +377,40 @@ def _selective_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor, h0: to
 
 
 def _mamba_core(p: Params, xz: torch.Tensor, conv_prev: torch.Tensor, h0: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig, sh=None):
     """xz: (B, S, 2*Di) after in_proj; returns (y (B, S, Di) in the compute
-    dtype, h_T (B, Di, N) float32, conv tail (B, CONV_W - 1, Di) float32)."""
+    dtype, h_T (B, Di, N) float32, conv tail (B, CONV_W - 1, Di) float32).
+    Under a Di split (``sh``), Di is this rank's Di/M."""
     Di = xz.shape[-1] // 2
     x, z = xz[..., :Di], xz[..., Di:]
     x, conv_tail = _causal_conv(x, conv_prev, p["conv_w"])
-    ys, hT = _selective_scan(*_ssm_inputs(p, x, cfg), h0)
+    ys, hT = _selective_scan(*_ssm_inputs(p, x, cfg, split_group(sh, cfg, "mamba")), h0)
     out = (ys + x * p["D"].to(f32)) * F.silu(z.to(f32))
     return out.to(cfg.cdtype), hT, conv_tail
 
 
 def mamba_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[Dict[str, torch.Tensor]] = None
+                state: Optional[Dict[str, torch.Tensor]] = None, sh=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mamba block of x (B, S, D).  Returns (out, state); ``state`` ({"h",
-    "conv"}) is read, never written."""
+    "conv"}) is read, never written.  Under a Di split (``sh``) ``p`` and
+    the state hold this rank's Di/M channels (module docstring)."""
     B, S, D = x.shape
     Di = p["out_proj"].shape[0]
+    group = split_group(sh, cfg, "mamba")
+    if group is not None:
+        x = comm.copy_to_model(x, group)
     xz = torch.matmul(x, p["in_proj"].to(cfg.cdtype))
     conv_prev = state["conv"] if state else torch.zeros((B, CONV_W - 1, Di), dtype=f32,
                                                         device=x.device)
     h0 = state["h"] if state else torch.zeros((B, Di, cfg.ssm_state), dtype=f32, device=x.device)
-    y, hT, conv_tail = _mamba_core(p, xz, conv_prev, h0, cfg)
+    y, hT, conv_tail = _mamba_core(p, xz, conv_prev, h0, cfg, sh)
     out = torch.matmul(y, p["out_proj"].to(cfg.cdtype))
+    if group is not None:
+        out = comm.reduce_from_model(out, group)
     return out, {"h": hT, "conv": conv_tail}
 
 
-def mamba_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg: ModelConfig):
-    return mamba_train(p, x, cfg, state=state)
+def mamba_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 sh=None):
+    return mamba_train(p, x, cfg, state=state, sh=sh)

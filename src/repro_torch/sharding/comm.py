@@ -26,7 +26,11 @@ same order.  DTensors only hold the parameters' shards and placements.
     output of a row-split one (summed over the group forward, identity
     backward); :func:`vocab_lookup` is the embedding whose rows are split
     over ``model``, and :func:`all_gather_cols` joins the vocabulary
-    shards of the logits.
+    shards of the logits;
+  * :func:`vocab_argmax` -- the greedy token of logits whose vocabulary
+    is split over ``model``; :func:`softmax_combine` -- attention over a
+    decode cache whose time axis is split over ``model``, from each rank's
+    partial softmax.
 
 :func:`gather`'s backward sums over the axes it is given as
 ``data_axes``: the data axes, and ``model`` too for a weight gathered
@@ -54,7 +58,8 @@ import torch.distributed as dist
 __all__ = ["STATS", "reset_stats", "DryGroup", "group_size", "axes_group", "gather_plan",
            "gather", "gather_local", "full_tensor", "place", "all_gather_rows", "all_to_all",
            "value_with_grad", "scale_grad", "all_reduce", "all_reduce_sum", "barrier",
-           "copy_to_model", "reduce_from_model", "vocab_lookup", "all_gather_cols"]
+           "copy_to_model", "reduce_from_model", "vocab_lookup", "all_gather_cols",
+           "vocab_argmax", "softmax_combine"]
 
 
 # the collective calls of this module: their count, the host seconds spent
@@ -399,3 +404,39 @@ def all_gather_cols(x: torch.Tensor, group) -> torch.Tensor:
     vocabulary shards of the logits); the backward takes this rank's
     columns of the whole's gradient, which every rank holds alike."""
     return _AllGatherCols.apply(x, group)
+
+
+@torch.no_grad()
+def vocab_argmax(x: torch.Tensor, start: int, n_valid: int, group) -> torch.Tensor:
+    """The argmax over the last dim of logits split over ``group`` by
+    columns: ``x`` (..., V/M) is this rank's, its first column global
+    column ``start``, and columns from ``n_valid`` on (the pad vocabulary)
+    are left out.  Each rank's largest value and its first index go to
+    every rank (one all-gather of a float64 pair, which holds both
+    exactly); the largest wins, a tie the lowest rank's, hence the lowest
+    index, as ``torch.argmax`` takes ties.  Returns int64 (...,)."""
+    cols = torch.arange(start, start + x.shape[-1], device=x.device)
+    x = torch.where(cols < n_valid, x.to(torch.float32), float("-inf"))
+    idx = torch.argmax(x, dim=-1, keepdim=True)
+    pair = torch.cat([torch.gather(x, -1, idx).to(torch.float64),
+                      (idx + start).to(torch.float64)], dim=-1)
+    got = _gather_dim(pair.reshape(1, -1, 2), 0, group)  # (M, N, 2), group-rank order
+    best = torch.argmax(got[..., 0], dim=0, keepdim=True)  # the first of equal maxima
+    return torch.gather(got[..., 1], 0, best)[0].to(torch.int64).reshape(x.shape[:-1])
+
+
+@torch.no_grad()
+def softmax_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, group) -> torch.Tensor:
+    """Softmax attention over keys split across ``group``, from each rank's
+    part: ``m`` (...) its largest score, ``l`` (...) its sum of exp(s -
+    m) and ``o`` (..., hd) its sum of exp(s - m) v, all float32.  The
+    largest score over the group comes from one all-reduce (max); each
+    part is rescaled by exp(m_r - m) -- 0 for a rank whose every score
+    is masked far below the others' (or is -inf), never NaN while one rank
+    holds a key -- and the sums of the rescaled o and l from one
+    all-reduce.  Returns their quotient (..., hd)."""
+    top = all_reduce(m.clone(), group, op=dist.ReduceOp.MAX)
+    scale = torch.exp(m - top)
+    both = torch.cat([o * scale[..., None], (l * scale)[..., None]], dim=-1)
+    all_reduce(both, group)
+    return both[..., :-1] / both[..., -1:]

@@ -45,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import re
 import sys
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -63,6 +63,8 @@ __all__ = [
     "axis_names",
     "is_dtensor",
     "axes_index",
+    "decode_state_specs",
+    "local_shape",
 ]
 
 
@@ -127,14 +129,23 @@ class TensorSplit:
         the KV heads its query heads read (head ``h // n_rep``).  When the
         query heads do not divide, the layer's attention gathers its four
         projections whole and every rank repeats it;
-      * ``ff``: the MLP splits its hidden when ``d_ff`` divides (exactly
-        when the spec stores ``w_in``/``w_gate``/``w_out`` split);
+      * ``ff``: the MLP (and RWKV's channel mix) splits its hidden when
+        ``d_ff`` divides (exactly when the spec stores ``w_in``/``w_gate``/
+        ``w_out``, or the channel mix's ``wk``, split);
       * ``vocab``: the embedding rows, the head's columns and the loss split
         when the padded vocabulary divides (exactly when the spec stores
-        them split).
+        them split);
+      * ``mamba``: a hybrid layer's Mamba splits its inner width Di when it
+        divides (the spec then stores ``conv_w``, ``x_proj``, ``dt_proj``,
+        ``A_log`` and ``out_proj`` split on Di);
+      * ``wkv``: RWKV's time mix splits its heads when ``n_rwkv_heads``
+        divides (its projections stay whole: the spec stores them over
+        ``data`` alone);
+      * decode's KV cache (:meth:`kv_cache`): over the heads when ``kv``,
+        else over its time axis when its length divides, else whole.
 
-    The SSM parts (Mamba, RWKV) and the MoE experts are not split here:
-    they are gathered whole (experts stay split under ``ep``)."""
+    The MoE experts are not split here: they are gathered whole (they stay
+    split under ``ep``)."""
 
     size: int
     rank: int
@@ -142,6 +153,8 @@ class TensorSplit:
     kv: bool
     ff: bool
     vocab: bool
+    mamba: bool = False
+    wkv: bool = False
 
     def kv_heads(self, n_heads: int, n_kv_heads: int) -> Tuple[Sequence[int], int]:
         """(the KV heads this rank's query heads read, in order, and how
@@ -157,6 +170,21 @@ class TensorSplit:
         if rep * len(heads) == hl and idx == [h for h in heads for _ in range(rep)]:
             return heads, rep
         return idx, 1
+
+    def kv_cache(self, length: int) -> str:
+        """How a decode KV cache of ``length`` slots splits (the reference's
+        ``decode_state_specs``): ``"heads"`` when the KV heads divide (the
+        attention then splits as in training), ``"time"`` when the length
+        does (rank ``r`` holds slots ``r * T/M`` to ``(r + 1) * T/M`` of
+        every KV head), else ``"whole"`` (attention repeated)."""
+        if self.kv:
+            return "heads"
+        return "time" if length % self.size == 0 and length >= self.size else "whole"
+
+    def part(self, whole: int) -> slice:
+        """This rank's slice of a dim of ``whole`` split in ``size`` parts."""
+        n = whole // self.size
+        return slice(self.rank * n, (self.rank + 1) * n)
 
 
 @dataclasses.dataclass
@@ -249,6 +277,15 @@ class ShardingPolicy:
         """This rank's position along ``model``."""
         return axes_index(self.mesh, (self.model_axis,))
 
+    def data_rows(self, batch: int) -> slice:
+        """This data rank's rows of a batch of ``batch`` rows: its share
+        when the batch divides over the data axes (the reference's batch
+        rule), else every row (each data rank then repeats the batch)."""
+        if not self.sharded or not self._fits(batch, self.data_axes):
+            return slice(0, batch)
+        n = batch // self.data_size()
+        return slice(self.data_index() * n, (self.data_index() + 1) * n)
+
     def tensor_split(self, cfg) -> Optional[TensorSplit]:
         """How compute splits over ``model`` for ``cfg`` (:class:`TensorSplit`),
         or None off a mesh or on a ``model`` axis of one rank."""
@@ -257,15 +294,17 @@ class ShardingPolicy:
         m = self.axis_size(self.model_axis)
         if m == 1:
             return None
+        fits = lambda n: self._fits(n, self.model_axis)  # noqa: E731
         return TensorSplit(size=m, rank=self.model_index(),
-                           heads=self._fits(cfg.n_heads, self.model_axis),
-                           kv=self._fits(cfg.n_kv_heads, self.model_axis),
-                           ff=self._fits(cfg.d_ff, self.model_axis),
-                           vocab=self._fits(cfg.vocab_padded, self.model_axis))
+                           heads=fits(cfg.n_heads), kv=fits(cfg.n_kv_heads),
+                           ff=fits(cfg.d_ff), vocab=fits(cfg.vocab_padded),
+                           mamba=cfg.family == "hybrid" and fits(cfg.d_model),
+                           wkv=cfg.family == "ssm" and fits(cfg.n_rwkv_heads))
 
     def split_group(self, cfg, part: str):
         """The ``model`` group when :meth:`tensor_split` splits ``part``
-        (``"heads"``, ``"ff"`` or ``"vocab"``) of ``cfg``, else None."""
+        (``"heads"``, ``"ff"``, ``"vocab"``, ``"mamba"`` or ``"wkv"``) of
+        ``cfg``, else None."""
         ts = self.tensor_split(cfg)
         return self.model_group() if ts is not None and getattr(ts, part) else None
 
@@ -287,31 +326,95 @@ class ShardingPolicy:
         pl = t.placements[axis_names(self.mesh).index(self.model_axis)]
         return getattr(pl, "dim", None)
 
-    def gather_layer(self, lp: Any, cfg) -> Any:
+    def gather_layer(self, lp: Any, cfg, caches: Optional[Dict[str, str]] = None) -> Any:
         """One layer's (or encoder layer's) weights for its compute on this
         rank, by :meth:`tensor_split`'s rule: the split leaves gathered over
         the data axes alone (column slices of ``wq``/``wk``/``wv``/``w_in``/
         ``w_gate``, row slices of ``wo``/``w_out``), ``wk``/``wv`` whole
         with their gradient summed over ``model`` when the KV heads do not
-        split, under ``ep`` each rank's own experts, the rest whole.  A
-        leaf the rule splits whose spec does not split it so raises."""
+        split, under ``ep`` each rank's own experts, the SSM parts as
+        :meth:`_gather_mamba` and :meth:`_gather_rwkv` say, the rest whole.
+        ``caches``: in decode, how each attention block's cache splits
+        (``{"attn": ..., "xattn": ...}``, :meth:`TensorSplit.kv_cache`); a
+        ``"time"`` cache takes ``wq``/``wk``/``wv`` whole and ``wo``'s rows
+        of this rank's query heads where they split, a ``"whole"`` one every
+        projection whole.  A leaf the rule splits whose spec does not split
+        it so raises."""
         ts = self.tensor_split(cfg)
+        if ts is None:
+            return self.gather(lp)
         m = (self.model_axis,)
         out = {}
         for name, block in lp.items():
-            if name in ("attn", "xattn") and ts is not None and ts.heads:
-                out[name] = {k: self.gather_split(v, self._split_dim(k), k)
-                             if k in ("wq", "wo") or ts.kv else self.gather(v, summed=m)
-                             for k, v in block.items()}
-            elif name == "mlp" and ts is not None and ts.ff:
+            if name in ("attn", "xattn"):
+                mode = (caches or {}).get(name, "heads" if ts.heads else "whole")
+                out[name] = self._gather_attn(block, ts, mode)
+            elif name == "mlp" and ts.ff:
                 out[name] = {k: self.gather_split(v, self._split_dim(k), k)
                              for k, v in block.items()}
             elif name == "moe" and cfg.moe_impl == "ep":
                 out[name] = {k: self.gather(v, keep=() if k == "router" else m)
                              for k, v in block.items()}
+            elif name == "mamba" and ts.mamba:
+                out[name] = self._gather_mamba(block, ts, cfg.d_model)
+            elif name in ("tm", "cm"):
+                out[name] = self._gather_rwkv(name, block, ts, cfg.d_ff)
             else:
                 out[name] = self.gather(block)
         return out
+
+    def _gather_attn(self, block: Any, ts: TensorSplit, mode: str) -> Any:
+        m = (self.model_axis,)
+        if mode == "heads":
+            return {k: self.gather_split(v, self._split_dim(k), k)
+                    if k in ("wq", "wo") or ts.kv else self.gather(v, summed=m)
+                    for k, v in block.items()}
+        if mode == "time":  # decode alone (no gradient): every head's q, k, v
+            return {k: self.gather_split(v, 0, k) if k == "wo" and ts.heads else self.gather(v)
+                    for k, v in block.items()}
+        if mode != "whole":
+            raise ValueError(f"attention split {mode!r}: expected 'heads', 'time' or 'whole'")
+        return self.gather(block)
+
+    def _gather_mamba(self, block: Any, ts: TensorSplit, di: int) -> Any:
+        """Mamba over this rank's Di/M inner channels: ``conv_w``,
+        ``dt_proj`` (columns), ``x_proj``, ``A_log``, ``out_proj`` (rows)
+        keep their ``model`` slices.  ``in_proj`` (D, 2 Di) is stored as
+        contiguous 2 Di/M columns, which hold x alone on the first ranks and
+        z alone on the others: it is gathered whole, its gradient summed
+        over ``model``, and this rank takes its columns of x and the same of
+        z.  ``dt_bias`` and ``D``, replicated, are sliced likewise."""
+        m = (self.model_axis,)
+        mine = ts.part(di)
+        out = {}
+        for k, v in block.items():
+            if k in ("conv_w", "dt_proj"):
+                out[k] = self.gather_split(v, 1, k)
+            elif k in ("x_proj", "A_log", "out_proj"):
+                out[k] = self.gather_split(v, 0, k)
+            elif k == "in_proj":
+                w = self.gather(v, summed=m)
+                out[k] = torch.cat([w[:, mine], w[:, di + mine.start:di + mine.stop]], dim=1)
+            else:  # dt_bias, D
+                out[k] = self.gather(v, summed=m)[mine]
+        return out
+
+    def _gather_rwkv(self, name: str, block: Any, ts: TensorSplit, d_ff: int) -> Any:
+        """RWKV's time mix (``tm``) when its heads split: every leaf whole
+        (the spec stores the projections over ``data`` alone), its gradient
+        summed over ``model`` since each rank computes only its heads from
+        them.  The channel mix (``cm``) when its hidden splits: ``wk``'s
+        F/M columns kept; ``wv`` (F, D), which the spec splits on D, is
+        gathered whole (gradient summed) and this rank takes its F/M rows;
+        ``wr`` and ``mu`` whole."""
+        m = (self.model_axis,)
+        if name == "tm" and ts.wkv:
+            return self.gather(block, summed=m)
+        if name == "cm" and ts.ff:
+            return {k: self.gather_split(v, 1, k) if k == "wk"
+                    else self.gather(v, summed=m)[ts.part(d_ff)] if k == "wv"
+                    else self.gather(v) for k, v in block.items()}
+        return self.gather(block)
 
     @staticmethod
     def _split_dim(name: str) -> int:
@@ -340,6 +443,54 @@ def axes_index(mesh, axes: Sequence[str]) -> int:
         i = names.index(a)
         idx = idx * mesh.size(i) + coord[i]
     return idx
+
+
+def decode_state_specs(cfg, sp: ShardingPolicy, state: Any) -> Any:
+    """Specs of the serving cache tree (``models.model.init_decode_state``),
+    the reference's ``decode_state_specs`` leaf by leaf.
+
+    KV caches (L, B, T, KV, hd): batch over DP; KV heads over model when
+    divisible, otherwise the *time* axis over model (:meth:`TensorSplit.
+    kv_cache`).  RWKV's ``wkv`` over its heads, Mamba's ``h`` and ``conv``
+    over Di, each where it divides.  The port's ``pos`` is a host int; its
+    spec is the reference's int32 scalar's, ``P()``."""
+    dp = sp.data_axes
+    m = sp.model_axis
+
+    def spec(name: str, shp) -> P:
+        if name == "pos":
+            return P()
+        b = dp if len(shp) > 1 and sp.dim(shp[1], dp) else None
+        if name in ("k", "v", "xk", "xv"):  # (L, B, T, KV, hd)
+            if sp.dim(shp[3], m):
+                return P(None, b, None, m, None)
+            return P(None, b, sp.dim(shp[2], m), None, None)
+        if name == "wkv":  # (L, B, H, hd, hd)
+            return P(None, b, sp.dim(shp[2], m), None, None)
+        if name in ("x_tm", "x_cm"):  # (L, B, 1, D)
+            return P(None, b, None, None)
+        if name == "h":  # mamba (L, B, Di, N)
+            return P(None, b, sp.dim(shp[2], m), None)
+        if name == "conv":  # (L, B, 3, Di)
+            return P(None, b, None, sp.dim(shp[3], m))
+        return P(*([None] * len(shp)))
+
+    def walk(node: Any, name: str) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return spec(name, tuple(getattr(node, "shape", ())))
+
+    return walk(state, "")
+
+
+def local_shape(shape: Sequence[int], spec: Sequence, sp: ShardingPolicy) -> Tuple[int, ...]:
+    """``shape`` divided along every dim ``spec`` shards, by the axis sizes
+    of ``sp``'s mesh: one rank's shard."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in (() if entry is None else entry if isinstance(entry, tuple) else (entry,)):
+            out[d] //= sp.axis_size(a)
+    return tuple(out)
 
 
 def make_policy(mesh) -> ShardingPolicy:
