@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import spans
 from ..kernels import ops as kops
 from ..sharding import comm
 from .config import ModelConfig
@@ -308,30 +309,41 @@ def attention_decode(
         raise ValueError("attention_decode over a model split needs kv_split, the cache's "
                          "split (TensorSplit.kv_cache)")
     group = sh.model_group() if ts is not None else None
-    q, k, v = _qkv(p, x, cfg, ts if mode == "heads" else None)  # (B, 1, ...)
-    if cfg.pos == "rope":
-        posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-        q = rope(q, posv, cfg.rope_theta)
-        k = rope(k, posv, cfg.rope_theta)
-    T_loc = cache_k.shape[1]
-    first, T = (ts.rank * T_loc, T_loc * ts.size) if mode == "time" else (0, T_loc)
-    slot = (pos % T) if window else min(max(pos, 0), T - 1)
-    if first <= slot < first + T_loc:  # this rank holds the write slot
-        cache_k[:, slot - first] = k[:, 0]
-        cache_v[:, slot - first] = v[:, 0]
-    # key validity: slot j holds absolute position (for rolling buffers the
-    # newest T positions), attendable iff its absolute position <= pos
-    j = torch.arange(first, first + T_loc, device=x.device)
-    if window:
-        # rolling: absolute position of slot j is the largest value <= pos
-        # congruent to j (mod T); valid once written (pos - abs < window <= T)
-        abs_pos = pos - torch.remainder(pos - j, T)
-        valid = abs_pos >= 0
-    else:
-        valid = j <= pos
-    mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, None, :]
-    out = _attend_cache(q, cache_k, cache_v, mask, cfg, group if mode == "time" else None)
-    return _out_proj(out, p, cfg, ts, mode, group), cache_k, cache_v
+    with spans.span("attn"):
+        with spans.span("attn.qkv"):
+            q, k, v = _qkv(p, x, cfg, ts if mode == "heads" else None)  # (B, 1, ...)
+            if cfg.pos == "rope":
+                posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+                q = rope(q, posv, cfg.rope_theta)
+                k = rope(k, posv, cfg.rope_theta)
+        T_loc = cache_k.shape[1]
+        first, T = (ts.rank * T_loc, T_loc * ts.size) if mode == "time" else (0, T_loc)
+        slot = (pos % T) if window else min(max(pos, 0), T - 1)
+        with spans.span("attn.cache_write"):
+            if first <= slot < first + T_loc:  # this rank holds the write slot
+                cache_k[:, slot - first] = k[:, 0]
+                cache_v[:, slot - first] = v[:, 0]
+        with spans.span("attn.cache_read"):
+            # slots that hold a position <= pos: the first min(pos + 1, T) of
+            # the whole cache, rolling window or not; this rank's share of them
+            spans.note("rows", x.shape[0])
+            spans.note("slots_valid", max(0, min(pos + 1, first + T_loc) - first))
+            spans.note("slots", T_loc)
+            # key validity: slot j holds absolute position (for rolling buffers the
+            # newest T positions), attendable iff its absolute position <= pos
+            j = torch.arange(first, first + T_loc, device=x.device)
+            if window:
+                # rolling: absolute position of slot j is the largest value <= pos
+                # congruent to j (mod T); valid once written (pos - abs < window <= T)
+                abs_pos = pos - torch.remainder(pos - j, T)
+                valid = abs_pos >= 0
+            else:
+                valid = j <= pos
+            mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, None, :]
+            out = _attend_cache(q, cache_k, cache_v, mask, cfg, group if mode == "time" else None)
+        with spans.span("attn.out_proj"):
+            out = _out_proj(out, p, cfg, ts, mode, group)
+    return out, cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from .. import spans
 from ..core.dmm_torch import DeviceLike, resolve_device
 from ..core.tree import tree_leaves, tree_map
 from ..sharding import comm
@@ -547,47 +548,52 @@ def _decode_step(params: Dict[str, Any], cfg: ModelConfig, state: Dict[str, Any]
     if sh is not None and not sh.sharded:
         sh = None
     splits = _cache_splits(state, cfg, sh)
-    pos = state["pos"]
-    embed = _gather_embed(params["embed"], cfg, sh)
-    group = split_group(sh, cfg, "vocab")
-    tok = embed["tok"]
-    x = (tok[token.long()[:, None]] if group is None
-         else comm.vocab_lookup(tok, token[:, None], vocab_start(cfg, sh), group)).to(cfg.cdtype)
-    if cfg.pos == "learned":
-        x = x + embed["pos"][pos][None, None].to(cfg.cdtype)
-    new_state = {**state, "pos": pos + 1}
-    for layer, lp in enumerate(params["layers"]):
-        if cfg.enc_dec:  # the memory cache stands for the cross K/V projections
-            lp = {**lp, "xattn": {k: lp["xattn"][k] for k in ("wq", "wo")}}
-        lp = _gather_layer(lp, cfg, sh, splits)
-        if cfg.family == "ssm":
-            x = _rwkv_layer_step(lp, x, state["rwkv"], layer, cfg, sh)
-            continue
-        hn = apply_norm(lp["norm1"], x, cfg)
-        attn_out, _, _ = attention_decode(
-            lp["attn"], hn, state["k"][layer], state["v"][layer], pos, cfg, window=cfg.window,
-            sh=sh, kv_split=splits and splits["attn"])
-        if cfg.family == "hybrid":
-            mh, mc = state["mamba"]["h"][layer], state["mamba"]["conv"][layer]
-            ssm_out, ns = mamba_decode(lp["mamba"], hn, {"h": mh, "conv": mc}, cfg, sh)
-            x = x + 0.5 * (attn_out + ssm_out)
-            mh.copy_(ns["h"])
-            mc.copy_(ns["conv"])
-        else:
-            x = x + attn_out
-        if cfg.enc_dec:
-            x = x + cross_attention(lp["xattn"], apply_norm(lp["norm_x"], x, cfg),
-                                    state["xk"][layer], state["xv"][layer], cfg, sh,
-                                    kv_split=splits and splits["xattn"])
-        hn2 = apply_norm(lp["norm2"], x, cfg)
-        if cfg.is_moe:
-            ff = moe_ffn(lp["moe"], hn2, cfg) if sh is None else moe_apply(lp["moe"], hn2, cfg,
-                                                                           sh=sh)[0]
-        else:
-            ff = apply_mlp(lp["mlp"], hn2, cfg, sh=sh)
-        x = x + ff
-    x = apply_norm(_gather(params["final_norm"], sh), x, cfg)
-    logits = lm_logits(embed, x, cfg, sh)[:, 0]
+    with spans.span("model.decode"):
+        spans.note("layers", len(params["layers"]))
+        pos = state["pos"]
+        embed = _gather_embed(params["embed"], cfg, sh)
+        group = split_group(sh, cfg, "vocab")
+        tok = embed["tok"]
+        x = (tok[token.long()[:, None]] if group is None
+             else comm.vocab_lookup(tok, token[:, None], vocab_start(cfg, sh), group)
+             ).to(cfg.cdtype)
+        if cfg.pos == "learned":
+            x = x + embed["pos"][pos][None, None].to(cfg.cdtype)
+        new_state = {**state, "pos": pos + 1}
+        for layer, lp in enumerate(params["layers"]):
+            if cfg.enc_dec:  # the memory cache stands for the cross K/V projections
+                lp = {**lp, "xattn": {k: lp["xattn"][k] for k in ("wq", "wo")}}
+            lp = _gather_layer(lp, cfg, sh, splits)
+            if cfg.family == "ssm":
+                x = _rwkv_layer_step(lp, x, state["rwkv"], layer, cfg, sh)
+                continue
+            hn = apply_norm(lp["norm1"], x, cfg)
+            attn_out, _, _ = attention_decode(
+                lp["attn"], hn, state["k"][layer], state["v"][layer], pos, cfg,
+                window=cfg.window, sh=sh, kv_split=splits and splits["attn"])
+            if cfg.family == "hybrid":
+                mh, mc = state["mamba"]["h"][layer], state["mamba"]["conv"][layer]
+                ssm_out, ns = mamba_decode(lp["mamba"], hn, {"h": mh, "conv": mc}, cfg, sh)
+                x = x + 0.5 * (attn_out + ssm_out)
+                mh.copy_(ns["h"])
+                mc.copy_(ns["conv"])
+            else:
+                x = x + attn_out
+            if cfg.enc_dec:
+                x = x + cross_attention(lp["xattn"], apply_norm(lp["norm_x"], x, cfg),
+                                        state["xk"][layer], state["xv"][layer], cfg, sh,
+                                        kv_split=splits and splits["xattn"])
+            hn2 = apply_norm(lp["norm2"], x, cfg)
+            if cfg.is_moe:
+                ff = (moe_ffn(lp["moe"], hn2, cfg) if sh is None
+                      else moe_apply(lp["moe"], hn2, cfg, sh=sh)[0])
+            else:
+                with spans.span("mlp"):
+                    ff = apply_mlp(lp["mlp"], hn2, cfg, sh=sh)
+            x = x + ff
+        with spans.span("model.head"):
+            x = apply_norm(_gather(params["final_norm"], sh), x, cfg)
+            logits = lm_logits(embed, x, cfg, sh)[:, 0]
     return logits, new_state
 
 

@@ -59,6 +59,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from ..sharding import comm
 from .config import ModelConfig
 from .layers import trunc_normal
@@ -177,21 +178,27 @@ def _moe_groups(p: Params, x: torch.Tensor, cfg: ModelConfig):
     B, T, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(T, cfg)
-    gates, experts, probs = _route(p, x, cfg)
-    slot, keep = _dispatch_indices(experts, E, C)
-    # buffer row of (group b, expert e, slot s): (e*B + b)*C + s; a dropped
-    # choice goes to one overflow row past the end, cut off
-    b_idx = torch.arange(B, device=x.device)[:, None, None]
-    row = (experts * B + b_idx) * C
-    dst = torch.where(keep, row + slot, E * B * C).reshape(-1)
-    src = x.to(cfg.cdtype).reshape(B * T, 1, D).expand(B * T, k, D).reshape(-1, D)
-    buf = torch.zeros((E * B * C + 1, D), dtype=cfg.cdtype, device=x.device)
-    buf[dst] = src  # every kept (e, s) is written once: a plain copy
-    out_e = _expert_ffn(p, buf[:-1].view(E, B * C, D), cfg).view(E * B * C, D)
-    # gather back; a dropped choice reads slot C - 1 and is multiplied by 0
-    got = out_e[(row + torch.clamp(slot, max=C - 1)).reshape(-1)]
-    got = got * (keep * gates).reshape(-1, 1).to(got.dtype)
-    return _ordered_sum(got.view(B, T, k, D)), probs, experts
+    with spans.span("moe.route"):
+        gates, experts, probs = _route(p, x, cfg)
+    with spans.span("moe.dispatch"):
+        spans.note("buffer_rows", E * B * C)
+        slot, keep = _dispatch_indices(experts, E, C)
+        # buffer row of (group b, expert e, slot s): (e*B + b)*C + s; a dropped
+        # choice goes to one overflow row past the end, cut off
+        b_idx = torch.arange(B, device=x.device)[:, None, None]
+        row = (experts * B + b_idx) * C
+        dst = torch.where(keep, row + slot, E * B * C).reshape(-1)
+        src = x.to(cfg.cdtype).reshape(B * T, 1, D).expand(B * T, k, D).reshape(-1, D)
+        buf = torch.zeros((E * B * C + 1, D), dtype=cfg.cdtype, device=x.device)
+        buf[dst] = src  # every kept (e, s) is written once: a plain copy
+    with spans.span("moe.experts"):
+        out_e = _expert_ffn(p, buf[:-1].view(E, B * C, D), cfg).view(E * B * C, D)
+    with spans.span("moe.combine"):
+        # gather back; a dropped choice reads slot C - 1 and is multiplied by 0
+        got = out_e[(row + torch.clamp(slot, max=C - 1)).reshape(-1)]
+        got = got * (keep * gates).reshape(-1, 1).to(got.dtype)
+        out = _ordered_sum(got.view(B, T, k, D))
+    return out, probs, experts
 
 
 # ---------------------------------------------------------------------------
@@ -316,4 +323,6 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, sh=None
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """:func:`moe_apply`'s output alone, for decode, which discards the
     auxiliary loss (the reference computes it and drops it)."""
-    return _moe(p, x, cfg)[0]
+    with spans.span("moe"):
+        spans.note("tokens", x.numel() // x.shape[-1])
+        return _moe(p, x, cfg)[0]

@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.dmm_torch import DeviceLike, resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
@@ -71,12 +72,15 @@ def make_serve_step(cfg: ModelConfig, sh=None) -> Callable:
 
     @torch.no_grad()
     def serve_step(params, state, token):
-        logits, state = M._decode_step(params, cfg, state, token, sh)
-        if group is None:
-            nxt = torch.argmax(logits[..., : cfg.vocab], dim=-1)
-        else:
-            nxt = comm.vocab_argmax(logits, vocab_start(cfg, sh), cfg.vocab, group)
-        return nxt.to(torch.int32), logits, state
+        with spans.span("serve.step"):
+            spans.note("rows", token.shape[0])
+            spans.note("pos", state["pos"])
+            logits, state = M._decode_step(params, cfg, state, token, sh)
+            if group is None:
+                nxt = torch.argmax(logits[..., : cfg.vocab], dim=-1)
+            else:
+                nxt = comm.vocab_argmax(logits, vocab_start(cfg, sh), cfg.vocab, group)
+            return nxt.to(torch.int32), logits, state
 
     return serve_step
 
