@@ -280,13 +280,17 @@ failure raises and the script exits non-zero):
 6. time each kernel at the main path's shapes beside its plain version and
    a PyTorch yardstick, L2-hot and cold, count the bytes and the operations
    each call must do on this data for its bound, and print the ``kernels``
-   line with all eight; ``flash_attention`` also with its TFLOP/s and its
+   line with all nine; ``flash_attention`` also with its TFLOP/s and its
    share of the bound, at the olmo-1b prefill, the qwen3-moe prefill
    (hd 64, n_rep 8; SDPA with GQA beside it), whisper-tiny's encoder
    (non-causal; SDPA non-causal beside it) and the internvl2-1b prefill
    (n_rep 7), its launches summed over the prefills and whisper's
    ``prefill_memory``; ``moe_combine`` also at the dbrx group and with a
-   fully dense combine, each beside ``torch.matmul``; time an empty kernel
+   fully dense combine, each beside ``torch.matmul``; ``decode_attention``
+   at both benchmark cells' decode shapes (``DECODE_SHAPES``; the ``timing
+   decode_attention`` lines) beside its plain version, the masked einsum it
+   replaced on the model path and SDPA over the valid slots, its launches
+   the batch-8 olmo-1b ``Server``'s (one a layer a step); time an empty kernel
    the same way (the ``launch floor`` line) and state each kernel's time as
    a multiple of it (``floor_multiple`` in its ``timing`` line); time
    ``segmented_gather``, ``densify_map`` and their shard kernels also on an
@@ -438,6 +442,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -468,7 +473,7 @@ BLOCK_SHAPES = [(1, 1, 128), (8, 10, 128), (37, 300, 256), (130, 1000, 384),
                 (256, 128, 128), (9, 20, 130)]
 KERNEL_NAMES = ("segmented_gather", "densify_map", "masked_gather", "onehot_map",
                 "flash_attention", "moe_combine", "segmented_gather_shard",
-                "densify_map_shard")
+                "densify_map_shard", "decode_attention")
 SHARDS = 4  # the sharded paths' shards, all on the one card
 PEAK_BF16_PER_S = 989e12  # H100 SXM bf16 dense tensor-core peak, NVIDIA's data sheet
 COLD_BYTES = 190e6  # operands rotated for a cold time: past the 50 MB L2
@@ -1077,12 +1082,13 @@ class DispatchLog:
 def _counters():
     """(wrapper module, counter name) of each kernel, in ``KERNEL_NAMES``
     order: a shard kernel's wrapper sits beside its base kernel's."""
-    from repro_torch.kernels import (densify_map, flash_attention, masked_gather,
-                                     moe_combine, onehot_map, segmented_gather)
+    from repro_torch.kernels import (decode_attention, densify_map, flash_attention,
+                                     masked_gather, moe_combine, onehot_map, segmented_gather)
     return ((segmented_gather, "launches"), (densify_map, "launches"),
             (masked_gather, "launches"), (onehot_map, "launches"),
             (flash_attention, "launches"), (moe_combine, "launches"),
-            (segmented_gather, "shard_launches"), (densify_map, "shard_launches"))
+            (segmented_gather, "shard_launches"), (densify_map, "shard_launches"),
+            (decode_attention, "launches"))
 
 
 def _launch_counts():
@@ -5495,6 +5501,84 @@ def measure_flash_attention(n, s, hd, n_rep, causal=True):
     return out
 
 
+# the benchmark's decode attention shapes: (B, T, KV, Hg, hd, n_valid), the
+# middle of a window job (bench/traffic: olmo's last 128 of 2,048 positions,
+# dbrx's 16 + 240 over 256 slots)
+DECODE_SHAPES = {"gen.olmo-1b.long": (128, 2048, 16, 1, 128, 1984),
+                 "gen.dbrx-132b-s8.short": (128, 256, 8, 6, 128, 136)}
+
+
+def measure_decode_attention(b, t, kv, hg, hd, n_valid) -> dict:
+    """``decode_attention`` (bfloat16, one split as the model path plans it)
+    at a benchmark cell's shape, hot and cold, beside its bound (the valid
+    slots of K and V read once, q read and the output written once; the
+    scores' and p.v's operations), its plain version, the masked einsum over
+    the whole cache that the model ran before it (``_sdpa``), and
+    ``F.scaled_dot_product_attention`` over the valid slots (timed here only,
+    as the library's yardstick).  Checks the kernel against the plain
+    version computed in float32: within one rounding to bfloat16 (2^-8 of
+    the value)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.models import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    h = kv * hg
+    q = torch.randn((b, h, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, t, kv, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, t, kv, hd), generator=g, device=dev).to(torch.bfloat16)
+    splits = DA.plan_splits(b * kv, n_valid, DA.sm_count(dev))
+    got = DA.decode_attention(q, k, v, n_valid, splits=splits)
+    want = decode_attention_ref(q.float(), k.float(), v.float(), n_valid)
+    excess = float(((got.float() - want).abs() - 2 ** -8 * want.abs()).max())
+    if excess > 2e-6:
+        raise AssertionError(f"decode_attention != plain at {(b, t, kv, hg, hd, n_valid)}: "
+                             f"{excess} past one bfloat16 rounding")
+    err = float((got.float() - want).abs().max())
+    del want
+    cfg = SimpleNamespace(cdtype=torch.bfloat16)
+    mask = torch.where(torch.arange(t, device=dev) < n_valid, 0.0, A.NEG_INF).to(
+        torch.float32)[None, None, :]
+
+    def kernel(q, k, v):
+        return DA.decode_attention(q, k, v, n_valid, splits=splits)
+
+    def plain(q, k, v):
+        return decode_attention_ref(q, k, v, n_valid)
+
+    def einsum(q, k, v):
+        return A._sdpa(q[:, None], k, v, mask, cfg)
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k[:, :n_valid].transpose(1, 2), v[:, :n_valid].transpose(1, 2),
+            enable_gqa=hg > 1)[:, :, 0]
+
+    ops = (q, k, v)
+    ms, eager, cold = hot_and_cold_ms(kernel, ops, iters=20)
+    plain_ms, _ = time_ms(lambda: plain(*ops), iters=3, reps=3)
+    einsum_ms, _ = time_ms(lambda: einsum(*ops), iters=3, reps=3)
+    lib_ms, _ = time_ms(lambda: library(*ops), iters=10)
+    size = q.element_size()
+    n_bytes = 2 * b * n_valid * kv * hd * size + 2 * b * h * hd * size
+    flops = 4 * b * n_valid * h * hd
+    bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    return {
+        "shape": {"B": b, "T": t, "KV": kv, "Hg": hg, "hd": hd, "n_valid": n_valid,
+                  "dtype": "bfloat16", "splits": splits},
+        "max_abs_err": err, "ms": ms, "eager_ms": eager, "cold_ms": cold,
+        "plain_ms": plain_ms, "einsum_ms": einsum_ms, "library_ms": lib_ms,
+        "bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_ms": bound, "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+        "bound_share": bound / ms, "cold_bound_share": bound / cold,
+        "library_bound_share": bound / lib_ms, "tb_per_s": n_bytes / cold * 1e-9,
+    }
+
+
 def moe_bound(cw, eo, fp32_peak) -> dict:
     """The least time one ``moe_combine`` call could take on this data.
     Bytes: every element of combine and of expert_out read once and the
@@ -6250,6 +6334,12 @@ def main() -> int:
                               "library_bound_share", "tflops")}
     meas["flash_attention"]["other_prefills"] = flash_prefills
     meas["moe_combine"] = measure_moe_combine(peak)
+    decode_shapes = {}
+    for name, shape in DECODE_SHAPES.items():
+        decode_shapes[name] = measure_decode_attention(*shape)
+        print(f"timing decode_attention {name}: {json.dumps(decode_shapes[name])}", flush=True)
+    meas["decode_attention"] = dict(decode_shapes["gen.olmo-1b.long"], other_shapes={
+        k: m for k, m in decode_shapes.items() if k != "gen.olmo-1b.long"})
     floor = launch_floor()
     print(f"launch floor: {json.dumps(floor)} (an empty kernel, graph-replayed)", flush=True)
     for m in (*meas.values(), *meas_big.values()):
@@ -6267,6 +6357,9 @@ def main() -> int:
                                  "src/repro/kernels/flash_attention.py:93", "prefill")
     origin["moe_combine"] = ("src/repro_torch/kernels/csrc/moe_combine.cu",
                              "src/repro/kernels/moe_combine.py:53", None)
+    # replaces no TPU kernel: the reference decodes with a masked einsum
+    origin["decode_attention"] = ("src/repro_torch/kernels/csrc/decode_attention.cu", None,
+                                  "decode")
     # launches on the main paths: the consume paths' runs, the prefills'
     # (one a layer: olmo-1b 16, qwen3-moe 48, dbrx cut to 2 layers 2,
     # whisper-tiny 4 + 4 and its prefill_memory 4, internvl2-1b 24; over
@@ -6296,6 +6389,9 @@ def main() -> int:
                       "olmo-1b model mesh feeds": meshed["segmented_gather_launches"]}
     path_launches["segmented_gather"] = sum(gather_by_path.values())
     path_launches["moe_combine"] = 0
+    # decode_attention: the batch-8 olmo-1b Server's decode steps (serving (c)),
+    # one launch a layer a step
+    path_launches["decode_attention"] = serving["server"]["launches"]["decode_attention"]
     kernels = []
     for name, m in meas.items():
         source, replaces, _ = origin[name]

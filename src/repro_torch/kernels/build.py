@@ -35,7 +35,7 @@ __all__ = [
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("segmented_gather", "densify_map", "masked_gather", "onehot_map",
-           "flash_attention", "moe_combine")
+           "flash_attention", "moe_combine", "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

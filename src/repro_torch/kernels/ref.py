@@ -13,7 +13,8 @@ arithmetic on values), so a kernel and its plain version agree bit for bit.
 multiply and a sum, never a matrix unit that a TF32 setting could reach);
 its kernel sums in another order, so values agree within ``atol=1e-5`` and
 masks bit for bit.  The model kernels' plain versions,
-:func:`attention_ref` and :func:`moe_combine_ref`, compute in float32 and
+:func:`attention_ref`, :func:`decode_attention_ref` and
+:func:`moe_combine_ref`, compute in float32 and
 round once to the output dtype; their kernels sum in another order, so they
 are held to the tolerances of the reference's own kernel tests.
 """
@@ -36,6 +37,7 @@ __all__ = [
     "densify_map_packed_ref",
     "densify_map_shard_ref",
     "attention_ref",
+    "decode_attention_ref",
     "moe_combine_ref",
 ]
 
@@ -339,3 +341,17 @@ def attention_ref(
         scores = torch.where(keep[None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs, vv).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         n_valid: int) -> torch.Tensor:
+    """One query token a row, q (B, H, hd), against slots ``0 .. n_valid -
+    1`` of a KV cache k, v (B, T, KV, hd), query head ``h`` reading KV head
+    ``h // (H / KV)``: softmax(q k^T / sqrt(hd)) v in float32, rounded once
+    to q's dtype."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bghd,btgd->bght", qg, k[:, :n_valid].float()) / math.sqrt(hd)
+    out = torch.einsum("bght,btgd->bghd", torch.softmax(s, dim=-1), v[:, :n_valid].float())
+    return out.reshape(B, H, hd).to(q.dtype)

@@ -20,6 +20,13 @@ over its own slots and combines the ranks' partial softmaxes
 (:func:`~repro_torch.sharding.comm.softmax_combine`), then takes ``wo``'s
 rows of its query heads where they split; ``"whole"`` repeats it all.
 
+On the card, a one-token query off a time split (decode, and
+cross-attention's decode step) reads the cache's valid slots where they
+lie through the hand-written decode kernel (:func:`repro_torch.kernels.
+decode_attention.decode_attention`, one launch a layer at the benchmark's
+shapes) in place of the masked einsum over the whole cache; the CPU,
+training and the time split keep the einsum (:func:`_attend_cache`).
+
 ``cfg.attn_impl`` picks the full-sequence algorithm: ``"dense"`` (the whole
 score matrix), ``"chunked"`` (online softmax over key chunks) or
 ``"pallas"``, the hand-written Hopper flash kernel through
@@ -30,12 +37,13 @@ windowed layers take the dense path, as in the reference).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from .. import spans
 from ..kernels import ops as kops
+from ..kernels.decode_attention import decode_attention, plan_splits, sm_count
 from ..sharding import comm
 from .config import ModelConfig
 from .layers import rope, split_group, trunc_normal
@@ -232,24 +240,40 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int, layers: int,
     }
 
 
-def _attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: Optional[torch.Tensor], cfg: ModelConfig, group=None) -> torch.Tensor:
-    """:func:`_sdpa` of q (B, S, H, hd) over a cache k, v (B, T, KV, hd);
-    with ``group``, the cache is this rank's slice of the time axis and the
-    ranks' partial softmaxes are combined (float32 throughout)."""
-    if group is None:
-        return _sdpa(q, k, v, mask, cfg)
+def _attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                  group=None, *, n_valid: Optional[int] = None,
+                  mask: Optional[Callable[[], torch.Tensor]] = None) -> Tuple[torch.Tensor, int]:
+    """Attention of q (B, S, H, hd) over the first ``n_valid`` slots (all
+    when None) of a cache k, v (B, T, KV, hd), and the split over the slots
+    the decode kernel took (0 where it did not run).
+
+    A one-token query on the card off a time split (no ``group``) reads
+    the valid slots where they lie through the hand-written decode kernel
+    (:func:`~repro_torch.kernels.decode_attention.decode_attention`), which
+    builds no mask.  Everything else (the CPU, S > 1, a time split) takes
+    :func:`_sdpa` over the whole cache with the additive mask that
+    ``mask()`` makes (no mask when None); with ``group``, the cache is this
+    rank's slice of the time axis and the ranks' partial softmaxes are
+    combined (float32 throughout)."""
     B, S, H, hd = q.shape
+    if group is None and S == 1 and q.is_cuda:
+        n = k.shape[1] if n_valid is None else n_valid
+        splits = plan_splits(B * k.shape[2], n, sm_count(q.device))
+        out = decode_attention(q.reshape(B, H, hd), k, v, n, splits=splits)
+        return out.reshape(B, 1, H * hd), splits
+    m_add = mask() if mask is not None else None
+    if group is None:
+        return _sdpa(q, k, v, m_add, cfg), 0
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd)
     s = torch.einsum("bsghd,btgd->bghst", qg, k).to(torch.float32) / math.sqrt(hd)
-    if mask is not None:
-        s = s + (mask if mask.dim() == 3 else mask[None])[:, None, None, :, :]
+    if m_add is not None:
+        s = s + (m_add if m_add.dim() == 3 else m_add[None])[:, None, None, :, :]
     m = torch.amax(s, dim=-1)
     p = torch.exp(s - m[..., None])
     o = torch.einsum("bghst,btgd->bghsd", p, v.to(torch.float32))
     out = comm.softmax_combine(m, torch.sum(p, dim=-1), o, group)  # (B, KV, Hg, S, hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd).to(cfg.cdtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd).to(cfg.cdtype), 0
 
 
 def _split_mode(sh, cfg: ModelConfig, kv_split: Optional[str]):
@@ -326,21 +350,27 @@ def attention_decode(
         with spans.span("attn.cache_read"):
             # slots that hold a position <= pos: the first min(pos + 1, T) of
             # the whole cache, rolling window or not; this rank's share of them
+            n_valid = max(0, min(pos + 1, first + T_loc) - first)
             spans.note("rows", x.shape[0])
-            spans.note("slots_valid", max(0, min(pos + 1, first + T_loc) - first))
+            spans.note("slots_valid", n_valid)
             spans.note("slots", T_loc)
-            # key validity: slot j holds absolute position (for rolling buffers the
-            # newest T positions), attendable iff its absolute position <= pos
-            j = torch.arange(first, first + T_loc, device=x.device)
-            if window:
-                # rolling: absolute position of slot j is the largest value <= pos
-                # congruent to j (mod T); valid once written (pos - abs < window <= T)
-                abs_pos = pos - torch.remainder(pos - j, T)
-                valid = abs_pos >= 0
-            else:
-                valid = j <= pos
-            mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, None, :]
-            out = _attend_cache(q, cache_k, cache_v, mask, cfg, group if mode == "time" else None)
+
+            def mask() -> torch.Tensor:
+                # key validity: slot j holds absolute position (for rolling buffers the
+                # newest T positions), attendable iff its absolute position <= pos
+                j = torch.arange(first, first + T_loc, device=x.device)
+                if window:
+                    # rolling: absolute position of slot j is the largest value <= pos
+                    # congruent to j (mod T); valid once written (pos - abs < window <= T)
+                    valid = pos - torch.remainder(pos - j, T) >= 0
+                else:
+                    valid = j <= pos
+                return torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, None, :]
+
+            out, splits = _attend_cache(q, cache_k, cache_v, cfg,
+                                        group if mode == "time" else None,
+                                        n_valid=n_valid, mask=mask)
+            spans.note("splits", splits)
         with spans.span("attn.out_proj"):
             out = _out_proj(out, p, cfg, ts, mode, group)
     return out, cache_k, cache_v
@@ -372,7 +402,7 @@ def cross_attention(
     if mode == "heads":
         x = comm.copy_to_model(x, group)
     q = torch.matmul(x, p["wq"].to(cfg.cdtype)).reshape(B, S, -1, cfg.hd)
-    out = _attend_cache(q, mem_k, mem_v, None, cfg, group if mode == "time" else None)
+    out, _ = _attend_cache(q, mem_k, mem_v, cfg, group if mode == "time" else None)
     if sh is not None:
         out = sh.act_heads(out)
     return _out_proj(out, p, cfg, ts, mode, group)

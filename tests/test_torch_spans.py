@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 import repro_torch.configs as TC
 from repro_torch import spans
+from repro_torch.kernels.decode_attention import plan_splits, sm_count
 from repro_torch.models import model as M
 from repro_torch.models.moe import _capacity
 from repro_torch.serve.decode import make_serve_step
@@ -41,11 +42,14 @@ def _profiled(device):
     return profile(activities=acts)
 
 
-def _tree(cfg, pos):
-    """[(name, parent's name, counts)] of one decode step at ``pos``."""
+def _tree(cfg, pos, splits=0):
+    """[(name, parent's name, counts)] of one decode step at ``pos``;
+    ``splits``: the decode kernel's split over the slots (0 on the CPU,
+    which reads the cache through the einsum)."""
     attn = [("attn", "model.decode", {}), ("attn.qkv", "attn", {}),
             ("attn.cache_write", "attn", {}),
-            ("attn.cache_read", "attn", {"rows": B, "slots_valid": min(pos + 1, T), "slots": T}),
+            ("attn.cache_read", "attn", {"rows": B, "slots_valid": min(pos + 1, T), "slots": T,
+                                         "splits": splits}),
             ("attn.out_proj", "attn", {})]
     if cfg.is_moe:
         rows = cfg.n_experts * B * _capacity(1, cfg)
@@ -278,7 +282,7 @@ def test_on_the_card_spans_add_no_sync_no_event_off_and_no_kernel(arch, card, mo
         finally:
             torch.cuda.set_sync_debug_mode(0)
     recs = spans.records()
-    assert _seen(recs) == _tree(cfg, 2)
+    assert _seen(recs) == _tree(cfg, 2, plan_splits(B * cfg.n_kv_heads, 3, sm_count(card)))
     for s in recs:
         assert s.device_start_ms <= s.device_end_ms
         if s.parent >= 0:
